@@ -2,21 +2,33 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, full-frame PCA-ADI, on the card through the
-entry points a user calls (``ops.pipeline.pca_adi_pipeline`` and the
-public ``psfsub.pca``) at bench.py's full size: a 1000x512x512 float32
-cube of seeded random frames. Phases, one line each:
+Drives the port's paths on the card through the entry points a user
+calls, at bench.py's full size: a 1000x512x512 float32 cube of seeded
+random frames. Full-frame PCA-ADI (``ops.pipeline.pca_adi_pipeline`` with
+the exact and the fft-small rotation, and the public ``psfsub.pca``) and
+annular PCA (the public ``psfsub.pca_annular``, bench.py's annular leg:
+ncomp 10, fwhm 4, asize 4, 'vip-fft-small'). Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``vip_tpu_torch/csrc`` with nvcc;
 3. H1 (radix-select median) against its plain version, bit for bit, and
    against numpy's nanmedian/median within 1 ulp;
-4. H2 (FFT-shear rotation) against its plain version at float32 and at
-   float64 on the card;
-5. main path: both entry points, with the kernels' launch counts, against
-   the same steps through the plain versions on the card, plus a small
-   input against the float64 CPU parity mode;
-6. timings, kernel beside plain, warm median of 3.
+4. H2 (exact FFT-shear rotation) against its plain version at float32 and
+   at float64 on the card, on 512² frames (N = 2048) and on 160² frames
+   (the mixed-radix canvas N = 640);
+5. H3 (fft-small FFT-shear rotation) against its plain version at float32
+   and at float64, on 125 FoV-masked 512² frames on the 640 canvas;
+6. main path, exact rotation: both full-frame entry points, with the
+   kernels' launch counts, against the same steps through the plain
+   versions on the card;
+7. main path, fft-small: ``pca_adi_pipeline`` (chunk 125) and
+   ``pca_annular``, each with its launch counts, against the plain
+   derotation and plain median of its own residual cube;
+8. small inputs through the kernels against the float64 CPU parity mode:
+   full-frame PCA, and the device-resident annular PCA with both
+   rotations;
+9. timings, kernel beside plain, warm median of 3, and a torch.profiler
+   table of one ``pca_annular`` run.
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises, and the script
@@ -44,6 +56,15 @@ PIPE_TOL = 1e-5
 # A small cube through the kernels at float32 against the CPU float64
 # path: the float32 SVD and projections dominate (measured 5.3e-5).
 SMALL_TOL = 1e-4
+# The fft-small leg: bench.py's chunk for pca_adi_pipeline, and the
+# annular leg's parameters (bench.py:553-567)
+SMALL_CHUNK = 125
+ANN = dict(ncomp=NCOMP, fwhm=4, asize=4, delta_rot=(0.1, 1), n_segments=1)
+# The resident annular path on a small cube, CUDA float32 against CPU
+# float64: float32 Gram matrices over the segment pixels and a float32
+# eigh of each frame's (L, L) library Gram, then a median. Measured
+# 4.9e-5 on the H100 with either rotation (PERF.md); 4x margin.
+SMALL_ANN_TOL = 2e-4
 
 
 def _require(cond, msg):
@@ -135,8 +156,8 @@ def phase_median(cube):
 
 
 def phase_rotation():
-    """H2 on 50 frames of 512^2 with angles in all four quadrants,
-    including 45 and 90 degrees exactly."""
+    """H2 on 50 frames of 512^2 and on 125 frames of 160^2, with angles in
+    all four quadrants, including 45 and 90 degrees exactly."""
     from vip_tpu_torch.ops.fft import rotate_fft_exact_pruned
     from vip_tpu_torch.ops.shear import rotate_fft_exact_fused
     from vip_tpu_torch.preproc.derotation import _fft_rotate_geometry
@@ -145,25 +166,101 @@ def phase_rotation():
     frames = torch.as_tensor(
         rng.standard_normal((CHUNK, SIZE, SIZE)).astype(np.float32),
         device=DEVICE)
-    angles = np.linspace(-190.0, 350.0, CHUNK)
-    angles[:8] = [0.0, 45.0, 90.0, 135.0, 180.0, 225.0, 270.0, -45.0]
-    angles = torch.as_tensor(angles.astype(np.float32), device=DEVICE)
+    angles = _angles(CHUNK)
     pad_y, _, py0, px0, cy0, cy1, cx0, cx1 = _fft_rotate_geometry(SIZE, SIZE)
     geom = (pad_y, py0, px0, cy0, cy1, cx0, cx1)
 
-    got = rotate_fft_exact_fused(frames, angles, *geom)
-    ref32 = rotate_fft_exact_pruned(frames, angles, *geom)
-    ref64 = rotate_fft_exact_pruned(frames.double(), angles.double(), *geom)
+    err = _check_rotation("H2 rotate_fft_exact_fused", frames, angles,
+                          lambda f, a: rotate_fft_exact_fused(f, a, *geom),
+                          lambda f, a: rotate_fft_exact_pruned(f, a, *geom))
+
+    # the mixed-radix canvas N = 640 = 5 x 128 (160^2 frames)
+    frames160 = torch.as_tensor(
+        rng.standard_normal((SMALL_CHUNK, 160, 160)).astype(np.float32),
+        device=DEVICE)
+    angles160 = _angles(SMALL_CHUNK)
+    g160 = _fft_rotate_geometry(160, 160)
+    geom160 = (g160[0],) + g160[2:]
+    _require(geom160[0] == 640, f"canvas of 160^2 is {geom160[0]}")
+    err160 = _check_rotation(
+        "H2 rotate_fft_exact_fused 160^2 (N=640)", frames160, angles160,
+        lambda f, a: rotate_fft_exact_fused(f, a, *geom160),
+        lambda f, a: rotate_fft_exact_pruned(f, a, *geom160))
+    return (frames, angles, geom, frames160, angles160, geom160,
+            max(err, err160))
+
+
+def _angles(n):
+    """Angles over all four quadrants, with 0, 45, 90, ... exactly."""
+    angles = np.linspace(-190.0, 350.0, n)
+    angles[:8] = [0.0, 45.0, 90.0, 135.0, 180.0, 225.0, 270.0, -45.0]
+    return torch.as_tensor(angles.astype(np.float32), device=DEVICE)
+
+
+def _check_rotation(name, frames, angles, kernel, plain):
+    """A rotation kernel against its plain version at float32 and at
+    float64, at ROT_TOL of max(|ref|, 1). Returns the larger error."""
+    got = kernel(frames, angles)
+    ref32 = plain(frames, angles)
+    ref64 = plain(frames.double(), angles.double())
     torch.cuda.synchronize()
     err32, s32 = _rel_err(got, ref32)
     err64, s64 = _rel_err(got, ref64)
     plain_err, _ = _rel_err(ref32, ref64)
-    print(f"H2 rotate_fft_exact_fused vs plain: max abs err {err32:.3e} "
-          f"(f32 plain), {err64:.3e} (f64 plain); plain f32 vs f64 "
-          f"{plain_err:.3e}; bound {ROT_TOL:.0e} x {s64:.3f}", flush=True)
-    _require(err32 <= ROT_TOL * s32, "H2 disagrees with the f32 plain path")
-    _require(err64 <= ROT_TOL * s64, "H2 disagrees with the f64 plain path")
-    return frames, angles, geom, max(err32, err64)
+    print(f"{name} vs plain: max abs err {err32:.3e} (f32 plain), "
+          f"{err64:.3e} (f64 plain); plain f32 vs f64 {plain_err:.3e}; "
+          f"bound {ROT_TOL:.0e} x {s64:.3f}", flush=True)
+    _require(err32 <= ROT_TOL * s32, f"{name} disagrees with f32 plain")
+    _require(err64 <= ROT_TOL * s64, f"{name} disagrees with f64 plain")
+    return max(err32, err64)
+
+
+def _small_canvas(frames):
+    """FoV-mask and pad (n, sz, sz) frames onto the fft-small kernel's
+    canvas, as ``ops.pipeline._derotate_frames`` does. Returns (canvas,
+    margin)."""
+    sz = frames.shape[-1]
+    pad_to = -(-int(sz * 1.25) // 128) * 128
+    m0 = (pad_to - sz) // 2
+    qq = torch.arange(sz, device=frames.device) - sz / 2
+    fov = (qq[:, None] ** 2 + qq[None, :] ** 2) < (sz / 2) ** 2
+    padded = torch.nn.functional.pad(torch.where(fov, frames, 0.0),
+                                     (m0, pad_to - sz - m0, m0,
+                                      pad_to - sz - m0))
+    return padded, m0
+
+
+def _plain_small_derotate(cube, angles, chunk):
+    """The fft-small derotation through the plain version of H3, chunk by
+    chunk, on the kernel's canvas."""
+    from vip_tpu_torch.ops.fft import rotate_fft_small_plain
+
+    n, sz = cube.shape[0], cube.shape[-1]
+    out = torch.empty_like(cube)
+    for s in range(0, n, chunk):
+        padded, m0 = _small_canvas(cube[s:s + chunk])
+        rot = rotate_fft_small_plain(padded, -angles[s:s + chunk])
+        out[s:s + chunk] = rot[:, m0:m0 + sz, m0:m0 + sz]
+    return out
+
+
+def phase_small_rotation():
+    """H3 on 125 FoV-masked 512^2 frames on the 640 canvas, angles in all
+    four quadrants."""
+    from vip_tpu_torch.ops.fft import rotate_fft_small_plain
+    from vip_tpu_torch.ops.shear import rotate_fft_small_fused
+
+    rng = np.random.default_rng(4)
+    frames = torch.as_tensor(
+        rng.standard_normal((SMALL_CHUNK, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    canvas, _ = _small_canvas(frames)
+    _require(canvas.shape[-1] == 640, f"fft-small canvas {canvas.shape}")
+    angles = _angles(SMALL_CHUNK)
+    err = _check_rotation("H3 rotate_fft_small_fused (N=640)", canvas,
+                          angles, rotate_fft_small_fused,
+                          rotate_fft_small_plain)
+    return canvas, angles, err
 
 
 def _plain_pipeline(cube, angles):
@@ -228,6 +325,153 @@ def phase_main_path(cube, angles_np):
     return counts, run, lambda: _plain_pipeline(cube, angles)
 
 
+def phase_small_pipeline(cube, angles_np):
+    """``pca_adi_pipeline`` with the fft-small rotation in chunks of 125:
+    H3 three times a chunk, H1 once, against the same steps through the
+    plain versions."""
+    from vip_tpu_torch.ops import median, shear
+    from vip_tpu_torch.ops.linalg import svd_top
+    from vip_tpu_torch.ops.median import nanmedian_plain
+    from vip_tpu_torch.ops.pipeline import pca_adi_pipeline
+
+    angles = torch.as_tensor(angles_np, device=DEVICE)
+
+    def run():
+        return pca_adi_pipeline(cube, angles, ncomp=NCOMP, method="eigen",
+                                collapse="median", rot_mode="fft-small",
+                                chunk=SMALL_CHUNK)
+
+    median.launches = shear.launches = shear.small_launches = 0
+    frame = run()
+    torch.cuda.synchronize()
+    counts = {"H1": median.launches, "H2": shear.launches,
+              "H3": shear.small_launches}
+    nch = -(-N_FRAMES // SMALL_CHUNK)
+    _require(counts["H3"] == 3 * nch,
+             f"H3 launches {counts['H3']} != 3 x {nch}")
+    _require(counts["H1"] >= 1, "H1 was not launched on the fft-small path")
+
+    n = cube.shape[0]
+    M = cube.reshape(n, -1)
+    V = svd_top(M, NCOMP, method="eigen")
+    resid = (M - (M @ V.T) @ V).reshape(cube.shape)
+    ref = nanmedian_plain(_plain_small_derotate(resid, angles, SMALL_CHUNK),
+                          0)
+    torch.cuda.synchronize()
+    _require(tuple(frame.shape) == (SIZE, SIZE)
+             and bool(torch.isfinite(frame).all()),
+             "fft-small pipeline: not a finite frame")
+    err, scale = _rel_err(frame, ref)
+    print(f"fft-small pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} chunk "
+          f"{SMALL_CHUNK}: launches {counts}; max abs err vs plain steps "
+          f"{err:.3e}; bound {PIPE_TOL:.0e} x {scale:.3f}", flush=True)
+    _require(err <= PIPE_TOL * scale, "fft-small pipeline disagrees with "
+             "its plain steps")
+    return run
+
+
+def phase_annular(cube, angles_np):
+    """Annular PCA through the public ``pca_annular`` (device-resident
+    branch, fft-small derotation): H3 for every derotation chunk and H1
+    for the collapse; the frame against the plain derotation and plain
+    median of its own residual cube."""
+    from vip_tpu_torch.ops import median, shear
+    from vip_tpu_torch.ops.median import nanmedian_plain
+    from vip_tpu_torch.psfsub import pca_annular
+    from vip_tpu_torch.psfsub.pca_local import _resident_chunk
+
+    def run(full_output=False):
+        return pca_annular(cube, angles_np, imlib="vip-fft-small",
+                           full_output=full_output, verbose=False, **ANN)
+
+    median.launches = shear.launches = shear.small_launches = 0
+    t0 = time.perf_counter()
+    cube_out, cube_der, frame = run(full_output=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"H1": median.launches, "H2": shear.launches,
+              "H3": shear.small_launches}
+    chunk = _resident_chunk(N_FRAMES, SIZE, "fft-small")
+    nch = -(-N_FRAMES // chunk)
+    _require(counts["H3"] == 3 * nch,
+             f"pca_annular: H3 launches {counts['H3']} != 3 x {nch}")
+    _require(counts["H1"] == 1, f"pca_annular: H1 launches {counts['H1']}")
+    _require(counts["H2"] == 0, "pca_annular fft-small launched H2")
+    for name, arr, shape in (("frame", frame, (SIZE, SIZE)),
+                             ("cube_out", cube_out, tuple(cube.shape)),
+                             ("cube_der", cube_der, tuple(cube.shape))):
+        _require(tuple(arr.shape) == shape and arr.is_cuda
+                 and bool(torch.isfinite(arr).all()),
+                 f"pca_annular {name}: not a finite {shape} CUDA tensor")
+
+    angles = torch.as_tensor(angles_np, device=DEVICE)
+    der_plain = _plain_small_derotate(cube_out, angles, chunk)
+    ref = nanmedian_plain(der_plain, 0)
+    torch.cuda.synchronize()
+    err, scale = _rel_err(frame, ref)
+    err_der, _ = _rel_err(cube_der, der_plain)
+    print(f"pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small: launches "
+          f"{counts} (derotation chunk {chunk}); first call {wall:.4f} s; "
+          f"frame vs plain derotation + plain median of its cube_out: max "
+          f"abs err {err:.3e} (derotated cube {err_der:.3e}); bound "
+          f"{PIPE_TOL:.0e} x {scale:.3f}", flush=True)
+    _require(err <= PIPE_TOL * scale, "pca_annular frame disagrees with its "
+             "plain steps")
+    del cube_out, cube_der, der_plain
+    return counts, run
+
+
+def phase_small_annular_reference():
+    """The device-resident annular path (>= 128 frames) on a small cube,
+    through the kernels (CUDA, float32), against the float64 CPU parity
+    mode, which the tests hold against vip_tpu; 'vip-fft' must launch H2,
+    'vip-fft-small' H3, both H1."""
+    from vip_tpu_torch.ops import median, shear
+    from vip_tpu_torch.ops.median import nanmedian_plain
+    from vip_tpu_torch.psfsub import pca_annular
+
+    rng = np.random.default_rng(5)
+    n, y = 128, 64
+    yy, xx = np.mgrid[:y, :y] - y / 2
+    halo = 20 * np.exp(-(yy ** 2 + xx ** 2) / (2 * 10.0 ** 2))
+    speckle = rng.standard_normal((3, y, y))
+    weights = rng.standard_normal((n, 3)) * np.array([3.0, 1.5, 0.7])
+    cube = halo + np.einsum("nk,kyx->nyx", weights, speckle) \
+        + 0.3 * rng.standard_normal((n, y, y))
+    angles = np.linspace(0.0, 60.0, n)
+    kw = dict(ncomp=3, fwhm=4, asize=4, n_segments=1, verbose=False)
+    worst = 0.0
+    for imlib, kernel in (("vip-fft", "H2"), ("vip-fft-small", "H3")):
+        median.launches = shear.launches = shear.small_launches = 0
+        got = pca_annular(torch.as_tensor(cube, dtype=torch.float32,
+                                          device=DEVICE), angles,
+                          imlib=imlib, **kw)
+        torch.cuda.synchronize()
+        counts = {"H1": median.launches, "H2": shear.launches,
+                  "H3": shear.small_launches}
+        _require(counts["H1"] == 1 and counts[kernel] >= 3,
+                 f"pca_annular {imlib}: launches {counts}")
+        if imlib == "vip-fft":
+            ref = pca_annular(torch.as_tensor(cube), angles, imlib=imlib,
+                              **kw)
+        else:
+            # the CPU's fft-small route is vip_tpu's packed path, another
+            # function: derotate the CPU residual cube through H3's plain
+            # version on H3's canvas instead
+            res64 = pca_annular(torch.as_tensor(cube), angles, imlib=imlib,
+                                full_output=True, **kw)[0]
+            ref = nanmedian_plain(_plain_small_derotate(
+                res64, torch.as_tensor(angles), n), 0)
+        err, scale = _rel_err(got.cpu(), ref)
+        worst = max(worst, err / scale)
+        print(f"small annular {n}x{y}x{y} {imlib}: launches {counts}; CUDA "
+              f"f32 kernels vs CPU f64 plain: max abs err {err:.3e} (bound "
+              f"{SMALL_ANN_TOL:.0e} x {scale:.3f})", flush=True)
+        _require(err <= SMALL_ANN_TOL * scale,
+                 f"small annular {imlib} disagrees with CPU f64")
+    return worst
+
+
 def phase_small_reference():
     """A small cube through the kernels (CUDA, float32) against the
     float64 CPU parity mode, which the tests hold against vip_tpu. The
@@ -252,6 +496,22 @@ def phase_small_reference():
     _require(err <= SMALL_TOL * scale, "small cube disagrees with CPU f64")
 
 
+def _profile_table(fn, rows=15):
+    """torch.profiler over one call of ``fn``: wall seconds and the top
+    rows by device self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=rows, max_name_column_width=48)
+    return wall, table
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -263,13 +523,21 @@ def main():
     del cube_np
 
     h1_err = phase_median(cube)
-    frames, rot_angles, geom, h2_err = phase_rotation()
+    (frames, rot_angles, geom, frames160, angles160, geom160,
+     h2_err) = phase_rotation()
+    canvas, small_angles, h3_err = phase_small_rotation()
     counts, run_kernel, run_plain = phase_main_path(cube, angles_np)
+    run_small = phase_small_pipeline(cube, angles_np)
+    ann_counts, run_annular = phase_annular(cube, angles_np)
     phase_small_reference()
+    phase_small_annular_reference()
 
-    from vip_tpu_torch.ops.fft import rotate_fft_exact_pruned
+    from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
+                                       rotate_fft_fast_batch,
+                                       rotate_fft_small_plain)
     from vip_tpu_torch.ops.median import nanmedian_axis0, nanmedian_plain
-    from vip_tpu_torch.ops.shear import rotate_fft_exact_fused
+    from vip_tpu_torch.ops.shear import (rotate_fft_exact_fused,
+                                         rotate_fft_small_fused)
 
     t_h1 = _sync_time(lambda: nanmedian_axis0(cube))
     t_h1p = _sync_time(lambda: nanmedian_plain(cube, 0))
@@ -277,15 +545,54 @@ def main():
                                                      *geom))
     t_h2p = _sync_time(lambda: rotate_fft_exact_pruned(frames, rot_angles,
                                                        *geom))
+    t_h2m = _sync_time(lambda: rotate_fft_exact_fused(frames160, angles160,
+                                                      *geom160))
+    t_h2mp = _sync_time(lambda: rotate_fft_exact_pruned(frames160, angles160,
+                                                        *geom160))
+    m0 = (canvas.shape[-1] - SIZE) // 2
+    t_h3 = _sync_time(lambda: rotate_fft_small_fused(canvas, small_angles))
+    t_h3p = _sync_time(lambda: rotate_fft_small_plain(canvas, small_angles))
+    t_h3k = _sync_time(lambda: rotate_fft_fast_batch(
+        canvas, small_angles, support_rows=(m0, SIZE + 1)))
     t_e2e = _sync_time(run_kernel)
     t_e2ep = _sync_time(run_plain)
+
+    def run_packed():
+        before = os.environ.get("VIP_SMALL_SHEAR")
+        os.environ["VIP_SMALL_SHEAR"] = "packed"
+        try:
+            return run_small()
+        finally:
+            if before is None:
+                del os.environ["VIP_SMALL_SHEAR"]
+            else:
+                os.environ["VIP_SMALL_SHEAR"] = before
+
+    t_small = _sync_time(run_small)
+    t_packed = _sync_time(run_packed)
+    t_small2 = _sync_time(run_small)
+    t_ann = _sync_time(run_annular, reps=2)
+    prof_wall, table = _profile_table(run_annular)
+
     print(f"timing H1 median {N_FRAMES}x{SIZE}x{SIZE}: kernel "
           f"{t_h1 * 1e3:.3f} ms, plain {t_h1p * 1e3:.3f} ms", flush=True)
     print(f"timing H2 rotation {CHUNK}x{SIZE}^2: kernel {t_h2 * 1e3:.3f} ms "
           f"({CHUNK / t_h2:.1f} frames/s), plain {t_h2p * 1e3:.3f} ms "
           f"({CHUNK / t_h2p:.1f} frames/s)", flush=True)
+    print(f"timing H2 rotation {SMALL_CHUNK}x160^2 (N=640): kernel "
+          f"{t_h2m * 1e3:.3f} ms, plain {t_h2mp * 1e3:.3f} ms", flush=True)
+    print(f"timing H3 rotation {SMALL_CHUNK}x{SIZE}^2 on 640^2: kernel "
+          f"{t_h3 * 1e3:.3f} ms ({SMALL_CHUNK / t_h3:.1f} frames/s), plain "
+          f"{t_h3p * 1e3:.3f} ms, packed torch.fft path {t_h3k * 1e3:.3f} ms"
+          f" ({SMALL_CHUNK / t_h3k:.1f} frames/s)", flush=True)
     print(f"timing pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} rot_mode=fft: "
           f"kernels {t_e2e:.4f} s, plain path {t_e2ep:.4f} s", flush=True)
+    print(f"timing pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} "
+          f"rot_mode=fft-small chunk {SMALL_CHUNK}: H3 {t_small:.4f} s, "
+          f"packed {t_packed:.4f} s, H3 again {t_small2:.4f} s", flush=True)
+    print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
+          f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
+          f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
 
     kernels = [
         {"name": "nanmedian_axis0", "route": "cuda",
@@ -298,6 +605,11 @@ def main():
          "replaces": "vip_tpu/ops/pallas_shear.py:550",
          "launches": counts["H2"], "max_abs_err": h2_err,
          "ms": t_h2 * 1e3, "plain_ms": t_h2p * 1e3},
+        {"name": "rotate_fft_small_fused", "route": "cuda",
+         "source": "vip_tpu_torch/csrc/fft_shear.cu",
+         "replaces": "vip_tpu/ops/pallas_shear.py:918",
+         "launches": ann_counts["H3"], "max_abs_err": h3_err,
+         "ms": t_h3 * 1e3, "plain_ms": t_h3p * 1e3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

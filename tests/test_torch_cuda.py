@@ -14,17 +14,23 @@ import numpy as np
 import pytest
 import torch
 
-from vip_tpu_torch.ops import median, shear
-from vip_tpu_torch.ops.fft import rotate_fft_exact_pruned
+from vip_tpu_torch.ops import median, pipeline, shear
+from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
+                                   rotate_fft_small_plain)
 from vip_tpu_torch.ops.median import nanmedian_axis0, nanmedian_plain
 from vip_tpu_torch.ops.shear import (fused_shear_supported,
-                                     rotate_fft_exact_fused, rotate_exact)
+                                     fused_small_supported,
+                                     rotate_fft_exact_fused,
+                                     rotate_fft_small_fused, rotate_exact)
 from vip_tpu_torch.preproc.derotation import _fft_rotate_geometry
 
 pytestmark = pytest.mark.cuda
 
-# H2 against its plain version: the bound of tests/test_pallas_shear.py:39
+# H2 and H3 against their plain versions: the bound of
+# tests/test_pallas_shear.py:39,94
 ROT_TOL = 3e-5
+# angles in all four quadrants, with the quadrant boundaries
+_ANGLES = [0.0, 13.7, 45.0, 61.2, 90.0, 158.9, 225.0, 305.4, -37.5]
 
 
 @pytest.fixture
@@ -72,7 +78,7 @@ def test_median_kernel_rejects_what_it_does_not_take(cuda_device):
                         .transpose(0, 1))
 
 
-@pytest.mark.parametrize("y", [32, 64, 128, 256])
+@pytest.mark.parametrize("y", [32, 64, 96, 128, 160, 256])
 def test_shear_kernel_matches_plain(cuda_device, y):
     pad_y, _, py0, px0, cy0, cy1, cx0, cx1 = _fft_rotate_geometry(y, y)
     geom = (pad_y, py0, px0, cy0, cy1, cx0, cx1)
@@ -80,8 +86,7 @@ def test_shear_kernel_matches_plain(cuda_device, y):
     rng = np.random.default_rng(y)
     frames = torch.as_tensor(rng.standard_normal((9, y, y)),
                              dtype=torch.float32, device=cuda_device)
-    angles = torch.tensor([0.0, 13.7, 45.0, 61.2, 90.0, 158.9, 225.0, 305.4,
-                           -37.5], device=cuda_device)
+    angles = torch.tensor(_ANGLES, device=cuda_device)
     before = shear.launches
     got = rotate_fft_exact_fused(frames, angles, *geom)
     ref32 = rotate_fft_exact_pruned(frames, angles, *geom)
@@ -115,3 +120,59 @@ def test_median_gate_frame_bound(cuda_device):
                                                   device=cuda_device))
     assert not median.nanmedian_supported(torch.empty((3601, 1, 2),
                                                       device=cuda_device))
+
+
+@pytest.mark.parametrize("P", list(range(1, 17)))
+def test_small_shear_kernel_matches_plain(cuda_device, P):
+    N = 128 * P
+    assert fused_small_supported(N, torch.float32, cuda_device)
+    rng = np.random.default_rng(100 + P)
+    frames = torch.as_tensor(rng.standard_normal((9, N, N)),
+                             dtype=torch.float32, device=cuda_device)
+    angles = torch.tensor(_ANGLES, device=cuda_device)
+    before = shear.small_launches
+    got = rotate_fft_small_fused(frames, angles)
+    ref32 = rotate_fft_small_plain(frames, angles)
+    ref64 = rotate_fft_small_plain(frames.double(), angles.double())
+    torch.cuda.synchronize()
+    assert shear.small_launches == before + 3
+    for ref in (ref32, ref64):
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got.double() - ref.double()).abs().max()) \
+            <= ROT_TOL * scale
+
+
+def test_small_shear_kernel_rejects_what_it_does_not_take(cuda_device):
+    angles = torch.tensor([10.0, 20.0], device=cuda_device)
+    bad = (torch.zeros((2, 130, 130), device=cuda_device),        # 128·P
+           torch.zeros((2, 128 * 17, 128 * 17), device=cuda_device),
+           torch.zeros((2, 256, 256), dtype=torch.float64,
+                       device=cuda_device),
+           torch.zeros((2, 256, 128), device=cuda_device),
+           torch.zeros((2, 256, 256), device=cuda_device).transpose(1, 2))
+    before = shear.small_launches
+    for cube in bad:
+        with pytest.raises(ValueError):
+            rotate_fft_small_fused(cube, angles)
+    assert shear.small_launches == before
+
+
+@pytest.mark.parametrize("mode", ["fused", "packed"])
+def test_small_route_on_the_card(cuda_device, monkeypatch, mode):
+    """rot_mode='fft-small' runs H3 on a CUDA float32 cube unless
+    VIP_SMALL_SHEAR=packed, and float64 takes the packed path."""
+    monkeypatch.setenv("VIP_SMALL_SHEAR", mode)
+    rng = np.random.default_rng(7)
+    cube = torch.as_tensor(rng.standard_normal((6, 96, 96)),
+                           dtype=torch.float32, device=cuda_device)
+    angles = torch.linspace(0.0, 50.0, 6, device=cuda_device)
+    before = shear.small_launches
+    got = pipeline._derotate_frames(cube, angles, chunk=4,
+                                    rot_mode="fft-small")
+    torch.cuda.synchronize()
+    assert shear.small_launches == before + (6 if mode == "fused" else 0)
+    pipeline._derotate_frames(cube.double(), angles.double(), chunk=4,
+                              rot_mode="fft-small")
+    assert shear.small_launches == before + (6 if mode == "fused" else 0)
+    assert tuple(got.shape) == (6, 96, 96)
+    assert bool(torch.isfinite(got).all())

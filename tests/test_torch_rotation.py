@@ -148,7 +148,11 @@ def test_shear_gate():
     for y in (32, 64, 128, 256, 512, 1024):
         assert sup(y, derotation._fft_rotate_geometry(y, y)[0])
     assert not sup(33, 132)                          # odd frame
-    assert not sup(96, 384)                          # mixed-radix canvas
+    assert sup(96, 384)                              # mixed-radix canvas
+    for y in (160, 192, 224, 288, 320, 352, 416, 448, 480):
+        assert sup(y, derotation._fft_rotate_geometry(y, y)[0])
+    assert not sup(100, 400)                         # odd part 25 > 15
+    assert not sup(34, 136)                          # odd part 17 > 15
     assert not sup(2048, 8192)                       # canvas above 4096
     assert not sup(64, 256, torch.float64)           # dtype
     assert not sup(64, 256, torch.float32, "cpu")    # device

@@ -1,45 +1,62 @@
-// H2: one FFT shear of VIP's exact 4x-padded three-shear rotation, for
-// Hopper (sm_90a). Three launches (x-shear, y-shear, x-shear) rotate a batch
-// of frames; vip_tpu_torch/ops/shear.py drives them.
+// H2 and H3: one FFT shear of a three-shear rotation, for Hopper (sm_90a).
+// Three launches (x-shear, y-shear, x-shear) rotate a batch of frames;
+// vip_tpu_torch/ops/shear.py drives them.
 //
-// Replaces vip_tpu's Pallas TPU kernel `rotate_fft_exact_fused`
-// (vip_tpu/ops/pallas_shear.py:550-613, through `_shear_x` :442-494 /
-// `_shear_rows_body` :214-271 and `_shear_y` :497-544 /
-// `_shear_cols_body` :298-353). It computes what those compute, not how:
-// the TPU kernel's 128-lane fold, bf16 hi/lo splits and matmul DFT are not
-// carried over.
+// Replaces two of vip_tpu's Pallas TPU kernels, which share the shear
+// bodies `_shear_x` (vip_tpu/ops/pallas_shear.py:442-494, via
+// `_shear_rows_body` :214-271) and `_shear_y` (:497-544, via
+// `_shear_cols_body` :298-353):
+//   - H2, `rotate_fft_exact_fused` (:550-613): VIP's exact 4x-padded
+//     rotation, with support-pruned bands;
+//   - H3, `rotate_fft_small_fused` (:918-954): the same three shears on a
+//     full N x N canvas (fft-small mode), no pruning, real part out.
+// It computes what those compute, not how: the TPU kernels' 128-lane fold,
+// bf16 hi/lo splits and matmul DFT are not carried over.
 //
 // One thread block shears one line (a row for the x-shears, a column for
-// the y-shear) of a canvas of N points, N a power of two, 128 <= N <= 4096:
+// the y-shear) of a canvas of N = p * M points, p odd <= 15, M = 2^m,
+// 128 <= N <= 4096 (every canvas vip_tpu's K2 and K3 gates accept:
+// N = 128 * P, P <= 16):
 //   1. load the line's occupied band (in_len values at canvas offset
 //      in_off, real or complex) into shared memory as complex64, zeros
-//      elsewhere: the 4x canvas never exists in device memory;
-//   2. radix-2 decimation-in-frequency FFT in place (natural order in,
-//      bit-reversed out);
-//   3. multiply bin p by exp(-2*pi*i * c * (q - N/2) * k / N), where k is
-//      the signed frequency of bit-reversed position p (k >= N/2 -> k - N,
-//      so -N/2 sits at index N/2 as in numpy's fftfreq), q the canvas
-//      coordinate of the line and c the frame's shear coefficient (float64,
-//      as the plain version takes it). c*(q-N/2)*k/N reaches ~360 cycles
-//      at N = 2048, where float32 loses ~1e-4 rad: the cycle count is
-//      formed in float64 (exact integer (q-N/2)*k times c), reduced to
-//      [-1/2, 1/2] in float64, and only then evaluated with sincospif in
-//      float32;
-//   4. radix-2 decimation-in-time inverse FFT (bit-reversed in, natural
-//      out) with conjugate twiddles, scaled by 1/N at the store;
+//      elsewhere: the padded canvas never exists in device memory;
+//   2. forward FFT, mixed radix: with n = M*n1 + n2 and k = k1 + p*k2,
+//        X[k1 + p*k2] = sum_n2 W_M^(n2*k2) W_N^(n2*k1)
+//                       sum_n1 x[M*n1 + n2] W_p^(n1*k1),
+//      so one stage of p-point direct DFTs over the p points n2, M+n2, ...
+//      (in place: output k1 goes to position M*k1 + n2), times the
+//      twiddle W_N^(n2*k1), then a radix-2 decimation-in-frequency FFT on
+//      each of the p contiguous sub-lines of M points (natural order in,
+//      bit-reversed out). Position M*k1 + r then holds frequency
+//      k = k1 + p*brev_m(r). For p = 1 the first stage is skipped;
+//   3. multiply the slot of frequency k by exp(-2*pi*i * c * (q - N/2) *
+//      k / N), k signed (k >= N/2 -> k - N, so -N/2 is the Nyquist slot as
+//      in numpy's fftfreq), q the canvas coordinate of the line and c the
+//      frame's shear coefficient (float64, as the plain version takes it).
+//      c*(q-N/2)*k/N reaches ~360 cycles at N = 2048, where float32 loses
+//      ~1e-4 rad: the cycle count is formed in float64 (exact integer
+//      (q-N/2)*k times c), reduced to [-1/2, 1/2] in float64, and only then
+//      evaluated with sincospif in float32;
+//   4. inverse FFT, the mirror of step 2: radix-2 decimation-in-time on
+//      each sub-line (bit-reversed in, natural out) with conjugate
+//      twiddles, then the conjugate twiddle W_N^-(n2*k1) and p-point
+//      inverse DFTs back to natural order; scaled by 1/N at the store;
 //   5. store only the output band (out_len points at canvas offset
 //      out_off), complex or its real part.
-// Twiddles exp(-2*pi*i*t/N), t < N/2, are built on the host in float64 and
-// read as float32 through the read-only cache.
+// Twiddles exp(-2*pi*i*t/N), t < N, are built on the host in float64 and
+// read as float32 through the read-only cache: the p-point DFTs use
+// W_p^j = W_N^(M*j), the radix-2 stages W_M^t = W_N^(p*t).
 //
 // What bounds it on this card: shared-memory traffic and barriers. Each
 // radix-2 stage reads and writes the whole line in shared memory and ends
-// in __syncthreads (2*log2(N) = 22 stages at N = 2048); the device-memory
-// traffic is the compact bands between shears (~60 MB per 512^2 frame).
-// The y-shear reads and writes columns with a row stride, so its loads
-// use a quarter of each 32-byte sector. Next steps, for later: radix-4/8
-// stages in registers, several columns per block for coalesced y-shear
-// loads, and fusing the three shears.
+// in __syncthreads (2*log2(N) = 22 stages at N = 2048); a p-point stage
+// costs p complex multiply-adds per point, one pass each way. The
+// device-memory traffic is the bands between shears (H2: ~60 MB per 512^2
+// frame; H3: three full 640^2 canvases, ~8 MB per frame). The y-shear
+// reads and writes columns with a row stride, so its loads use a quarter
+// of each 32-byte sector. Next steps, for later: radix-4/8 stages in
+// registers, several columns per block for coalesced y-shear loads, and
+// fusing the three shears.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,11 +67,50 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-template <bool REAL_IN, bool REAL_OUT>
+__device__ __forceinline__ float2 conjf2(float2 a) {
+  return make_float2(a.x, -a.y);
+}
+
+// One pass of P-point DFTs over the M columns n2 (points n2, M + n2, ...,
+// (P-1)*M + n2), in place: each thread holds its column's P inputs in
+// registers and writes each output as it is formed. Forward: DFT, then
+// twiddle W_N^(n2*k1). Inverse: conjugate twiddle, then the conjugate DFT.
+template <int P, bool INV>
+__device__ __forceinline__ void radix_p_pass(float2* buf,
+                                             const float2* __restrict__ tw,
+                                             int M, int tid, int nt) {
+  for (int n2 = tid; n2 < M; n2 += nt) {
+    float2 v[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = buf[i * M + n2];
+    if (INV) {
+#pragma unroll
+      for (int i = 1; i < P; ++i) v[i] = cmul(v[i], conjf2(__ldg(tw + n2 * i)));
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < P; ++k1) {
+      float2 acc = v[0];
+#pragma unroll
+      for (int n1 = 1; n1 < P; ++n1) {
+        float2 w = __ldg(tw + M * ((n1 * k1) % P));
+        if (INV) w = conjf2(w);
+        const float2 t = cmul(v[n1], w);
+        acc.x += t.x;
+        acc.y += t.y;
+      }
+      if (!INV && k1 > 0) acc = cmul(acc, __ldg(tw + n2 * k1));
+      buf[k1 * M + n2] = acc;
+    }
+  }
+}
+
+// P, the odd factor of N, is a template argument so that each canvas's
+// kernel holds only the registers of its own P-point stage.
+template <bool REAL_IN, bool REAL_OUT, int P>
 __global__ void shear_lines_kernel(
     const void* __restrict__ in_ptr, void* __restrict__ out_ptr,
     const double* __restrict__ coef, const float2* __restrict__ tw,
-    int lines, int N, int logN, int q0,
+    int lines, int N, int logM, int q0,
     long long in_sb, long long in_sl, long long in_si, int in_len, int in_off,
     long long out_sb, long long out_sl, long long out_si, int out_len,
     int out_off) {
@@ -64,6 +120,8 @@ __global__ void shear_lines_kernel(
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int half_n = N >> 1;
+  const int M = 1 << logM;
+  const int half_m = M >> 1;
 
   // 1. load the occupied band, zeros elsewhere
   const long long ibase = (long long)b * in_sb + (long long)line * in_sl;
@@ -81,9 +139,13 @@ __global__ void shear_lines_kernel(
   }
   __syncthreads();
 
-  // 2. forward DIF: natural in, bit-reversed out
-  for (int half = half_n; half >= 1; half >>= 1) {
-    const int tstride = half_n / half;
+  // 2. forward: p-point stage, then radix-2 DIF on each M-point sub-line
+  if constexpr (P > 1) {
+    radix_p_pass<P, false>(buf, tw, M, tid, nt);
+    __syncthreads();
+  }
+  for (int half = half_m; half >= 1; half >>= 1) {
+    const int tstride = P * (half_m / half);
     for (int j = tid; j < half_n; j += nt) {
       const int pos = j & (half - 1);
       const int i0 = ((j & ~(half - 1)) << 1) | pos;
@@ -96,33 +158,37 @@ __global__ void shear_lines_kernel(
     __syncthreads();
   }
 
-  // 3. shear phase on the bit-reversed spectrum
+  // 3. shear phase; slot M*k1 + r holds k = k1 + P*brev_m(r)
   const double cq = coef[b] * (double)(q0 + line - half_n);
-  for (int p = tid; p < N; p += nt) {
-    int k = (int)(__brev((unsigned)p) >> (32 - logN));
+  for (int slot = tid; slot < N; slot += nt) {
+    const int k1 = slot >> logM;
+    const int r = slot & (M - 1);
+    int k = k1 + P * (int)(__brev((unsigned)r) >> (32 - logM));
     if (k >= half_n) k -= N;
     double cyc = cq * (double)k / (double)N;
     cyc -= rint(cyc);
     float s, c;
     sincospif(-2.0f * (float)cyc, &s, &c);
-    buf[p] = cmul(buf[p], make_float2(c, s));
+    buf[slot] = cmul(buf[slot], make_float2(c, s));
   }
   __syncthreads();
 
-  // 4. inverse DIT: bit-reversed in, natural out (unscaled)
-  for (int half = 1; half < N; half <<= 1) {
-    const int tstride = half_n / half;
+  // 4. inverse: radix-2 DIT on each sub-line, then the p-point stage
+  for (int half = 1; half < M; half <<= 1) {
+    const int tstride = P * (half_m / half);
     for (int j = tid; j < half_n; j += nt) {
       const int pos = j & (half - 1);
       const int i0 = ((j & ~(half - 1)) << 1) | pos;
       const int i1 = i0 + half;
-      float2 w = __ldg(tw + pos * tstride);
-      w.y = -w.y;
-      const float2 t = cmul(buf[i1], w);
+      const float2 t = cmul(buf[i1], conjf2(__ldg(tw + pos * tstride)));
       const float2 u = buf[i0];
       buf[i0] = make_float2(u.x + t.x, u.y + t.y);
       buf[i1] = make_float2(u.x - t.x, u.y - t.y);
     }
+    __syncthreads();
+  }
+  if constexpr (P > 1) {
+    radix_p_pass<P, true>(buf, tw, M, tid, nt);
     __syncthreads();
   }
 
@@ -142,8 +208,11 @@ __global__ void shear_lines_kernel(
 
 }  // namespace
 
-// Shear `lines` lines of each of B frames. Strides are in elements (float
-// for real data, float2 for complex). Returns cudaGetLastError().
+// Shear `lines` lines of each of B frames on a canvas of N = p * 2^m
+// points (p odd <= 15, 128 <= N <= 4096). `tw` holds exp(-2*pi*i*t/N) for
+// t < N as complex64. Strides are in elements (float for real data,
+// float2 for complex). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a canvas or a combination it does not take.
 extern "C" int vip_shear_lines(int real_in, int real_out, const void* in,
                                void* out, const double* coef, const void* tw,
                                int B, int lines, int N, int q0,
@@ -152,25 +221,44 @@ extern "C" int vip_shear_lines(int real_in, int real_out, const void* in,
                                long long out_sb, long long out_sl,
                                long long out_si, int out_len, int out_off,
                                void* stream) {
-  int logN = 0;
-  while ((1 << logN) < N) ++logN;
+  if (N < 128 || N > 4096) return (int)cudaErrorInvalidValue;
+  int p = N, logM = 0;
+  while ((p & 1) == 0) {
+    p >>= 1;
+    ++logM;
+  }
+  if (p > 15) return (int)cudaErrorInvalidValue;
   const int threads = N / 2 < 256 ? N / 2 : 256;
   const size_t smem = (size_t)N * sizeof(float2);
   const unsigned blocks = (unsigned)((long long)B * lines);
   cudaStream_t s = (cudaStream_t)stream;
   const float2* twc = static_cast<const float2*>(tw);
-#define VIP_LAUNCH(RI, RO)                                                  \
-  shear_lines_kernel<RI, RO><<<blocks, threads, smem, s>>>(                 \
-      in, out, coef, twc, lines, N, logN, q0, in_sb, in_sl, in_si, in_len, \
-      in_off, out_sb, out_sl, out_si, out_len, out_off)
   if (real_in && real_out) return (int)cudaErrorInvalidValue;
-  if (real_in) {
-    VIP_LAUNCH(true, false);
-  } else if (real_out) {
-    VIP_LAUNCH(false, true);
-  } else {
-    VIP_LAUNCH(false, false);
+#define VIP_LAUNCH(RI, RO, PP)                                               \
+  shear_lines_kernel<RI, RO, PP><<<blocks, threads, smem, s>>>(              \
+      in, out, coef, twc, lines, N, logM, q0, in_sb, in_sl, in_si, in_len,   \
+      in_off, out_sb, out_sl, out_si, out_len, out_off)
+#define VIP_LAUNCH_P(PP)                                                     \
+  if (real_in) {                                                             \
+    VIP_LAUNCH(true, false, PP);                                             \
+  } else if (real_out) {                                                     \
+    VIP_LAUNCH(false, true, PP);                                             \
+  } else {                                                                   \
+    VIP_LAUNCH(false, false, PP);                                            \
+  }                                                                          \
+  break
+  switch (p) {
+    case 1: VIP_LAUNCH_P(1);
+    case 3: VIP_LAUNCH_P(3);
+    case 5: VIP_LAUNCH_P(5);
+    case 7: VIP_LAUNCH_P(7);
+    case 9: VIP_LAUNCH_P(9);
+    case 11: VIP_LAUNCH_P(11);
+    case 13: VIP_LAUNCH_P(13);
+    case 15: VIP_LAUNCH_P(15);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef VIP_LAUNCH_P
 #undef VIP_LAUNCH
   return (int)cudaGetLastError();
 }

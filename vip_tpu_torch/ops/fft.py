@@ -15,8 +15,9 @@ loses ~1.5e-5°), which moved 512x512 white-noise frames by 3e-4 of their
 unit scale (H100 run, PERF.md); and at N = 2048 the phase reaches ~360
 cycles, where a float32 evaluation loses ~1e-4 rad.
 
-``rotate_fft_exact_pruned`` is the plain version of the CUDA shear kernel
-in :mod:`vip_tpu_torch.ops.shear`.
+``rotate_fft_exact_pruned`` and ``rotate_fft_small_plain`` are the plain
+versions of the CUDA shear kernels H2 and H3 in
+:mod:`vip_tpu_torch.ops.shear`.
 """
 
 import math
@@ -24,7 +25,8 @@ import math
 import torch
 
 __all__ = ["decompose_rotation", "quad_rot90", "fft_shear", "rotate_fft",
-           "rotate_fft_exact_pruned", "rotate_fft_fast_batch"]
+           "rotate_fft_exact_pruned", "rotate_fft_small_plain",
+           "rotate_fft_fast_batch"]
 
 # +1-pixel placement of a rot90'd even frame per quadrant k (the reference
 # rot90s the (N+1)-extended canvas about its center)
@@ -192,6 +194,32 @@ def rotate_fft_exact_pruned(frames, angles, pad_y, py0, px0, cy0, cy1,
     s = _shear_lines(canvas, b, q, dim=1)                        # shear 2
     s = _shear_lines(s[:, cy0:cy1], a, q[cy0:cy1], dim=2)        # shear 3
     return s[:, :, cx0:cx1].real.to(frames.dtype)
+
+
+def rotate_fft_small_plain(cube, angles):
+    """Rotate (B, N, N) even canvases by ``angles`` degrees about
+    (N/2, N/2) with three unpacked complex FFT shears over the full canvas,
+    the real part out: the plain version of ``ops.shear.
+    rotate_fft_small_fused`` (vip_tpu's Pallas K3, pallas_shear.py:918).
+    The quadrant rot90 is placed as in :func:`rotate_fft_fast_batch`.
+
+    Unlike the packed ``rotate_fft_fast_batch`` it keeps each shear's
+    imaginary part, as the kernel does (the oracle of
+    tests/test_pallas_shear.py:67-88).
+    """
+    n, N, _ = cube.shape
+    real = _real_dtype(cube.dtype)
+    dev = cube.device
+    k, dangle = decompose_rotation(angles, real, dev)
+    ext = torch.zeros((n, N + 1, N + 1), dtype=real, device=dev)
+    work = _place_quadrants(cube, k, ext, 0, 0, shifted=True)[:, :-1, :-1]
+    a, b = _shear_coefs(angles, k, dangle)
+    q = torch.arange(N, dtype=torch.float64, device=dev) - N / 2
+    z = work.to(_complex_dtype(real))
+    z = _shear_lines(z, a, q, dim=2)
+    z = _shear_lines(z, b, q, dim=1)
+    z = _shear_lines(z, a, q, dim=2)
+    return z.real.to(cube.dtype)
 
 
 def _packed_shear(z, c1, c2, ax, q0=None):

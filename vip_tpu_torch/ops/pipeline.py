@@ -2,10 +2,13 @@
 
 The main path, full-frame PCA-ADI: scale the frame matrix → top-k PCs →
 project and subtract → derotate every residual frame with VIP's exact
-4x-padded three-shear FFT rotation (CUDA kernel H2) → per-pixel temporal
-median (CUDA kernel H1). PyTorch runs eagerly on the tensors' device, so
-where vip_tpu compiled one XLA program, these are plain functions.
+4x-padded three-shear FFT rotation (CUDA kernel H2; the fft-small mode's
+rotation is CUDA kernel H3) → per-pixel temporal median (CUDA kernel H1).
+PyTorch runs eagerly on the tensors' device, so where vip_tpu compiled one
+XLA program, these are plain functions.
 """
+
+import os
 
 import torch
 
@@ -15,17 +18,29 @@ from ..preproc.subsampling import collapse_jax
 from .fft import rotate_fft_fast_batch
 from .linalg import matrix_scaling_jax, svd_top
 from .median import nanmedian_axis0, nanmedian_plain, nanmedian_supported
+from .shear import fused_small_supported, rotate_fft_small_fused
 
 __all__ = ["pca_adi_pipeline", "derotate_collapse", "median_adi_pipeline"]
+
+
+def _small_shear_mode():
+    """``VIP_SMALL_SHEAR`` as vip_tpu reads it (ops/pipeline.py:63-68):
+    "packed" for the packed ``torch.fft`` path, anything else for the
+    kernel. vip_tpu defaulted to "packed" from TPU v5e timings; on the card
+    the default is the kernel H3 (PERF.md holds both times)."""
+    return os.environ.get("VIP_SMALL_SHEAR", "fused")
 
 
 def _derotate_frames(cube, angles, chunk=None, rot_mode="fft",
                      interpolation="bicubic"):
     """Derotate (rotate by -angles) a (n, y, x) tensor in chunks of
     ``chunk`` frames. rot_mode='fft' is VIP's exact flux-preserving
-    rotation (``ops.shear.rotate_exact``); 'fft-small' the packed
-    three-shear rotation on a 1.25x canvas restricted to the inscribed
-    circle (pixels outside it come back 0)."""
+    rotation (``ops.shear.rotate_exact``); 'fft-small' the three-shear
+    rotation on a ≥1.25x canvas restricted to the inscribed circle (pixels
+    outside it come back 0): CUDA kernel H3 on a CUDA float32 tensor whose
+    128-multiple canvas passes ``fused_small_supported``, unless
+    ``VIP_SMALL_SHEAR=packed``; the packed ``torch.fft`` path on an
+    even-ceil canvas otherwise (always on the CPU, as vip_tpu)."""
     angles = as_tensor(angles, cube.device, cube.dtype)
     if rot_mode == "interp":
         raise NotImplementedError(
@@ -40,6 +55,12 @@ def _derotate_frames(cube, angles, chunk=None, rot_mode="fft",
     # 1.082 R for |angle| <= 45 deg, so a 1.25x canvas is wrap-free
     n, sz = cube.shape[0], cube.shape[-1]
     pad_to = -(-int(sz * 1.25) // 2) * 2  # even ceil
+    pad_fused = -(-int(sz * 1.25) // 128) * 128
+    use_fused = (_small_shear_mode() != "packed"
+                 and fused_small_supported(pad_fused, cube.dtype,
+                                           cube.device))
+    if use_fused:
+        pad_to = pad_fused
     m0 = (pad_to - sz) // 2
     m1 = pad_to - sz - m0
     qq = torch.arange(sz, device=cube.device) - sz / 2
@@ -48,11 +69,13 @@ def _derotate_frames(cube, angles, chunk=None, rot_mode="fft",
     def _rot_small(frames, angs):
         frames = torch.where(fov, frames, 0.0)
         padded = torch.nn.functional.pad(frames, (m0, m1, m0, m1))
-        # prune the two x-shears to the content/crop row slab (+1 for the
-        # quadrant-rot90 shift) — exactness-preserving
-        out = rotate_fft_fast_batch(padded, angs,
-                                    support_rows=(m0, min(pad_to - m0,
-                                                          sz + 1)))
+        if use_fused:
+            out = rotate_fft_small_fused(padded, angs)
+        else:
+            # prune the two x-shears to the content/crop row slab (+1 for
+            # the quadrant-rot90 shift) — exactness-preserving
+            out = rotate_fft_fast_batch(
+                padded, angs, support_rows=(m0, min(pad_to - m0, sz + 1)))
         return out[:, m0:m0 + sz, m0:m0 + sz]
 
     if chunk is None or chunk >= n:

@@ -1,74 +1,104 @@
-"""The exact FFT-shear rotation: CUDA kernel H2 and the port's one
-rotation route.
+"""The FFT-shear rotations on the card: CUDA kernels H2 and H3, and the
+port's one exact rotation route.
 
-H2 (``csrc/fft_shear.cu``) replaces vip_tpu's Pallas TPU kernel
-``rotate_fft_exact_fused`` (vip_tpu/ops/pallas_shear.py:550-613): VIP's
-4x-padded three-shear rotation of a batch of even square float32 frames,
-as three launches (x-shear, y-shear, x-shear) with support pruning. The
-quadrant rot90 and the +1-pixel placement run here in PyTorch; shear 1
-reads only the occupied (y+1)-column band of the y+1 occupied rows, shear 2
-writes only the crop rows, shear 3 writes only the crop columns and keeps
-the real part. Between shears the intermediates are compact complex64
-bands of (y+1) x N and (cy1-cy0) x N; the 4x canvas never exists.
+Both kernels are launches of the mixed-radix line shear of
+``csrc/fft_shear.cu`` (canvases N = p·2^m, p odd ≤ 15, 128 ≤ N ≤ 4096).
 
-Its plain version is ``ops.fft.rotate_fft_exact_pruned``.
+H2 replaces vip_tpu's Pallas TPU kernel ``rotate_fft_exact_fused``
+(vip_tpu/ops/pallas_shear.py:550-613): VIP's 4x-padded three-shear
+rotation of a batch of even square float32 frames, as three launches
+(x-shear, y-shear, x-shear) with support pruning. The quadrant rot90 and
+the +1-pixel placement run here in PyTorch; shear 1 reads only the occupied
+(y+1)-column band of the y+1 occupied rows, shear 2 writes only the crop
+rows, shear 3 writes only the crop columns and keeps the real part.
+Between shears the intermediates are compact complex64 bands of (y+1) x N
+and (cy1-cy0) x N; the 4x canvas never exists. Its plain version is
+``ops.fft.rotate_fft_exact_pruned``.
+
+H3 replaces ``rotate_fft_small_fused`` (vip_tpu/ops/pallas_shear.py:918):
+the same three shears on a full, already padded N x N canvas, N = 128·P
+with P ≤ 16 (the fft-small mode's canvas), with no pruning and the real
+part out. Its plain version is ``ops.fft.rotate_fft_small_plain``.
 
 :func:`rotate_exact` is the one route every exact rotation of the port
 takes (``cube_derotate``, ``frame_rotate``, ``ops.pipeline``): H2 on a
 CUDA float32 tensor whose shape passes :func:`fused_shear_supported`, the
-plain version otherwise.
+plain version otherwise. ``ops.pipeline._derotate_frames`` routes the
+fft-small mode to H3.
 """
 
 import numpy as np
 import torch
 
 from .fft import (_place_quadrants, _shear_coefs, decompose_rotation,
-                  rotate_fft_exact_pruned)
+                  rotate_fft_exact_pruned, rotate_fft_small_plain)
 
 __all__ = ["fused_shear_supported", "rotate_fft_exact_fused",
-           "rotate_exact"]
+           "rotate_exact", "fused_small_supported",
+           "rotate_fft_small_fused"]
 
 #: Number of H2 launches (three per rotated batch) since the last reset.
 launches = 0
+#: Number of H3 launches (three per rotated batch) since the last reset.
+small_launches = 0
 
 _twiddles = {}
 
 
+def _line_canvas_ok(N):
+    """Canvases the line kernel takes: N = p·2^m, p odd ≤ 15,
+    128 ≤ N ≤ 4096 (one line of N complex64 is at most 32 KB of shared
+    memory)."""
+    if not 128 <= N <= 4096:
+        return False
+    while N % 2 == 0:
+        N //= 2
+    return N <= 15
+
+
 def fused_shear_supported(y, pad_y, dtype=torch.float32, device="cuda"):
     """Gate of H2, a pure function of shape, dtype and device: even frame
-    side ``y``, canvas ``N = pad_y`` a power of two with 128 <= N <= 4096
-    (one line of N complex64 is at most 32 KB of shared memory), float32,
-    CUDA. With ``_fft_rotate_geometry`` that is frames of 32, 64, 128,
-    256, 512 and 1024 px; other canvases (N = 384, 640, ... need mixed
-    radix) and odd frames take the plain version."""
-    return (y % 2 == 0 and 128 <= pad_y <= 4096
-            and pad_y & (pad_y - 1) == 0 and dtype == torch.float32
+    side ``y``, canvas ``N = pad_y`` of the form p·2^m with p odd ≤ 15 and
+    128 ≤ N ≤ 4096, float32, CUDA. With ``_fft_rotate_geometry`` that is
+    every even frame of 32 to 480 px whose canvas is 128·P (96, 160, 192,
+    224, 288, ... px) and 512 and 1024 px; odd frames take the plain
+    version."""
+    return (y % 2 == 0 and _line_canvas_ok(pad_y)
+            and dtype == torch.float32
+            and torch.device(device).type == "cuda")
+
+
+def fused_small_supported(pad_to, dtype=torch.float32, device="cuda"):
+    """Gate of H3, a pure function of shape, dtype and device: vip_tpu's
+    canvas condition (``pad_to`` a multiple of 128 with pad_to/128 ≤ 16,
+    vip_tpu/ops/pallas_shear.py:913-915), float32, CUDA."""
+    return (pad_to > 0 and pad_to % 128 == 0 and pad_to // 128 <= 16
+            and dtype == torch.float32
             and torch.device(device).type == "cuda")
 
 
 def _twiddle_table(N, device):
-    """exp(−2πi·t/N), t < N/2, built in float64 on the host, as complex64
+    """exp(−2πi·t/N), t < N, built in float64 on the host, as complex64
     on ``device`` (cached per canvas and device)."""
     key = (N, str(device))
     if key not in _twiddles:
-        t = np.exp(-2j * np.pi * np.arange(N // 2) / N).astype(np.complex64)
+        t = np.exp(-2j * np.pi * np.arange(N) / N).astype(np.complex64)
         _twiddles[key] = torch.from_numpy(t).to(device)
     return _twiddles[key]
 
 
 def _shear(lib, src, dst, coef, tw, lines, N, q0, in_strides, in_len,
-           in_off, out_strides, out_len, out_off):
+           in_off, out_strides, out_len, out_off, what):
+    """One launch of the line kernel; raises if it was refused."""
     from .._build import check
 
-    global launches
     stream = torch.cuda.current_stream(src.device).cuda_stream
     rc = lib.vip_shear_lines(
         int(not src.is_complex()), int(not dst.is_complex()),
         src.data_ptr(), dst.data_ptr(), coef.data_ptr(), tw.data_ptr(),
         src.shape[0], lines, N, q0, *in_strides, in_len, in_off,
         *out_strides, out_len, out_off, stream)
-    check(rc, "rotate_fft_exact_fused")
-    launches += 1
+    check(rc, what)
 
 
 def rotate_fft_exact_fused(frames, angles, pad_y, py0, px0, cy0, cy1, cx0,
@@ -81,6 +111,7 @@ def rotate_fft_exact_fused(frames, angles, pad_y, py0, px0, cy0, cy1, cx0,
     tensors launch H2 and raise on anything it does not take: they must be
     contiguous float32 with :func:`fused_shear_supported` true.
     """
+    global launches
     if frames.device.type == "cpu":
         return rotate_fft_exact_pruned(frames, angles, pad_y, py0, px0, cy0,
                                        cy1, cx0, cx1)
@@ -89,8 +120,8 @@ def rotate_fft_exact_fused(frames, angles, pad_y, py0, px0, cy0, cy1, cx0,
     if not (y == x and fused_shear_supported(y, N, frames.dtype,
                                              frames.device)):
         raise ValueError(f"rotate_fft_exact_fused: kernel takes even square "
-                         f"float32 CUDA frames on a power-of-two canvas "
-                         f"128..4096, got {frames.dtype} {tuple(frames.shape)}"
+                         f"float32 CUDA frames on a canvas p·2^m (p odd "
+                         f"<= 15) in 128..4096, got {frames.dtype} {tuple(frames.shape)}"
                          f" on {frames.device}, canvas {N}")
     if not frames.is_contiguous():
         raise ValueError("rotate_fft_exact_fused: frames must be contiguous")
@@ -115,15 +146,70 @@ def rotate_fft_exact_fused(frames, angles, pad_y, py0, px0, cy0, cy1, cx0,
         # shear 1 (x) on the occupied rows: band in, full rows out
         s1 = torch.empty((B, R1, N), dtype=torch.complex64, device=dev)
         _shear(lib, slab, s1, a, tw, R1, N, py0, (R1 * R1, R1, 1), R1, px0,
-               (R1 * N, N, 1), N, 0)
+               (R1 * N, N, 1), N, 0, "rotate_fft_exact_fused")
+        launches += 1
         # shear 2 (y) on every column: occupied rows in, crop rows out
         s2 = torch.empty((B, R2, N), dtype=torch.complex64, device=dev)
         _shear(lib, s1, s2, b, tw, N, N, 0, (R1 * N, 1, N), R1, py0,
-               (R2 * N, 1, N), R2, cy0)
+               (R2 * N, 1, N), R2, cy0, "rotate_fft_exact_fused")
+        launches += 1
         # shear 3 (x) on the crop rows: full rows in, crop columns out
         out = torch.empty((B, R2, W3), dtype=torch.float32, device=dev)
         _shear(lib, s2, out, a, tw, R2, N, cy0, (R2 * N, N, 1), N, 0,
-               (R2 * W3, W3, 1), W3, cx0)
+               (R2 * W3, W3, 1), W3, cx0, "rotate_fft_exact_fused")
+        launches += 1
+    return out
+
+
+def rotate_fft_small_fused(cube, angles):
+    """Rotate (B, N, N) already padded canvases by ``angles`` degrees
+    about (N/2, N/2) with three full-canvas FFT shears, the real part out
+    (vip_tpu pallas_shear.py:918; the fft-small mode's rotation).
+
+    CPU tensors take the plain version (``rotate_fft_small_plain``). CUDA
+    tensors launch H3 and raise on anything it does not take: they must be
+    contiguous square float32 with :func:`fused_small_supported` true.
+    """
+    global small_launches
+    if cube.device.type == "cpu":
+        return rotate_fft_small_plain(cube, angles)
+    B, N, x = cube.shape
+    if not (N == x and fused_small_supported(N, cube.dtype, cube.device)):
+        raise ValueError(f"rotate_fft_small_fused: kernel takes square "
+                         f"float32 CUDA canvases of 128·P px, P <= 16, got "
+                         f"{cube.dtype} {tuple(cube.shape)} on {cube.device}")
+    if not cube.is_contiguous():
+        raise ValueError("rotate_fft_small_fused: cube must be contiguous")
+    if B * N >= 2 ** 31:
+        raise ValueError("rotate_fft_small_fused: too many frames for one "
+                         "launch grid")
+    from .._build import load
+
+    lib = load()
+    dev = cube.device
+    k, dangle = decompose_rotation(angles, torch.float32, dev)
+    a, b = _shear_coefs(angles, k, dangle)    # float64, as the plain one
+    tw = _twiddle_table(N, dev)
+
+    # rot90 about (N/2, N/2) == rot90 of the (N+1)^2 zero-extended canvas,
+    # cropped back: shear 1 reads the leading N x N of that canvas
+    E = N + 1
+    ext = torch.zeros((B, E, E), dtype=torch.float32, device=dev)
+    _place_quadrants(cube, k, ext, 0, 0, shifted=True)
+
+    with torch.cuda.device(dev):
+        s1 = torch.empty((B, N, N), dtype=torch.complex64, device=dev)
+        _shear(lib, ext, s1, a, tw, N, N, 0, (E * E, E, 1), N, 0,
+               (N * N, N, 1), N, 0, "rotate_fft_small_fused")
+        small_launches += 1
+        s2 = torch.empty_like(s1)
+        _shear(lib, s1, s2, b, tw, N, N, 0, (N * N, 1, N), N, 0,
+               (N * N, 1, N), N, 0, "rotate_fft_small_fused")
+        small_launches += 1
+        out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+        _shear(lib, s2, out, a, tw, N, N, 0, (N * N, N, 1), N, 0,
+               (N * N, N, 1), N, 0, "rotate_fft_small_fused")
+        small_launches += 1
     return out
 
 
@@ -131,7 +217,8 @@ def rotate_exact(frames, angles):
     """Rotate (B, y, y) real frames counter-clockwise by ``angles``
     degrees with VIP's exact 4x-padded FFT rotation: H2 where its gate
     holds on a CUDA float32 tensor, the plain ``torch.fft`` version
-    otherwise (CPU tensors, float64, odd frames, mixed-radix canvases)."""
+    otherwise (CPU tensors, float64, odd frames, canvases outside the
+    kernel's range)."""
     from ..preproc.derotation import _fft_rotate_geometry
 
     B, y, x = frames.shape

@@ -253,3 +253,33 @@ def _find_indices_adi(angle_list, frame, thr, nframes=None, out_closest=False,
 def _compute_pa_thresh(ann_center, fwhm, delta_rot=1):
     """PA threshold [deg] for one annulus (vip_tpu derotation.py:501)."""
     return np.rad2deg(2 * np.arctan(delta_rot * fwhm / (2 * ann_center)))
+
+
+def _define_annuli(angle_list, ann, n_annuli, fwhm, radius_int, annulus_width,
+                   delta_rot, n_segments, verbose, strict=False):
+    """Annulus geometry (pa_threshold, inner_radius, ann_center), with the
+    last annulus widened by one pixel inwards and the PA threshold capped
+    at 90% of half the rotation range unless ``strict`` (vip_tpu
+    derotation.py:506-533)."""
+    if ann == n_annuli - 1:
+        inner_radius = radius_int + (ann * annulus_width - 1)
+    else:
+        inner_radius = radius_int + ann * annulus_width
+    ann_center = inner_radius + (annulus_width / 2)
+    pa_threshold = _compute_pa_thresh(ann_center, fwhm, delta_rot)
+    mid_range = np.abs(np.amax(angle_list) - np.amin(angle_list)) / 2
+    if pa_threshold >= mid_range - mid_range * 0.1:
+        new_pa_th = float(mid_range - mid_range * 0.1)
+        if not strict:
+            print("PA threshold {:.2f} is likely too big, will be set to "
+                  "{:.2f}".format(pa_threshold, new_pa_th))
+            pa_threshold = new_pa_th
+    if verbose:
+        if pa_threshold > 0:
+            print("Ann {}    PA thresh: {:5.2f}    Ann center: {:3.0f}    "
+                  "N segments: {} ".format(ann + 1, pa_threshold, ann_center,
+                                           n_segments))
+        else:
+            print("Ann {}    Ann center: {:3.0f}    N segments: {} ".format(
+                ann + 1, ann_center, n_segments))
+    return pa_threshold, inner_radius, ann_center

@@ -1,9 +1,9 @@
-"""Masks and cube→matrix conversion (port of the part of
-``vip_tpu.var.shapes`` that full-frame PCA runs on).
+"""Masks, annulus segments and cube→matrix conversion (port of the part of
+``vip_tpu.var.shapes`` that full-frame and annular PCA run on).
 
-The pixel selection (strict ``< 1`` normalized distance, skimage.draw
-semantics) is built on the host as static geometry and applied to the
-tensor on its own device.
+The pixel selections (strict ``< 1`` normalized distance, skimage.draw
+semantics; annulus segments) are built on the host as static geometry and
+applied to the tensor on its own device.
 """
 
 import numpy as np
@@ -13,8 +13,8 @@ from ..config.device import as_tensor
 from ..ops.linalg import matrix_scaling_jax
 from .coords import frame_center
 
-__all__ = ["mask_circle", "matrix_scaling", "prepare_matrix",
-           "reshape_matrix"]
+__all__ = ["mask_circle", "get_annulus_segments", "matrix_scaling",
+           "prepare_matrix", "reshape_matrix", "resolve_n_segments"]
 
 
 def _disk(shape, cy, cx, radius):
@@ -52,6 +52,82 @@ def mask_circle(array, radius, fillwith=0, mode="in", cy=None, cx=None,
     elif mode == "out":
         return array.masked_fill(~inside, fillwith)
     raise ValueError("mode not recognized")
+
+
+def get_annulus_segments(data, inner_radius, width, nsegm=1, theta_init=0,
+                         optim_scale_fact=1, mode="ind", out=False):
+    """Indices, values or masks of the segments of a centered annulus
+    (vip_tpu shapes.py:278): the annulus is ``inner <= r < inner +
+    width*optim_scale_fact``, the segments tile the azimuth from
+    ``theta_init`` degrees off the positive x-axis, counter-clockwise;
+    ``out=True`` takes the complement of each segment.
+
+    ``data`` is a 2-d frame (numpy or tensor) or a shape tuple. Mode 'ind'
+    returns host ``(yy, xx)`` index arrays, as ``np.where``; 'val' and
+    'mask' apply the segments to ``data`` on its own device.
+    """
+    if isinstance(data, tuple):
+        shape = data
+    else:
+        if data.ndim != 2:
+            raise TypeError("`data` must be a frame or a shape tuple")
+        shape = tuple(data.shape)
+    if not isinstance(nsegm, int):
+        raise TypeError("`nsegm` must be an integer")
+
+    cy, cx = frame_center(shape)
+    azimuth_coverage = np.deg2rad(int(np.ceil(360 / nsegm)))
+    twopi = 2 * np.pi
+
+    yy, xx = np.mgrid[: shape[0], : shape[1]]
+    rad = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2)
+    phi = np.arctan2(yy - cy, xx - cx)
+    phirot = phi % twopi
+    outer_radius = inner_radius + (width * optim_scale_fact)
+    ring = (rad >= inner_radius) & (rad < outer_radius)
+    masks = []
+    for i in range(nsegm):
+        phi_start = np.deg2rad(theta_init) + (i * azimuth_coverage)
+        phi_end = phi_start + azimuth_coverage
+        if phi_start < twopi and phi_end > twopi:
+            masks.append(ring & (phirot >= phi_start) & (phirot <= twopi)
+                         | ring & (phirot >= 0)
+                         & (phirot < phi_end - twopi))
+        elif phi_start >= twopi and phi_end > twopi:
+            masks.append(ring & (phirot >= phi_start - twopi)
+                         & (phirot < phi_end - twopi))
+        else:
+            masks.append(ring & (phirot >= phi_start) & (phirot < phi_end))
+    if out:
+        masks = ~np.array(masks)
+
+    if mode == "ind":
+        return [np.where(mask) for mask in masks]
+    if mode not in ("val", "mask"):
+        raise ValueError(f"mode '{mode}' unknown!")
+    array = as_tensor(np.zeros(shape) if isinstance(data, tuple) else data)
+    masks = [torch.as_tensor(mask, device=array.device) for mask in masks]
+    if mode == "val":
+        return [array[mask] for mask in masks]
+    return [array * mask for mask in masks]
+
+
+def resolve_n_segments(n_segments, n_annuli, asize, default=1):
+    """Per-annulus segment counts (vip_tpu shapes.py:524): an int
+    broadcasts; 'auto' keeps each segment's arc close to one 4-segment arc
+    of the first annuli."""
+    if n_segments is None:
+        return [default] * n_annuli
+    if isinstance(n_segments, int):
+        return [n_segments] * n_annuli
+    if n_segments == "auto":
+        counts = [2, 3]
+        arc = 2 * np.tan(360 / 4 / 2) * asize
+        for ann in range(2, n_annuli):
+            opening = np.rad2deg(2 * np.arctan(arc / (2 * ann * asize)))
+            counts.append(int(np.ceil(360 / opening)))
+        return counts
+    return list(n_segments)
 
 
 def matrix_scaling(matrix, scaling):
