@@ -5,12 +5,16 @@
 Drives the port's paths on the card through the entry points a user
 calls, at bench.py's full size: a 1000x512x512 float32 cube of seeded
 random frames. Full-frame PCA-ADI (``ops.pipeline.pca_adi_pipeline`` with
-the exact and the fft-small rotation, and the public ``psfsub.pca``) and
+the exact and the fft-small rotation, and the public ``psfsub.pca``),
 annular PCA (the public ``psfsub.pca_annular``, bench.py's annular leg:
-ncomp 10, fwhm 4, asize 4, 'vip-fft-small'). Phases, one line each:
+ncomp 10, fwhm 4, asize 4, 'vip-fft-small') and the companion search
+(a companion planted in the cube, then ``psfsub.median_sub``, the
+``psfsub.pca_grid`` over ncomp 1..10, ``metrics.snrmap``/``snrmap_fast``
+and ``metrics.detection``). Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels from ``vip_tpu_torch/csrc`` with nvcc;
+2. build: the CUDA kernels from ``vip_tpu_torch/csrc``, one nvcc per
+   source, all started together;
 3. H1 (radix-select median) against its plain version, bit for bit, and
    against numpy's nanmedian/median within 1 ulp;
 4. H2 (exact FFT-shear rotation) against its plain version at float32 and
@@ -18,23 +22,35 @@ ncomp 10, fwhm 4, asize 4, 'vip-fft-small'). Phases, one line each:
    (the mixed-radix canvas N = 640);
 5. H3 (fft-small FFT-shear rotation) against its plain version at float32
    and at float64, on 125 FoV-masked 512² frames on the 640 canvas;
-6. main path, exact rotation: both full-frame entry points, with the
+6. H4 (the three shears in one cooperative launch), exact and small, on
+   the inputs of phases 4 and 5, against the plain versions and H2/H3;
+7. main path, exact rotation: both full-frame entry points, with the
    kernels' launch counts, against the same steps through the plain
    versions on the card;
-7. main path, fft-small: ``pca_adi_pipeline`` (chunk 125) and
-   ``pca_annular``, each with its launch counts, against the plain
-   derotation and plain median of its own residual cube;
-8. small inputs through the kernels against the float64 CPU parity mode:
+8. main path, fft-small: ``pca_adi_pipeline`` (chunk 125, with H3 and
+   with H4 under ``VIP_SMALL_SHEAR=fused3``) and ``pca_annular``, each
+   with its launch counts, against the plain derotation and plain median
+   of its own residual cube;
+9. small inputs through the kernels against the float64 CPU parity mode:
    full-frame PCA, and the device-resident annular PCA with both
    rotations;
-9. timings, kernel beside plain, warm median of 3, and a torch.profiler
-   table of one ``pca_annular`` run.
+10. the companion search at full width through each ``VIP_EXACT_SHEAR``
+    route (fused3 → H4, auto → H2, pruned → plain), with launch counts;
+    H4 and H2 against the plain route, the same S/N-optimal ncomp,
+    detection within 3 px of the planted companion; the annular
+    ``median_sub`` once; a small search against the CPU float64 mode;
+11. timings, kernel beside plain, warm median of 3, and torch.profiler
+    tables of one ``pca_annular`` run and one ``median_sub`` (H4 route).
 
-Prints a JSON line of the kernels, then as its last line
-``{"ok": true, "device": {...}}``. Any failed phase raises, and the script
-exits non-zero without that line; so does a host with no CUDA card.
+Prints a JSON line of the kernels (launches on the main paths, errors,
+times, the roofline bound from this run's shapes, the time of one PyTorch
+call computing the same function where there is one), the card's name
+and power limit, then as its last line ``{"ok": true, "device": {...}}``.
+Any failed phase raises, and the script exits non-zero without that line;
+so does a host with no CUDA card.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -65,11 +81,67 @@ ANN = dict(ncomp=NCOMP, fwhm=4, asize=4, delta_rot=(0.1, 1), n_segments=1)
 # eigh of each frame's (L, L) library Gram, then a median. Measured
 # 4.9e-5 on the H100 with either rotation (PERF.md); 4x margin.
 SMALL_ANN_TOL = 2e-4
+# The companion search: one Gaussian companion of FWHM 4 px at 60 px,
+# peak 2 (the frames' noise sigma is 1), moving with the parallactic
+# angles; the S/N grid over ncomp 1..10
+COMP_FWHM, COMP_SEP, COMP_PEAK, GRID_PCS = 4.0, 60.0, 2.0, (1, 10)
+# The exact-rotation routes of VIP_EXACT_SHEAR: H4, H2, the plain torch.fft
+EXACT_ROUTES = (("fused3", "H4"), ("auto", "H2"), ("pruned", "plain"))
+# S/N maps of a small frame, CUDA float32 against CPU float64, relative to
+# max(|ref|, 1): the maps divide by ring standard deviations of a few
+# apertures, which amplify the frames' float32 rounding (~1e-6)
+SNR_TOL = 1e-3
+# Roofline of one H100 SXM at 700 W (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM3
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
 
 def _require(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def _bound(nbytes, flop):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the float32 operations over the float32 peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flop / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _shear_flop(lines, N):
+    """Float32 operations of ``lines`` FFT line shears on an N canvas: a
+    forward and an inverse complex FFT (5·N·log2 N each) and the phase
+    product (6·N)."""
+    return lines * (2 * 5 * N * np.log2(N) + 6 * N)
+
+
+@contextlib.contextmanager
+def _env(name, value):
+    """Set the environment variable ``name`` to ``value`` for a block."""
+    before = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = before
+
+
+def _reset_counts():
+    from vip_tpu_torch.ops import median, shear
+
+    median.launches = shear.launches = shear.small_launches = 0
+    shear.fused3_launches = 0
+
+
+def _counts():
+    from vip_tpu_torch.ops import median, shear
+
+    return {"H1": median.launches, "H2": shear.launches,
+            "H3": shear.small_launches, "H4": shear.fused3_launches}
 
 
 def _sync_time(fn, reps=3):
@@ -197,9 +269,11 @@ def _angles(n):
     return torch.as_tensor(angles.astype(np.float32), device=DEVICE)
 
 
-def _check_rotation(name, frames, angles, kernel, plain):
+def _check_rotation(name, frames, angles, kernel, plain, twin=None):
     """A rotation kernel against its plain version at float32 and at
-    float64, at ROT_TOL of max(|ref|, 1). Returns the larger error."""
+    float64, at ROT_TOL of max(|ref|, 1), and against ``twin`` (a
+    (name, kernel) pair of the same arithmetic) if given. Returns the
+    largest error."""
     got = kernel(frames, angles)
     ref32 = plain(frames, angles)
     ref64 = plain(frames.double(), angles.double())
@@ -207,12 +281,20 @@ def _check_rotation(name, frames, angles, kernel, plain):
     err32, s32 = _rel_err(got, ref32)
     err64, s64 = _rel_err(got, ref64)
     plain_err, _ = _rel_err(ref32, ref64)
+    twin_note, twin_err = "", 0.0
+    if twin is not None:
+        other = twin[1](frames, angles)
+        torch.cuda.synchronize()
+        twin_err, _ = _rel_err(got, other)
+        twin_note = (f"; vs {twin[0]} {twin_err:.3e} (bit-equal "
+                     f"{torch.equal(got, other)})")
     print(f"{name} vs plain: max abs err {err32:.3e} (f32 plain), "
-          f"{err64:.3e} (f64 plain); plain f32 vs f64 {plain_err:.3e}; "
-          f"bound {ROT_TOL:.0e} x {s64:.3f}", flush=True)
+          f"{err64:.3e} (f64 plain); plain f32 vs f64 {plain_err:.3e}"
+          f"{twin_note}; bound {ROT_TOL:.0e} x {s64:.3f}", flush=True)
     _require(err32 <= ROT_TOL * s32, f"{name} disagrees with f32 plain")
     _require(err64 <= ROT_TOL * s64, f"{name} disagrees with f64 plain")
-    return max(err32, err64)
+    _require(twin_err <= ROT_TOL * s64, f"{name} disagrees with its twin")
+    return max(err32, err64, twin_err)
 
 
 def _small_canvas(frames):
@@ -261,6 +343,40 @@ def phase_small_rotation():
                           angles, rotate_fft_small_fused,
                           rotate_fft_small_plain)
     return canvas, angles, err
+
+
+def phase_fused3(frames, angles, geom, frames160, angles160, geom160,
+                 canvas, small_angles):
+    """H4 (the three shears in one cooperative launch) on the inputs of
+    phases 4 and 5: exact on 50 frames of 512² (N = 2048) and 125 of 160²
+    (N = 640), small on the 125 FoV-masked frames on the 640² canvas;
+    against the plain versions and against H2/H3, one launch a call.
+    Returns the largest error of each variant."""
+    from vip_tpu_torch.ops import shear
+    from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
+                                       rotate_fft_small_plain)
+
+    errs = {}
+    for name, f, a, g in (("512^2 (N=2048)", frames, angles, geom),
+                          ("160^2 (N=640)", frames160, angles160, geom160)):
+        before = shear.fused3_launches
+        errs[name] = _check_rotation(
+            f"H4 rotate_fft_exact_fused3 {name}", f, a,
+            lambda f_, a_, g=g: shear.rotate_fft_exact_fused3(f_, a_, *g),
+            lambda f_, a_, g=g: rotate_fft_exact_pruned(f_, a_, *g),
+            twin=("H2", lambda f_, a_, g=g: shear.rotate_fft_exact_fused(
+                f_, a_, *g)))
+        _require(shear.fused3_launches == before + 1,
+                 f"H4 exact {name}: {shear.fused3_launches - before} "
+                 f"launches, not 1")
+    before = shear.fused3_launches
+    err_small = _check_rotation(
+        "H4 rotate_fft_small_fused3 (N=640)", canvas, small_angles,
+        shear.rotate_fft_small_fused3, rotate_fft_small_plain,
+        twin=("H3", shear.rotate_fft_small_fused))
+    _require(shear.fused3_launches == before + 1,
+             f"H4 small: {shear.fused3_launches - before} launches, not 1")
+    return max(errs.values()), err_small
 
 
 def _plain_pipeline(cube, angles):
@@ -421,6 +537,252 @@ def phase_annular(cube, angles_np):
     return counts, run
 
 
+def phase_small_pipeline_fused3(run_small):
+    """The fft-small ``pca_adi_pipeline`` with ``VIP_SMALL_SHEAR=fused3``:
+    H4's small variant once a chunk instead of H3 three times; the same
+    frame as the H3 route, whose line arithmetic it shares."""
+    ref = run_small()
+
+    def run():
+        with _env("VIP_SMALL_SHEAR", "fused3"):
+            return run_small()
+
+    _reset_counts()
+    frame = run()
+    torch.cuda.synchronize()
+    counts = _counts()
+    nch = -(-N_FRAMES // SMALL_CHUNK)
+    _require(counts["H4"] == nch and counts["H3"] == 0 and counts["H1"] >= 1,
+             f"fft-small pipeline under VIP_SMALL_SHEAR=fused3: launches "
+             f"{counts}, want H4 = {nch}, H3 = 0, H1 >= 1")
+    err, scale = _rel_err(frame, ref)
+    print(f"fft-small pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} chunk "
+          f"{SMALL_CHUNK}, VIP_SMALL_SHEAR=fused3: launches {counts}; max abs "
+          f"err vs the H3 route {err:.3e} (bit-equal "
+          f"{torch.equal(frame, ref)}); bound {PIPE_TOL:.0e} x {scale:.3f}",
+          flush=True)
+    _require(err <= PIPE_TOL * scale, "H4-small pipeline disagrees with H3")
+    return counts, run
+
+
+def _plant_companion(cube, angles_np):
+    """A copy of ``cube`` with one Gaussian companion (COMP_FWHM, peak
+    COMP_PEAK) at COMP_SEP px east of the center once derotated: in frame
+    i at angle a_i it sits at (y, x) = (c − sep·sin a_i, c + sep·cos a_i).
+    The Gaussian is separable, so its rows and columns are numpy
+    profiles whose outer product is added on the card. Returns the cube
+    and the companion's derotated (x, y)."""
+    n, size = cube.shape[0], cube.shape[-1]
+    c = size // 2
+    a = np.deg2rad(angles_np.astype(np.float64))
+    two_sig2 = 2 * (COMP_FWHM / (2 * np.sqrt(2 * np.log(2)))) ** 2
+    q = np.arange(size, dtype=np.float64)
+    gy = np.exp(-(q[None, :] - (c - COMP_SEP * np.sin(a))[:, None]) ** 2
+                / two_sig2)
+    gx = np.exp(-(q[None, :] - (c + COMP_SEP * np.cos(a))[:, None]) ** 2
+                / two_sig2)
+    gy = torch.as_tensor(COMP_PEAK * gy, dtype=cube.dtype, device=DEVICE)
+    gx = torch.as_tensor(gx, dtype=cube.dtype, device=DEVICE)
+    out = cube.clone()
+    for s in range(0, n, 100):
+        out[s:s + 100] += gy[s:s + 100, :, None] * gx[s:s + 100, None, :]
+    return out, (c + COMP_SEP, float(c))
+
+
+def _near(ys, xs, src, tol=3.0):
+    """Whether a detection (ys, xs) lies within ``tol`` px of src = (x, y)."""
+    return any(np.hypot(y - src[1], x - src[0]) <= tol
+               for y, x in zip(np.atleast_1d(ys), np.atleast_1d(xs)))
+
+
+def _optimal_ncomp(frames, src):
+    """The S/N-optimal ncomp of a grid, by ``pca_grid``'s figure of merit
+    'mean' (the mean S/N over the pixels of the disk of diameter fwhm
+    around the source) through the public ``metrics.snr_multi``;
+    ``pca_grid`` with ``source_xy`` also returns a pandas table, and
+    ``pca(ncomp=tuple, source_xy=...)`` plots with matplotlib, and the
+    card's machine has neither."""
+    from vip_tpu_torch.metrics import snr_multi
+    from vip_tpu_torch.var.shapes import disk_coords
+
+    yy, xx = disk_coords((src[1], src[0]), COMP_FWHM / 2.0, (SIZE, SIZE))
+    snrs = [float(np.mean(snr_multi(f, xx, yy, COMP_FWHM)[0]))
+            for f in frames]
+    return GRID_PCS[0] + int(np.argmax(snrs)), max(snrs)
+
+
+def phase_companion_search(pcube, angles_np, src):
+    """Find the planted companion at full width: ``median_sub`` (full
+    frame) and the ``pca_grid`` over ncomp 1..10 (device branch) through
+    each exact-rotation route of ``VIP_EXACT_SHEAR`` (H4, H2, plain), each
+    route's launches counted; H4 and H2 against the plain route, and the
+    same S/N-optimal ncomp; then ``snrmap``, ``snrmap_fast`` and
+    ``detection`` of the H4 frame. Returns (counts under fused3, runs by
+    route, the H4 median-ADI frame)."""
+    from vip_tpu_torch.metrics import detection, snrmap, snrmap_fast
+    from vip_tpu_torch.psfsub import median_sub, pca_grid
+
+    def medsub():
+        return median_sub(pcube, angles_np, mode="fullfr", imlib="vip-fft",
+                          verbose=False)
+
+    def grid():
+        return pca_grid(pcube, angles_np, range_pcs=GRID_PCS, fwhm=COMP_FWHM,
+                        plot=False, full_output=True, verbose=False)[0]
+
+    out, runs, fused3_counts = {}, {}, None
+    for mode, route in EXACT_ROUTES:
+        with _env("VIP_EXACT_SHEAR", mode):
+            _reset_counts()
+            frame = medsub()
+            torch.cuda.synchronize()
+            c_ms = _counts()
+            _reset_counts()
+            frames = grid()
+            torch.cuda.synchronize()
+            c_grid = _counts()
+        for what, c in (("median_sub", c_ms), ("pca_grid", c_grid)):
+            want_h4, want_h2 = route == "H4", route == "H2"
+            _require(c["H1"] >= 1 and (c["H4"] > 0) == want_h4
+                     and (c["H2"] > 0) == want_h2 and c["H3"] == 0,
+                     f"{what} under VIP_EXACT_SHEAR={mode}: launches {c}")
+        if route == "H4":
+            fused3_counts = {k: c_ms[k] + c_grid[k] for k in c_ms}
+        for name, fr in (("median_sub", frame), ("pca_grid", frames)):
+            _require(bool(torch.isfinite(fr).all()) and fr.is_cuda,
+                     f"{name} ({route}): not finite CUDA frames")
+        opt, opt_snr = _optimal_ncomp(frames, src)
+        out[route] = (frame, frames, opt)
+        print(f"companion search {N_FRAMES}x{SIZE}x{SIZE}, "
+              f"VIP_EXACT_SHEAR={mode} ({route}): launches median_sub "
+              f"{c_ms}, pca_grid {c_grid}; S/N-optimal ncomp {opt} (mean "
+              f"S/N {opt_snr:.3f})", flush=True)
+        runs[route] = (medsub, grid, mode)
+
+    ref_ms, ref_grid, opt = out["plain"]
+    for route in ("H4", "H2"):
+        frame, frames, opt_r = out[route]
+        err_ms, s_ms = _rel_err(frame, ref_ms)
+        err_grid, s_grid = _rel_err(frames, ref_grid)
+        print(f"companion search {route} vs plain route: median_sub max abs "
+              f"err {err_ms:.3e} (bound {PIPE_TOL:.0e} x {s_ms:.3f}), "
+              f"pca_grid {err_grid:.3e} (bound {PIPE_TOL:.0e} x "
+              f"{s_grid:.3f}); optimal ncomp {opt_r} vs {opt}", flush=True)
+        _require(err_ms <= PIPE_TOL * s_ms, f"median_sub {route} disagrees")
+        _require(err_grid <= PIPE_TOL * s_grid, f"pca_grid {route} disagrees")
+        _require(opt_r == opt, f"optimal ncomp {route} {opt_r} != {opt}")
+
+    frame = out["H4"][0]
+    smap = snrmap(frame, COMP_FWHM, verbose=False)
+    fmap = snrmap_fast(frame, COMP_FWHM)
+    torch.cuda.synchronize()
+    for name, m in (("snrmap", smap), ("snrmap_fast", fmap)):
+        _require(tuple(m.shape) == (SIZE, SIZE) and m.is_cuda
+                 and bool(torch.isfinite(m).all()),
+                 f"{name}: not a finite {SIZE}x{SIZE} CUDA map")
+    cy, cx = int(src[1]), int(src[0])
+    peak = np.unravel_index(int(smap.argmax()), smap.shape)
+    ys, xs = detection(frame, fwhm=COMP_FWHM, mode="lpeaks", bkg_sigma=5,
+                       snr_thresh=5, full_output=False, plot=False,
+                       verbose=False)
+    print(f"companion search: snrmap peak {float(smap.max()):.3f} at (y, x) "
+          f"{tuple(int(v) for v in peak)}, S/N at the companion "
+          f"{float(smap[cy, cx]):.3f} (snrmap_fast {float(fmap[cy, cx]):.3f})"
+          f"; detection (y, x) {list(zip(np.atleast_1d(ys).tolist(), np.atleast_1d(xs).tolist()))}"
+          f", planted at {(src[1], src[0])}", flush=True)
+    _require(_near(ys, xs, src), "detection missed the planted companion")
+    return fused3_counts, runs, frame
+
+
+def phase_annular_median(pcube, angles_np, src):
+    """``median_sub(mode="annular")`` once at full width (default exact
+    route, H2; H1 for each annulus's library medians and the collapse).
+    Returns its wall time in seconds."""
+    from vip_tpu_torch.metrics import detection
+    from vip_tpu_torch.psfsub import median_sub
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = median_sub(pcube, angles_np, mode="annular", imlib="vip-fft",
+                       verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    _require(tuple(frame.shape) == (SIZE, SIZE) and frame.is_cuda
+             and bool(torch.isfinite(frame).all()),
+             "annular median_sub: not a finite CUDA frame")
+    _require(counts["H1"] >= 2 and counts["H2"] > 0,
+             f"annular median_sub launches {counts}")
+    ys, xs = detection(frame, fwhm=COMP_FWHM, mode="lpeaks", bkg_sigma=5,
+                       snr_thresh=5, full_output=False, plot=False,
+                       verbose=False)
+    print(f"median_sub annular {N_FRAMES}x{SIZE}x{SIZE}: launches {counts}; "
+          f"{wall:.4f} s (first and only call); companion detected "
+          f"{_near(ys, xs, src)}", flush=True)
+    _require(_near(ys, xs, src), "annular median_sub: companion missed")
+    return wall
+
+
+def phase_small_companion_reference():
+    """The companion search on a small cube through the kernels (CUDA,
+    float32, H4 and H1) against the float64 CPU parity mode, which the
+    tests hold against vip_tpu: median_sub in both modes, snrmap,
+    detection."""
+    from vip_tpu_torch.metrics import detection, snrmap
+    from vip_tpu_torch.psfsub import median_sub
+
+    rng = np.random.default_rng(6)
+    n, size, sep = 40, 64, 14.0
+    angles = np.linspace(0.0, 60.0, n)
+    yy, xx = np.mgrid[:size, :size]
+    cube = 0.5 * rng.standard_normal((n, size, size))
+    c = size // 2
+    for i, a in enumerate(np.deg2rad(angles)):
+        cube[i] += 2.0 * np.exp(-((yy - c + sep * np.sin(a)) ** 2
+                                  + (xx - c - sep * np.cos(a)) ** 2) / 5.77)
+    with _env("VIP_EXACT_SHEAR", "fused3"):
+        for mode in ("fullfr", "annular"):
+            _reset_counts()
+            got = median_sub(torch.as_tensor(cube, dtype=torch.float32,
+                                             device=DEVICE), angles,
+                             mode=mode, verbose=False)
+            torch.cuda.synchronize()
+            counts = _counts()
+            _require(counts["H4"] > 0 and counts["H1"] >= 2,
+                     f"small median_sub {mode}: launches {counts}")
+            ref = median_sub(torch.as_tensor(cube), angles, mode=mode,
+                             verbose=False)
+            err, scale = _rel_err(got.cpu(), ref)
+            print(f"small {n}x{size}x{size} median_sub {mode}: launches "
+                  f"{counts}; CUDA f32 kernels vs CPU f64 plain: max abs err "
+                  f"{err:.3e} (bound {SMALL_TOL:.0e} x {scale:.3f})",
+                  flush=True)
+            _require(err <= SMALL_TOL * scale,
+                     f"small median_sub {mode} disagrees with CPU f64")
+            if mode == "fullfr":
+                smap = snrmap(got, COMP_FWHM, verbose=False)
+                smap_ref = snrmap(ref, COMP_FWHM, verbose=False)
+                serr, sscale = _rel_err(smap.cpu(), smap_ref)
+                det = detection(got, COMP_FWHM, mode="lpeaks", bkg_sigma=3,
+                                snr_thresh=3, plot=False, verbose=False)
+                det_ref = detection(ref, COMP_FWHM, mode="lpeaks",
+                                    bkg_sigma=3, snr_thresh=3, plot=False,
+                                    verbose=False)
+                # positions are 2-d Gaussian fits on the host: the same
+                # sources, to a small fraction of a pixel
+                same = all(np.shape(a) == np.shape(b) and np.allclose(
+                    np.atleast_1d(a), np.atleast_1d(b), atol=0.05)
+                    for a, b in zip(det, det_ref))
+                print(f"small snrmap CUDA f32 vs CPU f64: max abs err "
+                      f"{serr:.3e} (bound {SNR_TOL:.0e} x {sscale:.3f}); "
+                      f"detection {det} (CPU f64: same {same})", flush=True)
+                _require(serr <= SNR_TOL * sscale, "small snrmap disagrees")
+                _require(same, "small detection differs from CPU f64")
+                _require(_near(det[0], det[1], (c + sep, c)),
+                         "small detection missed the companion")
+
+
 def phase_small_annular_reference():
     """The device-resident annular path (>= 128 frames) on a small cube,
     through the kernels (CUDA, float32), against the float64 CPU parity
@@ -526,30 +888,51 @@ def main():
     (frames, rot_angles, geom, frames160, angles160, geom160,
      h2_err) = phase_rotation()
     canvas, small_angles, h3_err = phase_small_rotation()
+    h4_err, h4s_err = phase_fused3(frames, rot_angles, geom, frames160,
+                                   angles160, geom160, canvas, small_angles)
     counts, run_kernel, run_plain = phase_main_path(cube, angles_np)
     run_small = phase_small_pipeline(cube, angles_np)
+    h4s_counts, run_small3 = phase_small_pipeline_fused3(run_small)
     ann_counts, run_annular = phase_annular(cube, angles_np)
     phase_small_reference()
     phase_small_annular_reference()
+    pcube, src = _plant_companion(cube, angles_np)
+    h4_counts, search_runs, ms_frame = phase_companion_search(
+        pcube, angles_np, src)
+    t_ann_ms = phase_annular_median(pcube, angles_np, src)
+    phase_small_companion_reference()
 
+    from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
                                        rotate_fft_fast_batch,
                                        rotate_fft_small_plain)
     from vip_tpu_torch.ops.median import nanmedian_axis0, nanmedian_plain
     from vip_tpu_torch.ops.shear import (rotate_fft_exact_fused,
-                                         rotate_fft_small_fused)
+                                         rotate_fft_exact_fused3,
+                                         rotate_fft_small_fused,
+                                         rotate_fft_small_fused3)
 
+    cube999 = cube[:N_FRAMES - 1].contiguous()
     t_h1 = _sync_time(lambda: nanmedian_axis0(cube))
     t_h1p = _sync_time(lambda: nanmedian_plain(cube, 0))
+    t_h1o = _sync_time(lambda: nanmedian_axis0(cube999))
+    t_h1lib = _sync_time(lambda: torch.nanmedian(cube999, dim=0))
+    t_h4 = _sync_time(lambda: rotate_fft_exact_fused3(frames, rot_angles,
+                                                      *geom))
     t_h2 = _sync_time(lambda: rotate_fft_exact_fused(frames, rot_angles,
                                                      *geom))
     t_h2p = _sync_time(lambda: rotate_fft_exact_pruned(frames, rot_angles,
                                                        *geom))
+    t_h4b = _sync_time(lambda: rotate_fft_exact_fused3(frames, rot_angles,
+                                                       *geom))
+    t_h4m = _sync_time(lambda: rotate_fft_exact_fused3(frames160, angles160,
+                                                       *geom160))
     t_h2m = _sync_time(lambda: rotate_fft_exact_fused(frames160, angles160,
                                                       *geom160))
     t_h2mp = _sync_time(lambda: rotate_fft_exact_pruned(frames160, angles160,
                                                         *geom160))
     m0 = (canvas.shape[-1] - SIZE) // 2
+    t_h4s = _sync_time(lambda: rotate_fft_small_fused3(canvas, small_angles))
     t_h3 = _sync_time(lambda: rotate_fft_small_fused(canvas, small_angles))
     t_h3p = _sync_time(lambda: rotate_fft_small_plain(canvas, small_angles))
     t_h3k = _sync_time(lambda: rotate_fft_fast_batch(
@@ -558,58 +941,111 @@ def main():
     t_e2ep = _sync_time(run_plain)
 
     def run_packed():
-        before = os.environ.get("VIP_SMALL_SHEAR")
-        os.environ["VIP_SMALL_SHEAR"] = "packed"
-        try:
+        with _env("VIP_SMALL_SHEAR", "packed"):
             return run_small()
-        finally:
-            if before is None:
-                del os.environ["VIP_SMALL_SHEAR"]
-            else:
-                os.environ["VIP_SMALL_SHEAR"] = before
 
     t_small = _sync_time(run_small)
     t_packed = _sync_time(run_packed)
+    t_small3 = _sync_time(run_small3)
     t_small2 = _sync_time(run_small)
+    t_search = {}
+    for route, (medsub, grid, mode) in search_runs.items():
+        with _env("VIP_EXACT_SHEAR", mode):
+            t_search[route] = (_sync_time(medsub), _sync_time(grid))
+    t_snr = _sync_time(lambda: snrmap(ms_frame, COMP_FWHM, verbose=False))
+    t_snrf = _sync_time(lambda: snrmap_fast(ms_frame, COMP_FWHM))
     t_ann = _sync_time(run_annular, reps=2)
     prof_wall, table = _profile_table(run_annular)
+    with _env("VIP_EXACT_SHEAR", "fused3"):
+        ms_wall, ms_table = _profile_table(search_runs["H4"][0], rows=10)
 
     print(f"timing H1 median {N_FRAMES}x{SIZE}x{SIZE}: kernel "
-          f"{t_h1 * 1e3:.3f} ms, plain {t_h1p * 1e3:.3f} ms", flush=True)
-    print(f"timing H2 rotation {CHUNK}x{SIZE}^2: kernel {t_h2 * 1e3:.3f} ms "
+          f"{t_h1 * 1e3:.3f} ms, plain {t_h1p * 1e3:.3f} ms; at "
+          f"{N_FRAMES - 1} frames kernel {t_h1o * 1e3:.3f} ms, "
+          f"torch.nanmedian {t_h1lib * 1e3:.3f} ms", flush=True)
+    print(f"timing exact rotation {CHUNK}x{SIZE}^2 (N=2048): H4 "
+          f"{t_h4 * 1e3:.3f} ms, H2 {t_h2 * 1e3:.3f} ms "
           f"({CHUNK / t_h2:.1f} frames/s), plain {t_h2p * 1e3:.3f} ms "
-          f"({CHUNK / t_h2p:.1f} frames/s)", flush=True)
-    print(f"timing H2 rotation {SMALL_CHUNK}x160^2 (N=640): kernel "
-          f"{t_h2m * 1e3:.3f} ms, plain {t_h2mp * 1e3:.3f} ms", flush=True)
-    print(f"timing H3 rotation {SMALL_CHUNK}x{SIZE}^2 on 640^2: kernel "
-          f"{t_h3 * 1e3:.3f} ms ({SMALL_CHUNK / t_h3:.1f} frames/s), plain "
-          f"{t_h3p * 1e3:.3f} ms, packed torch.fft path {t_h3k * 1e3:.3f} ms"
-          f" ({SMALL_CHUNK / t_h3k:.1f} frames/s)", flush=True)
+          f"({CHUNK / t_h2p:.1f} frames/s), H4 again {t_h4b * 1e3:.3f} ms",
+          flush=True)
+    print(f"timing exact rotation {SMALL_CHUNK}x160^2 (N=640): H4 "
+          f"{t_h4m * 1e3:.3f} ms, H2 {t_h2m * 1e3:.3f} ms, plain "
+          f"{t_h2mp * 1e3:.3f} ms", flush=True)
+    print(f"timing small rotation {SMALL_CHUNK}x{SIZE}^2 on 640^2: H4 "
+          f"{t_h4s * 1e3:.3f} ms, H3 {t_h3 * 1e3:.3f} ms "
+          f"({SMALL_CHUNK / t_h3:.1f} frames/s), plain {t_h3p * 1e3:.3f} ms, "
+          f"packed torch.fft path {t_h3k * 1e3:.3f} ms "
+          f"({SMALL_CHUNK / t_h3k:.1f} frames/s)", flush=True)
     print(f"timing pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} rot_mode=fft: "
           f"kernels {t_e2e:.4f} s, plain path {t_e2ep:.4f} s", flush=True)
     print(f"timing pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} "
           f"rot_mode=fft-small chunk {SMALL_CHUNK}: H3 {t_small:.4f} s, "
-          f"packed {t_packed:.4f} s, H3 again {t_small2:.4f} s", flush=True)
+          f"packed {t_packed:.4f} s, H4 {t_small3:.4f} s, H3 again "
+          f"{t_small2:.4f} s", flush=True)
+    for route, (t_ms, t_grid) in t_search.items():
+        print(f"timing companion search {N_FRAMES}x{SIZE}x{SIZE} ({route} "
+              f"route): median_sub {t_ms:.4f} s, pca_grid ncomp "
+              f"{GRID_PCS[0]}..{GRID_PCS[1]} {t_grid:.4f} s", flush=True)
+    print(f"timing median_sub annular {N_FRAMES}x{SIZE}x{SIZE}: "
+          f"{t_ann_ms:.4f} s (once); snrmap {SIZE}^2 {t_snr:.4f} s, "
+          f"snrmap_fast {t_snrf:.4f} s", flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
+    print(f"profile median_sub {N_FRAMES}x{SIZE}x{SIZE}, H4 route: "
+          f"{ms_wall:.4f} s under the profiler; top ops by device time:\n"
+          f"{ms_table}", flush=True)
+
+    def exact_work(n, y, g):
+        """Bytes and float32 operations of the exact rotation of n frames
+        of y²: y + 1 slab rows, N columns and the crop rows are sheared."""
+        N, R2, W3 = g[0], g[4] - g[3], g[6] - g[5]
+        return (n * (y * y + R2 * W3) * 4,
+                _shear_flop(n * (y + 1 + N + R2), N))
+
+    N3 = canvas.shape[-1]
+    work = {
+        # the median: each input read once, the frame written once; about
+        # one comparison per input value
+        "H1": ((N_FRAMES + 1) * SIZE * SIZE * 4, N_FRAMES * SIZE * SIZE),
+        "H2/H4 exact 512^2": exact_work(CHUNK, SIZE, geom),
+        "H2/H4 exact 160^2": exact_work(SMALL_CHUNK, 160, geom160),
+        "H3/H4 small 640^2": (SMALL_CHUNK * N3 * N3 * 4 * 2,
+                              _shear_flop(SMALL_CHUNK * 3 * N3, N3)),
+    }
+    bounds = {k: _bound(*v) for k, v in work.items()}
+    print("bounds: " + "; ".join(
+        f"{k} {v[0] / 1e9:.4f} GB, {v[1] / 1e9:.4f} Gflop -> "
+        f"{bounds[k][0]:.4f} ms ({bounds[k][1]})" for k, v in work.items()),
+        flush=True)
+    h1_bound = bounds["H1"]
+    exact_bound = bounds["H2/H4 exact 512^2"]
+    small_bound = bounds["H3/H4 small 640^2"]
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              library_ms=None):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
 
     kernels = [
-        {"name": "nanmedian_axis0", "route": "cuda",
-         "source": "vip_tpu_torch/csrc/nanmedian.cu",
-         "replaces": "vip_tpu/ops/pallas_median.py:104",
-         "launches": counts["H1"], "max_abs_err": h1_err,
-         "ms": t_h1 * 1e3, "plain_ms": t_h1p * 1e3},
-        {"name": "rotate_fft_exact_fused", "route": "cuda",
-         "source": "vip_tpu_torch/csrc/fft_shear.cu",
-         "replaces": "vip_tpu/ops/pallas_shear.py:550",
-         "launches": counts["H2"], "max_abs_err": h2_err,
-         "ms": t_h2 * 1e3, "plain_ms": t_h2p * 1e3},
-        {"name": "rotate_fft_small_fused", "route": "cuda",
-         "source": "vip_tpu_torch/csrc/fft_shear.cu",
-         "replaces": "vip_tpu/ops/pallas_shear.py:918",
-         "launches": ann_counts["H3"], "max_abs_err": h3_err,
-         "ms": t_h3 * 1e3, "plain_ms": t_h3p * 1e3},
+        entry("nanmedian_axis0", "vip_tpu_torch/csrc/nanmedian.cu",
+              "vip_tpu/ops/pallas_median.py:104", counts["H1"], h1_err,
+              t_h1 * 1e3, t_h1p * 1e3, h1_bound, t_h1lib * 1e3),
+        entry("rotate_fft_exact_fused", "vip_tpu_torch/csrc/fft_shear.cu",
+              "vip_tpu/ops/pallas_shear.py:550", counts["H2"], h2_err,
+              t_h2 * 1e3, t_h2p * 1e3, exact_bound),
+        entry("rotate_fft_small_fused", "vip_tpu_torch/csrc/fft_shear.cu",
+              "vip_tpu/ops/pallas_shear.py:918", ann_counts["H3"], h3_err,
+              t_h3 * 1e3, t_h3p * 1e3, small_bound),
+        entry("rotate_fft_exact_fused3", "vip_tpu_torch/csrc/fft_shear3.cu",
+              "vip_tpu/ops/pallas_shear.py:845", h4_counts["H4"], h4_err,
+              t_h4 * 1e3, t_h2p * 1e3, exact_bound),
+        entry("rotate_fft_small_fused3", "vip_tpu_torch/csrc/fft_shear3.cu",
+              "vip_tpu/ops/pallas_shear.py:890", h4s_counts["H4"], h4s_err,
+              t_h4s * 1e3, t_h3p * 1e3, small_bound),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

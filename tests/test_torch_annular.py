@@ -17,6 +17,8 @@ import pytest
 import threadpoolctl
 import torch
 
+import vip_tpu_torch
+
 import jax
 import jax.numpy as jnp
 
@@ -31,6 +33,15 @@ from vip_tpu_torch.psfsub import svd
 from vip_tpu_torch.var import shapes
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The port runs numpy input on the CUDA card unless asked otherwise;
+    this module asks for the CPU (float64 parity mode). It decides nothing
+    by probing for a card."""
+    vip_tpu_torch.set_device("cpu")
+
 
 SVD_TOL = 1e-10
 RES_TOL = 1e-8

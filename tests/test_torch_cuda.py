@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import vip_tpu_torch
+
 from vip_tpu_torch.ops import median, pipeline, shear
 from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
                                    rotate_fft_small_plain)
@@ -21,10 +23,21 @@ from vip_tpu_torch.ops.median import nanmedian_axis0, nanmedian_plain
 from vip_tpu_torch.ops.shear import (fused_shear_supported,
                                      fused_small_supported,
                                      rotate_fft_exact_fused,
-                                     rotate_fft_small_fused, rotate_exact)
+                                     rotate_fft_exact_fused3,
+                                     rotate_fft_small_fused,
+                                     rotate_fft_small_fused3, rotate_exact)
 from vip_tpu_torch.preproc.derotation import _fft_rotate_geometry
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The port runs numpy input on the CUDA card unless asked otherwise;
+    this module asks for the CPU (float64 parity mode). It decides nothing
+    by probing for a card."""
+    vip_tpu_torch.set_device("cpu")
+
 
 # H2 and H3 against their plain versions: the bound of
 # tests/test_pallas_shear.py:39,94
@@ -176,3 +189,154 @@ def test_small_route_on_the_card(cuda_device, monkeypatch, mode):
     assert shear.small_launches == before + (6 if mode == "fused" else 0)
     assert tuple(got.shape) == (6, 96, 96)
     assert bool(torch.isfinite(got).all())
+
+
+# ---------------------------------------------------------------------------
+# H4: the three shears in one cooperative launch
+# ---------------------------------------------------------------------------
+def _within(got, refs):
+    for ref in refs:
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got.double() - ref.double()).abs().max()) \
+            <= ROT_TOL * scale
+
+
+@pytest.mark.parametrize("y", [64, 96, 160, 512])
+def test_fused3_exact_matches_plain_and_h2(cuda_device, y):
+    """Nine frames: at 512² the scratch holds four, so the launch walks
+    three groups. H4 runs H2's line arithmetic: bit-equal to H2."""
+    geom = _fft_rotate_geometry(y, y)
+    geom = (geom[0],) + geom[2:]
+    rng = np.random.default_rng(y)
+    frames = torch.as_tensor(rng.standard_normal((9, y, y)),
+                             dtype=torch.float32, device=cuda_device)
+    angles = torch.tensor(_ANGLES, device=cuda_device)
+    before = shear.fused3_launches
+    got = rotate_fft_exact_fused3(frames, angles, *geom)
+    h2 = rotate_fft_exact_fused(frames, angles, *geom)
+    ref32 = rotate_fft_exact_pruned(frames, angles, *geom)
+    ref64 = rotate_fft_exact_pruned(frames.double(), angles.double(), *geom)
+    torch.cuda.synchronize()
+    assert shear.fused3_launches == before + 1
+    assert torch.equal(got, h2)
+    _within(got, (ref32, ref64))
+
+
+@pytest.mark.parametrize("P", list(range(1, 17)))
+def test_fused3_small_matches_plain_and_h3(cuda_device, P):
+    N = 128 * P
+    rng = np.random.default_rng(200 + P)
+    frames = torch.as_tensor(rng.standard_normal((9, N, N)),
+                             dtype=torch.float32, device=cuda_device)
+    angles = torch.tensor(_ANGLES, device=cuda_device)
+    before = shear.fused3_launches
+    got = rotate_fft_small_fused3(frames, angles)
+    h3 = rotate_fft_small_fused(frames, angles)
+    ref32 = rotate_fft_small_plain(frames, angles)
+    ref64 = rotate_fft_small_plain(frames.double(), angles.double())
+    torch.cuda.synchronize()
+    assert shear.fused3_launches == before + 1
+    assert torch.equal(got, h3)
+    _within(got, (ref32, ref64))
+
+
+def test_fused3_rejects_what_it_does_not_take(cuda_device):
+    a2 = torch.tensor([10.0, 20.0], device=cuda_device)
+    g33 = _fft_rotate_geometry(33, 33)
+    g64 = _fft_rotate_geometry(64, 64)
+    before = shear.fused3_launches
+    with pytest.raises(ValueError):     # odd frames
+        rotate_fft_exact_fused3(torch.zeros((2, 33, 33), device=cuda_device),
+                                a2, g33[0], *g33[2:])
+    with pytest.raises(ValueError):     # float64
+        rotate_fft_exact_fused3(torch.zeros((2, 64, 64), dtype=torch.float64,
+                                            device=cuda_device), a2, g64[0],
+                                *g64[2:])
+    with pytest.raises(ValueError):     # not contiguous
+        rotate_fft_exact_fused3(torch.zeros((64, 2, 64), device=cuda_device)
+                                .transpose(0, 1), a2, g64[0], *g64[2:])
+    for cube in (torch.zeros((2, 130, 130), device=cuda_device),
+                 torch.zeros((2, 128 * 17, 128 * 17), device=cuda_device),
+                 torch.zeros((2, 256, 256), dtype=torch.float64,
+                             device=cuda_device),
+                 torch.zeros((2, 256, 128), device=cuda_device)):
+        with pytest.raises(ValueError):
+            rotate_fft_small_fused3(cube, a2)
+    assert shear.fused3_launches == before
+
+
+@pytest.mark.parametrize("mode,kernel", [("auto", "H2"), ("fused", "H2"),
+                                         ("fused3", "H4"), ("pruned", None)])
+def test_exact_shear_routes_on_the_card(cuda_device, monkeypatch, mode,
+                                        kernel):
+    monkeypatch.setenv("VIP_EXACT_SHEAR", mode)
+    rng = np.random.default_rng(11)
+    frames = torch.as_tensor(rng.standard_normal((5, 96, 96)),
+                             dtype=torch.float32, device=cuda_device)
+    angles = torch.linspace(0.0, 50.0, 5, device=cuda_device)
+    before = {"H2": shear.launches, "H4": shear.fused3_launches}
+    got = pipeline._derotate_frames(frames, angles, chunk=3, rot_mode="fft")
+    torch.cuda.synchronize()
+    after = {"H2": shear.launches, "H4": shear.fused3_launches}
+    want = {"H2": 0, "H4": 0}
+    if kernel == "H2":
+        want["H2"] = 6              # two chunks, three launches each
+    elif kernel == "H4":
+        want["H4"] = 2              # two chunks, one launch each
+    assert {k: after[k] - before[k] for k in after} == want
+    ref = rotate_exact(frames.double(), -angles.double())
+    _within(got, (ref,))
+
+
+def test_small_shear_fused3_route_on_the_card(cuda_device, monkeypatch):
+    monkeypatch.setenv("VIP_SMALL_SHEAR", "fused3")
+    rng = np.random.default_rng(7)
+    cube = torch.as_tensor(rng.standard_normal((6, 96, 96)),
+                           dtype=torch.float32, device=cuda_device)
+    angles = torch.linspace(0.0, 50.0, 6, device=cuda_device)
+    before = (shear.small_launches, shear.fused3_launches)
+    got = pipeline._derotate_frames(cube, angles, chunk=4,
+                                    rot_mode="fft-small")
+    torch.cuda.synchronize()
+    assert (shear.small_launches, shear.fused3_launches) == \
+        (before[0], before[1] + 2)
+    monkeypatch.setenv("VIP_SMALL_SHEAR", "fused")
+    assert torch.equal(got, pipeline._derotate_frames(
+        cube, angles, chunk=4, rot_mode="fft-small"))
+
+
+def test_companion_search_on_the_card(cuda_device, monkeypatch):
+    """median_sub → snrmap → detection on a CUDA float32 cube against the
+    CPU float64 parity mode; H1 and H4 (VIP_EXACT_SHEAR=fused3) run."""
+    from vip_tpu_torch.metrics import detection, snrmap
+    from vip_tpu_torch.psfsub import median_sub
+
+    monkeypatch.setenv("VIP_EXACT_SHEAR", "fused3")
+    rng = np.random.default_rng(3)
+    n, size, sep = 40, 64, 14.0
+    angles = np.linspace(0.0, 60.0, n)
+    yy, xx = np.mgrid[:size, :size]
+    cube = 0.5 * rng.standard_normal((n, size, size))
+    c = size // 2
+    for i, a in enumerate(np.deg2rad(angles)):
+        cube[i] += 2.0 * np.exp(-((yy - c + sep * np.sin(a)) ** 2
+                                  + (xx - c - sep * np.cos(a)) ** 2) / 5.77)
+    before = (median.launches, shear.fused3_launches, shear.launches)
+    got = median_sub(torch.as_tensor(cube, dtype=torch.float32,
+                                     device=cuda_device), angles,
+                     verbose=False)
+    torch.cuda.synchronize()
+    assert median.launches >= before[0] + 2      # model and collapse
+    assert shear.fused3_launches > before[1] and shear.launches == before[2]
+    ref = median_sub(torch.as_tensor(cube), angles, verbose=False)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((got.cpu().double() - ref).abs().max()) <= 1e-4 * scale
+    smap = snrmap(got, 4, verbose=False)
+    assert smap.is_cuda and smap.dtype == torch.float32
+    smap_ref = snrmap(ref, 4, verbose=False)
+    assert float((smap.cpu().double() - smap_ref).abs().max()) <= 1e-3 * max(
+        float(smap_ref.abs().max()), 1.0)
+    ys, xs = detection(got, 4, mode="lpeaks", bkg_sigma=3, snr_thresh=3,
+                       plot=False, verbose=False)
+    assert any(abs(y - c) <= 3 and abs(x - c - sep) <= 3
+               for y, x in zip(np.atleast_1d(ys), np.atleast_1d(xs)))

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import vip_tpu_torch
+
 import jax.numpy as jnp
 
 from vip_tpu.ops.pallas_median import nanmedian_axis0 as pallas_nanmedian
@@ -22,6 +24,14 @@ from vip_tpu_torch.preproc.subsampling import collapse_jax, cube_collapse
 from test_torch_cuda import _specials
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The port runs numpy input on the CUDA card unless asked otherwise;
+    this module asks for the CPU (float64 parity mode). It decides nothing
+    by probing for a card."""
+    vip_tpu_torch.set_device("cpu")
 
 
 def _bits(a):

@@ -7,8 +7,8 @@ on the CPU at float64.
   library: 1e-10 of max(|ref|, 1).
 - The goldens pca_adi, pca_linalg_adi and pca_drot_adi (VIP's own frames
   on the NACO replica, tests/golden/) at ≤1e-5 max abs, the contract of
-  tests/test_golden.py:28, with vip_tpu's ``detection`` as the 3-px oracle
-  on the port's frame.
+  tests/test_golden.py:28, with the port's own ``detection`` as the 3-px
+  oracle.
 - ``convert.params_from_numpy`` round trips.
 """
 
@@ -17,6 +17,8 @@ import os
 import numpy as np
 import pytest
 import torch
+
+import vip_tpu_torch
 
 from conftest import make_adi_cube
 from gen_golden import (GOLDEN_DIR, SNR_THRESH, input_checksum,
@@ -28,6 +30,15 @@ from vip_tpu_torch.config import Scaling, SvdMode
 import vip_tpu_torch.psfsub as tps
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The port runs numpy input on the CUDA card unless asked otherwise;
+    this module asks for the CPU (float64 parity mode). It decides nothing
+    by probing for a card."""
+    vip_tpu_torch.set_device("cpu")
+
 
 TOL = 1e-10
 FRAME_TOL = 1e-5    # tests/test_golden.py:28
@@ -93,8 +104,9 @@ def test_pca_source_xy_delta_rot_vs_vip_tpu(small):
 
 def test_pca_paths_still_to_port_raise(small):
     cube, angles, _ = small
-    for kw in (dict(ncomp=(1, 2)), dict(ncomp=0.9), dict(left_eigv=True),
-               dict(batch=10), dict(smooth=2)):
+    for kw in (dict(batch=10), dict(smooth=2),
+               dict(mask_rdi=np.ones((32, 32))),
+               dict(scale_list=np.ones(24))):
         with pytest.raises(NotImplementedError):
             tps.pca(cube, angles, verbose=False, **kw)
     with pytest.raises(NotImplementedError):
@@ -155,9 +167,9 @@ def test_golden_frame(golden_ds, name):
 
 
 def _check_detection(frame, ds):
-    """3-px detection oracle (tests/test_golden.py:62-82), with vip_tpu's
-    detection run on the port's frame."""
-    from vip_tpu.metrics import detection
+    """3-px detection oracle (tests/test_golden.py:62-82), with the port's
+    own detection."""
+    from vip_tpu_torch.metrics import detection
 
     table = detection(frame, fwhm=ds["fwhm"], mode="lpeaks", bkg_sigma=5,
                       matched_filter=False, mask=True, snr_thresh=SNR_THRESH,

@@ -10,8 +10,8 @@ goldens, on the CPU at float64.
   (vip_tpu/psfsub/pca_local.py:632-633).
 - The goldens pca_ann_adi, pca_ann_left_eigv_adi and pca_ann_auto_adi
   (VIP's own frames on the NACO replica, tests/golden/) at ≤1e-5 max abs,
-  the contract of tests/test_golden.py:28, with vip_tpu's ``detection``
-  as the 3-px oracle on the port's frame.
+  the contract of tests/test_golden.py:28, with the port's own
+  ``detection`` as the 3-px oracle.
 """
 
 import os
@@ -19,6 +19,8 @@ import os
 import numpy as np
 import pytest
 import torch
+
+import vip_tpu_torch
 
 from conftest import make_adi_cube
 from gen_golden import (GOLDEN_DIR, SNR_THRESH, input_checksum,
@@ -31,6 +33,15 @@ from vip_tpu_torch.ops import median, shear
 from vip_tpu_torch.psfsub import pca_local
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The port runs numpy input on the CUDA card unless asked otherwise;
+    this module asks for the CPU (float64 parity mode). It decides nothing
+    by probing for a card."""
+    vip_tpu_torch.set_device("cpu")
+
 
 TOL = 1e-8
 FRAME_TOL = 1e-5    # tests/test_golden.py:28
@@ -173,9 +184,9 @@ def test_golden_frame(golden_ds, name):
 
 
 def _check_detection(frame, ds):
-    """3-px detection oracle (tests/test_golden.py:62-82), with vip_tpu's
-    detection run on the port's frame."""
-    from vip_tpu.metrics import detection
+    """3-px detection oracle (tests/test_golden.py:62-82), with the port's
+    own detection."""
+    from vip_tpu_torch.metrics import detection
 
     table = detection(frame, fwhm=ds["fwhm"], mode="lpeaks", bkg_sigma=5,
                       matched_filter=False, mask=True, snr_thresh=SNR_THRESH,

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import vip_tpu_torch
+
 import jax.numpy as jnp
 
 from conftest import make_adi_cube
@@ -21,6 +23,15 @@ from vip_tpu.ops import pipeline as jpipe
 from vip_tpu_torch.ops import median, pipeline, shear
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The port runs numpy input on the CUDA card unless asked otherwise;
+    this module asks for the CPU (float64 parity mode). It decides nothing
+    by probing for a card."""
+    vip_tpu_torch.set_device("cpu")
+
 
 TOL = 1e-7
 

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import vip_tpu_torch
+
 import jax
 import jax.numpy as jnp
 
@@ -23,6 +25,15 @@ from vip_tpu_torch.ops import fft, shear
 from vip_tpu_torch.preproc import derotation
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The port runs numpy input on the CUDA card unless asked otherwise;
+    this module asks for the CPU (float64 parity mode). It decides nothing
+    by probing for a card."""
+    vip_tpu_torch.set_device("cpu")
+
 
 F64_TOL = 1e-12
 F32_TOL = 3e-5

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import vip_tpu_torch
+
 import jax.numpy as jnp
 
 from vip_tpu.ops import pipeline as jpipe
@@ -25,6 +27,15 @@ from vip_tpu_torch.ops import fft, pipeline, shear
 from vip_tpu_torch.preproc import derotation
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The port runs numpy input on the CUDA card unless asked otherwise;
+    this module asks for the CPU (float64 parity mode). It decides nothing
+    by probing for a card."""
+    vip_tpu_torch.set_device("cpu")
+
 
 F32_TOL = 3e-5
 F64_TOL = 1e-10

@@ -2,16 +2,17 @@
 
 Same layout and public names as ``vip_tpu``; plain functions on tensors
 with an explicit device (:func:`set_device`) and explicit
-``torch.Generator`` draws. The hot kernels of the full-frame PCA-ADI path
-(the exact FFT-shear rotation and the radix-select median) are CUDA C++
-for Hopper under ``csrc/``, built with nvcc at their first launch
-(``_build.py``); every kernel has a plain PyTorch version beside it, which
-CPU tensors use. Subpackages load lazily.
+``torch.Generator`` draws. Numpy input runs on the CUDA card unless the
+caller asks for the CPU (``set_device("cpu")``). The hot kernels (the
+FFT-shear rotations and the radix-select median) are CUDA C++ for Hopper
+under ``csrc/``, built with nvcc at their first launch (``_build.py``);
+every kernel has a plain PyTorch version beside it, which CPU tensors
+use. Subpackages load lazily.
 """
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("config", "var", "preproc", "ops", "psfsub")
+_SUBPACKAGES = ("config", "var", "preproc", "ops", "psfsub", "metrics")
 
 from .config.device import get_device, set_device  # noqa: E402
 

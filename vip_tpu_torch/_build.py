@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with one ``nvcc`` call for Hopper (``sm_90a``) into
-one shared library with a plain C interface under ``_build/`` (ignored by
-git), loaded with ``ctypes``. The build runs at the first kernel launch,
-never at import, so the package imports on a host with no ``nvcc``; it is
-redone only when the sources or the flags change (a ``.srchash`` stamp, as
+Each ``csrc/*.cu`` compiles with its own ``nvcc`` process for Hopper
+(``sm_90a``), all started together; one more ``nvcc`` links the objects
+into one shared library with a plain C interface under ``_build/``
+(ignored by git), loaded with ``ctypes``. The build runs at the first
+kernel launch, never at import, so the package imports on a host with no
+``nvcc``; it is redone only when the sources (``*.cu`` and the ``*.cuh``
+headers they share) or the flags change (a ``.srchash`` stamp, as
 ``vip_tpu/fits/_native.py`` does for its decoder). A failed build raises
 with nvcc's output.
 """
@@ -26,7 +28,7 @@ _STAMP = _SO + ".srchash"
 # no --use_fast_math: the median must keep denormals to stay bit-equal to
 # its plain version
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC"]
+          "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -35,6 +37,8 @@ _SIGNATURES = {
     "vip_nanmedian_axis0": [_P, _P, _LL, _LL, _I, _P],
     "vip_shear_lines": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                         _LL, _LL, _LL, _I, _I, _LL, _LL, _LL, _I, _I, _P],
+    "vip_shear3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
+                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -42,9 +46,13 @@ def _sources():
     return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
+
+
 def _src_hash():
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for path in _sources():
+    for path in _sources() + _headers():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())
@@ -59,6 +67,12 @@ def _nvcc():
     return nvcc
 
 
+def _check_nvcc(cmd, rc, out, err):
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}\n"
+                           f"{err}")
+
+
 def build():
     """Compile the kernels if the library is missing or stale. Returns the
     library's path."""
@@ -68,12 +82,31 @@ def build():
             if fh.read().strip() == digest:
                 return _SO
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(_BUILD_DIR,
+                           f"{os.path.basename(src)[:-3]}.{tag}.o")
+        cmd = [nvcc, *_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE,
+                                            text=True)))
+    tmp = f"{_SO}.{tag}"
+    link = [nvcc, *_FLAGS, "-shared", "-o", tmp, *objs]
+    try:
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            _check_nvcc(cmd, proc.returncode, out, err)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout, proc.stderr)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, _SO)  # atomic: a concurrent loader sees old or new
     with open(_STAMP, "w") as fh:
         fh.write(digest)

@@ -1,10 +1,12 @@
 """Device and dtype policy of the port.
 
 - Every op runs on the device of the tensor it is given.
-- Numpy input to the public functions (``pca``, ``cube_derotate``,
-  ``cube_collapse``, ...) goes to the device chosen with
-  :func:`set_device`. The default is ``"cpu"`` until the caller sets it;
-  nothing picks a device by probing.
+- Numpy input to the public functions (``pca``, ``median_sub``,
+  ``cube_derotate``, ``snrmap``, ...) goes to the device chosen with
+  :func:`set_device`. The default is ``"cuda"``: the entry points run on
+  the card unless the caller asks for the CPU with ``set_device("cpu")``.
+  With no card and no such call, numpy input raises; nothing falls back to
+  the CPU, and nothing picks a device by probing.
 - On CUDA the work runs in float32/complex64 (numpy float64 input is cast
   down), as vip_tpu ran float32 on its accelerator.
 - On CPU numpy float64 stays float64/complex128: the parity mode the tests
@@ -25,7 +27,7 @@ __all__ = ["set_device", "get_device", "as_tensor", "work_dtype"]
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-_device = torch.device("cpu")
+_device = torch.device("cuda")
 
 
 def set_device(device):
@@ -40,7 +42,13 @@ def set_device(device):
 
 
 def get_device():
-    """The device numpy input goes to (see :func:`set_device`)."""
+    """The device numpy input goes to (see :func:`set_device`). Raises if
+    it is a CUDA device and no card is present."""
+    if _device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "vip_tpu_torch runs numpy input on the CUDA card by default, and "
+            "CUDA is not available here: call vip_tpu_torch.set_device(\"cpu\")"
+            " to run on the CPU (float64 parity mode), or pass tensors")
     return _device
 
 
@@ -63,7 +71,7 @@ def as_tensor(x, device=None, dtype=None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     x = np.asarray(x)
-    dev = torch.device(device) if device is not None else _device
+    dev = torch.device(device) if device is not None else get_device()
     if dtype is None:
         dtype = work_dtype(x.dtype.type if x.dtype.kind == "f"
                            else np.float64, dev)

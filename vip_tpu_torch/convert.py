@@ -1,9 +1,10 @@
 """Hand-over from vip_tpu-style numpy inputs to the port's tensors.
 
-- :func:`params_from_numpy` turns a vip_tpu ``PCA_Params`` (or any object
-  with the same fields) into the port's ``PCA_Params``: numpy arrays become
-  tensors, enums map by value onto the port's enums of the same name, and
-  strings and scalars pass through.
+- :func:`params_from_numpy` turns a vip_tpu ``PCA_Params`` or
+  ``MEDIAN_SUB_Params`` (or any object with the same fields) into the
+  port's class of the same name: numpy arrays become tensors, enums map by
+  value onto the port's enums of the same name, and strings and scalars
+  pass through.
 - :func:`draws_from_numpy` turns a random draw made elsewhere (such as
   vip_tpu's randsvd sketch, ``jax.random.normal`` at vip_tpu
   ops/linalg.py:65) into the ``omega`` argument of
@@ -34,21 +35,25 @@ def _convert(value, device, dtype):
 
 
 def params_from_numpy(params, device=None, dtype=None):
-    """The port's ``PCA_Params`` with the fields of ``params``.
+    """The port's ``MEDIAN_SUB_Params`` for an object of a class of that
+    name, else the port's ``PCA_Params``, with the fields of ``params``.
 
     Numpy arrays go to ``device`` (default: the device of
     ``vip_tpu_torch.set_device``) in ``dtype`` (default: the device
     policy's working dtype); fields the port's class has and ``params``
     lacks keep their defaults.
     """
+    from .psfsub.medsub import MEDIAN_SUB_Params
     from .psfsub.pca_fullfr import PCA_Params
 
+    cls = MEDIAN_SUB_Params if type(params).__name__ == "MEDIAN_SUB_Params" \
+        else PCA_Params
     kwargs = {}
-    for field in dataclasses.fields(PCA_Params):
+    for field in dataclasses.fields(cls):
         if hasattr(params, field.name):
             kwargs[field.name] = _convert(getattr(params, field.name),
                                           device, dtype)
-    return PCA_Params(**kwargs)
+    return cls(**kwargs)
 
 
 def draws_from_numpy(draw, device=None, dtype=None):

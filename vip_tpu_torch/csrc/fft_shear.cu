@@ -55,57 +55,16 @@
 // frame; H3: three full 640^2 canvases, ~8 MB per frame). The y-shear
 // reads and writes columns with a row stride, so its loads use a quarter
 // of each 32-byte sector. Next steps, for later: radix-4/8 stages in
-// registers, several columns per block for coalesced y-shear loads, and
-// fusing the three shears.
+// registers and several columns per block for coalesced y-shear loads.
+// The line shear itself (steps 1-5) is `vip::shear_line` in
+// shear_line.cuh, which H4 (fft_shear3.cu, the three shears in one
+// launch) shares.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "shear_line.cuh"
 
 namespace {
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ float2 conjf2(float2 a) {
-  return make_float2(a.x, -a.y);
-}
-
-// One pass of P-point DFTs over the M columns n2 (points n2, M + n2, ...,
-// (P-1)*M + n2), in place: each thread holds its column's P inputs in
-// registers and writes each output as it is formed. Forward: DFT, then
-// twiddle W_N^(n2*k1). Inverse: conjugate twiddle, then the conjugate DFT.
-template <int P, bool INV>
-__device__ __forceinline__ void radix_p_pass(float2* buf,
-                                             const float2* __restrict__ tw,
-                                             int M, int tid, int nt) {
-  for (int n2 = tid; n2 < M; n2 += nt) {
-    float2 v[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) v[i] = buf[i * M + n2];
-    if (INV) {
-#pragma unroll
-      for (int i = 1; i < P; ++i) v[i] = cmul(v[i], conjf2(__ldg(tw + n2 * i)));
-    }
-#pragma unroll
-    for (int k1 = 0; k1 < P; ++k1) {
-      float2 acc = v[0];
-#pragma unroll
-      for (int n1 = 1; n1 < P; ++n1) {
-        float2 w = __ldg(tw + M * ((n1 * k1) % P));
-        if (INV) w = conjf2(w);
-        const float2 t = cmul(v[n1], w);
-        acc.x += t.x;
-        acc.y += t.y;
-      }
-      if (!INV && k1 > 0) acc = cmul(acc, __ldg(tw + n2 * k1));
-      buf[k1 * M + n2] = acc;
-    }
-  }
-}
-
-// P, the odd factor of N, is a template argument so that each canvas's
-// kernel holds only the registers of its own P-point stage.
+// One block per line; the line's index in the batch is blockIdx.x.
 template <bool REAL_IN, bool REAL_OUT, int P>
 __global__ void shear_lines_kernel(
     const void* __restrict__ in_ptr, void* __restrict__ out_ptr,
@@ -117,93 +76,10 @@ __global__ void shear_lines_kernel(
   extern __shared__ float2 buf[];
   const int line = blockIdx.x % lines;
   const int b = blockIdx.x / lines;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int half_n = N >> 1;
-  const int M = 1 << logM;
-  const int half_m = M >> 1;
-
-  // 1. load the occupied band, zeros elsewhere
-  const long long ibase = (long long)b * in_sb + (long long)line * in_sl;
-  for (int i = tid; i < N; i += nt) {
-    const int j = i - in_off;
-    float2 v = make_float2(0.f, 0.f);
-    if (j >= 0 && j < in_len) {
-      if (REAL_IN) {
-        v.x = __ldg(static_cast<const float*>(in_ptr) + ibase + j * in_si);
-      } else {
-        v = __ldg(static_cast<const float2*>(in_ptr) + ibase + j * in_si);
-      }
-    }
-    buf[i] = v;
-  }
-  __syncthreads();
-
-  // 2. forward: p-point stage, then radix-2 DIF on each M-point sub-line
-  if constexpr (P > 1) {
-    radix_p_pass<P, false>(buf, tw, M, tid, nt);
-    __syncthreads();
-  }
-  for (int half = half_m; half >= 1; half >>= 1) {
-    const int tstride = P * (half_m / half);
-    for (int j = tid; j < half_n; j += nt) {
-      const int pos = j & (half - 1);
-      const int i0 = ((j & ~(half - 1)) << 1) | pos;
-      const int i1 = i0 + half;
-      const float2 a = buf[i0];
-      const float2 c = buf[i1];
-      buf[i0] = make_float2(a.x + c.x, a.y + c.y);
-      buf[i1] = cmul(make_float2(a.x - c.x, a.y - c.y), __ldg(tw + pos * tstride));
-    }
-    __syncthreads();
-  }
-
-  // 3. shear phase; slot M*k1 + r holds k = k1 + P*brev_m(r)
-  const double cq = coef[b] * (double)(q0 + line - half_n);
-  for (int slot = tid; slot < N; slot += nt) {
-    const int k1 = slot >> logM;
-    const int r = slot & (M - 1);
-    int k = k1 + P * (int)(__brev((unsigned)r) >> (32 - logM));
-    if (k >= half_n) k -= N;
-    double cyc = cq * (double)k / (double)N;
-    cyc -= rint(cyc);
-    float s, c;
-    sincospif(-2.0f * (float)cyc, &s, &c);
-    buf[slot] = cmul(buf[slot], make_float2(c, s));
-  }
-  __syncthreads();
-
-  // 4. inverse: radix-2 DIT on each sub-line, then the p-point stage
-  for (int half = 1; half < M; half <<= 1) {
-    const int tstride = P * (half_m / half);
-    for (int j = tid; j < half_n; j += nt) {
-      const int pos = j & (half - 1);
-      const int i0 = ((j & ~(half - 1)) << 1) | pos;
-      const int i1 = i0 + half;
-      const float2 t = cmul(buf[i1], conjf2(__ldg(tw + pos * tstride)));
-      const float2 u = buf[i0];
-      buf[i0] = make_float2(u.x + t.x, u.y + t.y);
-      buf[i1] = make_float2(u.x - t.x, u.y - t.y);
-    }
-    __syncthreads();
-  }
-  if constexpr (P > 1) {
-    radix_p_pass<P, true>(buf, tw, M, tid, nt);
-    __syncthreads();
-  }
-
-  // 5. store the output band
-  const float inv_n = 1.0f / (float)N;
-  const long long obase = (long long)b * out_sb + (long long)line * out_sl;
-  for (int i = tid; i < out_len; i += nt) {
-    const float2 v = buf[out_off + i];
-    if (REAL_OUT) {
-      static_cast<float*>(out_ptr)[obase + i * out_si] = v.x * inv_n;
-    } else {
-      static_cast<float2*>(out_ptr)[obase + i * out_si] =
-          make_float2(v.x * inv_n, v.y * inv_n);
-    }
-  }
+  vip::shear_line<REAL_IN, REAL_OUT, P, true>(
+      buf, in_ptr, (long long)b * in_sb + (long long)line * in_sl, in_si,
+      in_len, in_off, out_ptr, (long long)b * out_sb + (long long)line * out_sl,
+      out_si, out_len, out_off, coef[b], q0 + line, tw, N, logM);
 }
 
 }  // namespace
@@ -221,19 +97,14 @@ extern "C" int vip_shear_lines(int real_in, int real_out, const void* in,
                                long long out_sb, long long out_sl,
                                long long out_si, int out_len, int out_off,
                                void* stream) {
-  if (N < 128 || N > 4096) return (int)cudaErrorInvalidValue;
-  int p = N, logM = 0;
-  while ((p & 1) == 0) {
-    p >>= 1;
-    ++logM;
-  }
-  if (p > 15) return (int)cudaErrorInvalidValue;
+  int p, logM;
+  vip::canvas_factors(N, &p, &logM);
+  if (p == 0 || (real_in && real_out)) return (int)cudaErrorInvalidValue;
   const int threads = N / 2 < 256 ? N / 2 : 256;
   const size_t smem = (size_t)N * sizeof(float2);
   const unsigned blocks = (unsigned)((long long)B * lines);
   cudaStream_t s = (cudaStream_t)stream;
   const float2* twc = static_cast<const float2*>(tw);
-  if (real_in && real_out) return (int)cudaErrorInvalidValue;
 #define VIP_LAUNCH(RI, RO, PP)                                               \
   shear_lines_kernel<RI, RO, PP><<<blocks, threads, smem, s>>>(              \
       in, out, coef, twc, lines, N, logM, q0, in_sb, in_sl, in_si, in_len,   \
@@ -245,19 +116,8 @@ extern "C" int vip_shear_lines(int real_in, int real_out, const void* in,
     VIP_LAUNCH(false, true, PP);                                             \
   } else {                                                                   \
     VIP_LAUNCH(false, false, PP);                                            \
-  }                                                                          \
-  break
-  switch (p) {
-    case 1: VIP_LAUNCH_P(1);
-    case 3: VIP_LAUNCH_P(3);
-    case 5: VIP_LAUNCH_P(5);
-    case 7: VIP_LAUNCH_P(7);
-    case 9: VIP_LAUNCH_P(9);
-    case 11: VIP_LAUNCH_P(11);
-    case 13: VIP_LAUNCH_P(13);
-    case 15: VIP_LAUNCH_P(15);
-    default: return (int)cudaErrorInvalidValue;
   }
+  VIP_SWITCH_P(p, VIP_LAUNCH_P)
 #undef VIP_LAUNCH_P
 #undef VIP_LAUNCH
   return (int)cudaGetLastError();

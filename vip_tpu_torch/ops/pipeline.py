@@ -2,8 +2,9 @@
 
 The main path, full-frame PCA-ADI: scale the frame matrix → top-k PCs →
 project and subtract → derotate every residual frame with VIP's exact
-4x-padded three-shear FFT rotation (CUDA kernel H2; the fft-small mode's
-rotation is CUDA kernel H3) → per-pixel temporal median (CUDA kernel H1).
+4x-padded three-shear FFT rotation (CUDA kernel H2, or H4 with
+``VIP_EXACT_SHEAR=fused3``; the fft-small mode's rotation is CUDA kernel
+H3) → per-pixel temporal median (CUDA kernel H1).
 PyTorch runs eagerly on the tensors' device, so where vip_tpu compiled one
 XLA program, these are plain functions.
 """
@@ -18,16 +19,18 @@ from ..preproc.subsampling import collapse_jax
 from .fft import rotate_fft_fast_batch
 from .linalg import matrix_scaling_jax, svd_top
 from .median import nanmedian_axis0, nanmedian_plain, nanmedian_supported
-from .shear import fused_small_supported, rotate_fft_small_fused
+from .shear import (fused_small_supported, rotate_fft_small_fused,
+                    rotate_fft_small_fused3)
 
 __all__ = ["pca_adi_pipeline", "derotate_collapse", "median_adi_pipeline"]
 
 
 def _small_shear_mode():
     """``VIP_SMALL_SHEAR`` as vip_tpu reads it (ops/pipeline.py:63-68):
-    "packed" for the packed ``torch.fft`` path, anything else for the
-    kernel. vip_tpu defaulted to "packed" from TPU v5e timings; on the card
-    the default is the kernel H3 (PERF.md holds both times)."""
+    "packed" for the packed ``torch.fft`` path, "fused3" for the
+    one-launch kernel H4, anything else for the kernel H3. vip_tpu
+    defaulted to "packed" from TPU v5e timings; on the card the default is
+    H3 (PERF.md holds the times)."""
     return os.environ.get("VIP_SMALL_SHEAR", "fused")
 
 
@@ -39,8 +42,9 @@ def _derotate_frames(cube, angles, chunk=None, rot_mode="fft",
     rotation on a ≥1.25x canvas restricted to the inscribed circle (pixels
     outside it come back 0): CUDA kernel H3 on a CUDA float32 tensor whose
     128-multiple canvas passes ``fused_small_supported``, unless
-    ``VIP_SMALL_SHEAR=packed``; the packed ``torch.fft`` path on an
-    even-ceil canvas otherwise (always on the CPU, as vip_tpu)."""
+    ``VIP_SMALL_SHEAR`` is "packed" (then the packed ``torch.fft`` path on
+    an even-ceil canvas, as always on the CPU, as vip_tpu) or "fused3"
+    (then CUDA kernel H4 on the same canvas as H3)."""
     angles = as_tensor(angles, cube.device, cube.dtype)
     if rot_mode == "interp":
         raise NotImplementedError(
@@ -56,9 +60,12 @@ def _derotate_frames(cube, angles, chunk=None, rot_mode="fft",
     n, sz = cube.shape[0], cube.shape[-1]
     pad_to = -(-int(sz * 1.25) // 2) * 2  # even ceil
     pad_fused = -(-int(sz * 1.25) // 128) * 128
-    use_fused = (_small_shear_mode() != "packed"
+    mode = _small_shear_mode()
+    use_fused = (mode != "packed"
                  and fused_small_supported(pad_fused, cube.dtype,
                                            cube.device))
+    small_kernel = rotate_fft_small_fused3 if mode == "fused3" \
+        else rotate_fft_small_fused
     if use_fused:
         pad_to = pad_fused
     m0 = (pad_to - sz) // 2
@@ -70,7 +77,7 @@ def _derotate_frames(cube, angles, chunk=None, rot_mode="fft",
         frames = torch.where(fov, frames, 0.0)
         padded = torch.nn.functional.pad(frames, (m0, m1, m0, m1))
         if use_fused:
-            out = rotate_fft_small_fused(padded, angs)
+            out = small_kernel(padded, angs)
         else:
             # prune the two x-shears to the content/crop row slab (+1 for
             # the quadrant-rot90 shift) — exactness-preserving

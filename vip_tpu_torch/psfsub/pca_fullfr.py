@@ -4,14 +4,16 @@
 Same public surface as vip_tpu's ``pca(*args, **kwargs)``: the
 dataclass-params convention, keyword arguments outside ``PCA_Params``
 passed on as ``rot_options``, and the same return tuples. The pipeline
-prepare-matrix → SVD → project/subtract → derotate (CUDA kernel H2) →
-collapse (CUDA kernel H1) runs on the cube's device; results are tensors
-there.
+prepare-matrix → SVD → project/subtract → derotate (CUDA kernel H2, or H4
+with ``VIP_EXACT_SHEAR=fused3``) → collapse (CUDA kernel H1) runs on the
+cube's device; results are tensors there. A tuple or list ``ncomp`` is a
+grid (``utils_pca.pca_grid``), a float ``ncomp`` the number of PCs that
+reach that cumulative explained variance ratio (``svd.SVDecomposer``),
+and ``left_eigv`` projects on the left singular vectors.
 
 Not ported yet (each raises ``NotImplementedError``; ROADMAP.md Queue 1,
 "pca paths still to port"): 4-D/SDI cubes and ``scale_list``, ``batch``
-(incremental PCA), a ``ncomp`` grid (tuple or list), a float ``ncomp``
-(CEVR), ``left_eigv``, ``mask_rdi`` and ``smooth``.
+(incremental PCA), ``mask_rdi`` and ``smooth``.
 """
 
 from dataclasses import dataclass
@@ -32,7 +34,7 @@ from ..preproc.parangles import check_pa_vector
 from ..preproc.subsampling import cube_collapse
 from ..var.coords import dist, frame_center
 from ..var.shapes import mask_circle, prepare_matrix
-from .svd import MODE_TO_METHOD
+from .svd import MODE_TO_METHOD, SVDecomposer, svd_wrapper
 
 __all__ = ["pca", "PCA_Params"]
 
@@ -98,6 +100,10 @@ def pca(*all_args: List, **all_kwargs: dict):
     Returns the final frame, or with ``full_output`` (frame, pcs, recon,
     residuals_cube, residuals_cube_) — (frame, recon_cube, residuals_cube,
     residuals_cube_) with ``source_xy`` — as tensors on the cube's device.
+    A grid ``ncomp`` returns the frames of the grid (their median with
+    ``med_of_npcs``), or with ``source_xy`` the S/N-optimal frame; with
+    ``full_output`` (frames, pclist), or (frames, frame, table) with
+    ``source_xy`` (vip_tpu pca_fullfr.py:303-329).
     """
     algo_params, rot_options = resolve_algo_params(
         PCA_Params, all_args, all_kwargs)
@@ -110,12 +116,12 @@ def pca(*all_args: List, **all_kwargs: dict):
 
     start_time = time_ini(p.verbose)
 
+    if p.left_eigv and (p.batch is not None or p.mask_rdi is not None
+                        or p.cube_ref is not None):
+        raise NotImplementedError(
+            "left_eigv is not compatible with 'mask_rdi' nor 'batch'")
     for what, waits in (("scale_list (4-d/SDI)", p.scale_list is not None),
                         ("batch (incremental PCA)", p.batch is not None),
-                        ("a ncomp grid", isinstance(p.ncomp, (tuple, list))),
-                        ("a float ncomp (CEVR)",
-                         isinstance(p.ncomp, (float, np.floating))),
-                        ("left_eigv", bool(p.left_eigv)),
                         ("mask_rdi", p.mask_rdi is not None),
                         ("smooth", p.smooth is not None)):
         if waits:
@@ -140,9 +146,25 @@ def pca(*all_args: List, **all_kwargs: dict):
                             "'RDI' or 'ARDI'")
 
     func_params = setup_parameters(params_obj=p, fkt=_adi_rdi_pca,
-                                   start_time=start_time, full_output=True)
+                                   start_time=start_time, full_output=True,
+                                   grid_table=bool(p.full_output))
     res_pca = _adi_rdi_pca(**func_params, **rot_options)
 
+    if isinstance(p.ncomp, (tuple, list)):
+        if p.source_xy is not None:
+            if p.full_output:
+                final_residuals_cube, frame, table, _ = res_pca
+                if p.med_of_npcs:
+                    final_residuals_cube = _median_of_frames(
+                        final_residuals_cube)
+                return final_residuals_cube, frame, table
+            return res_pca[1]
+        final_residuals_cube, pclist = res_pca
+        if p.med_of_npcs:
+            final_residuals_cube = _median_of_frames(final_residuals_cube)
+        if p.full_output:
+            return final_residuals_cube, pclist
+        return final_residuals_cube
     if p.source_xy is not None:
         recon_cube, residuals_cube, residuals_cube_, frame = res_pca
         if p.full_output:
@@ -154,12 +176,36 @@ def pca(*all_args: List, **all_kwargs: dict):
     return frame
 
 
+def _median_of_frames(frames):
+    """``numpy.median`` of a (k, y, x) stack over its first axis: H1 with
+    NaN propagation on the card, its plain version otherwise."""
+    from ..ops.median import (nanmedian_axis0, nanmedian_plain,
+                              nanmedian_supported)
+
+    if nanmedian_supported(frames, 0):
+        return nanmedian_axis0(frames.contiguous(), propagate=True)
+    return nanmedian_plain(frames, 0, propagate=True)
+
+
 def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
                  fwhm, scaling, mask_center_px, svd_mode, imlib,
                  interpolation, collapse, verbose, start_time, nproc,
-                 full_output, weights=None, cube_sig=None,
-                 min_frames_pca=10, max_frames_pca=None, **rot_options):
-    """ADI/RDI full-frame PCA core (vip_tpu pca_fullfr.py:332-445)."""
+                 full_output, weights=None, cube_sig=None, left_eigv=False,
+                 min_frames_pca=10, max_frames_pca=None, grid_table=True,
+                 **rot_options):
+    """ADI/RDI full-frame PCA core (vip_tpu pca_fullfr.py:332-445). A grid
+    ``ncomp`` goes to ``pca_grid`` (its pandas table only with
+    ``grid_table``)."""
+    if isinstance(ncomp, (tuple, list)):
+        from .utils_pca import _pca_grid
+
+        return _pca_grid(
+            cube, angle_list, fwhm, ncomp, source_xy, cube_ref, "fullfr", 20,
+            svd_mode, scaling, mask_center_px, "mean", collapse, verbose,
+            full_output, False, True, None, start_time, None, weights, False,
+            grid_table, dict(nproc=nproc, imlib=_value(imlib),
+                             interpolation=_value(interpolation),
+                             **rot_options))
     cube = as_tensor(cube)
     if cube_ref is not None:
         cube_ref = as_tensor(cube_ref, cube.device, cube.dtype)
@@ -169,7 +215,8 @@ def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
         raise ValueError("`angle_list` vector has wrong length. It must equal "
                          "the number of frames in the cube")
     if not np.isscalar(ncomp):
-        raise TypeError("`ncomp` must be an int in the ADI case")
+        raise TypeError("`ncomp` must be an int, float, tuple or list in the "
+                        "ADI case")
 
     nref = cube_ref.shape[0] if cube_ref is not None else n
     if isinstance(ncomp, (int, np.integer)) and ncomp > nref:
@@ -182,10 +229,10 @@ def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
     if source_xy is None:
         residuals_cube, reconstructed, V = _project_subtract(
             cube, cube_ref, ncomp, scaling, mask_center_px, svd_mode,
-            verbose, True, cube_sig=cube_sig)
+            verbose, True, cube_sig=cube_sig, left_eigv=left_eigv)
         if verbose:
             timing(start_time)
-        pcs = V.reshape(-1, y, x)
+        pcs = V.reshape(-1, y, x) if not left_eigv else V.T
         recon = reconstructed.reshape(-1, y, x)
     else:
         # rotation-threshold path: one library per frame, chosen on the
@@ -207,7 +254,7 @@ def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
             res_result = _project_subtract(
                 cube, cube_ref, ncomp, scaling, mask_center_px, svd_mode,
                 verbose, True, ind, frame, cube_sig=cube_sig,
-                min_frames_pca=min_frames_pca)
+                left_eigv=left_eigv, min_frames_pca=min_frames_pca)
             nfrslib.append(res_result[0])
             residuals_cube[frame] = res_result[1].reshape(y, x)
             recon_cube[frame] = res_result[2].reshape(y, x)
@@ -234,31 +281,53 @@ def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
 
 def _project_subtract(cube, cube_ref, ncomp, scaling, mask_center_px,
                       svd_mode, verbose, full_output, indices=None,
-                      frame=None, cube_sig=None, min_frames_pca=10):
+                      frame=None, cube_sig=None, left_eigv=False,
+                      min_frames_pca=10):
     """PCA projection + model-PSF subtraction (vip_tpu
-    pca_fullfr.py:734-861, without ``left_eigv`` and CEVR): the whole
-    matrix at once, or one frame against its PA-selected library when
-    ``indices`` and ``frame`` are given."""
+    pca_fullfr.py:734-861): the whole matrix at once, or one frame against
+    its PA-selected library when ``indices`` and ``frame`` are given. A
+    float ``ncomp`` in (0, 1) is a cumulative explained variance ratio
+    (``SVDecomposer``); ``left_eigv`` projects on the left singular
+    vectors (the whole-matrix branch drops the masked center pixels)."""
     n, y, x = cube.shape
-    if not isinstance(ncomp, (int, np.integer)):
-        raise TypeError("Type not recognized for ncomp, should be int")
+    if not isinstance(ncomp, (int, np.integer, float, np.floating)):
+        raise TypeError("Type not recognized for ncomp, should be int or "
+                        "float")
+    scaling = _value(scaling)
+    mode = str(_value(svd_mode))
+    if isinstance(ncomp, (float, np.floating)):
+        if not 1 > ncomp > 0:
+            raise ValueError("if `ncomp` is float, it must lie in the "
+                             "interval (0,1]")
+        svdecomp = SVDecomposer(cube, mode="fullfr", svd_mode=mode,
+                                scaling=scaling, verbose=verbose)
+        ncomp = svdecomp.cevr_to_ncomp(ncomp)
+        if verbose:
+            print(f"Components used : {ncomp}")
     ncomp = int(ncomp)
-    method = MODE_TO_METHOD.get(str(_value(svd_mode)))
+    method = MODE_TO_METHOD.get(mode)
     if method is None:
         raise ValueError("The SVD `mode` is not recognized")
-    scaling = _value(scaling)
 
+    discard = bool(left_eigv) and indices is None and frame is None
     matrix = prepare_matrix(cube, scaling, mask_center_px, mode="fullfr",
-                            verbose=verbose and indices is None)
+                            verbose=verbose and indices is None,
+                            discard_mask_pix=discard)
     matrix_sig = None
     if cube_sig is not None:
-        matrix_sig = as_tensor(cube_sig, matrix.device,
-                               matrix.dtype).reshape(n, -1)
+        if discard:
+            matrix_sig = prepare_matrix(cube_sig, scaling, mask_center_px,
+                                        mode="fullfr", verbose=False,
+                                        discard_mask_pix=True)
+        else:
+            matrix_sig = as_tensor(cube_sig, matrix.device,
+                                   matrix.dtype).reshape(n, -1)
     matrix_emp = matrix if matrix_sig is None else matrix - matrix_sig
     matrix_ref = None
     if cube_ref is not None:
         matrix_ref = prepare_matrix(cube_ref, scaling, mask_center_px,
-                                    mode="fullfr", verbose=False)
+                                    mode="fullfr", verbose=False,
+                                    discard_mask_pix=discard)
 
     if indices is not None and frame is not None:
         idx = torch.as_tensor(np.asarray(indices, dtype=np.int64),
@@ -276,12 +345,27 @@ def _project_subtract(cube, cube_ref, ncomp, scaling, mask_center_px,
                 f"{ref_lib.shape[0]} frames comply to delta_rot condition < "
                 f"less than ncomp ({ncomp}). Try decreasing the parameter "
                 f"delta_rot or ncomp")
-        V = svd_top(ref_lib, ncomp, method=method)
-        reconstructed = (matrix_emp[frame] @ V.T) @ V
+        if left_eigv:
+            V = svd_wrapper(ref_lib, mode, ncomp, False, to_numpy=False,
+                            left_eigv=True)
+            reconstructed = V @ (matrix_emp[frame] @ V).T
+        else:
+            V = svd_top(ref_lib, ncomp, method=method)
+            reconstructed = (matrix_emp[frame] @ V.T) @ V
         residuals = matrix[frame] - reconstructed
         if full_output:
             return ref_lib.shape[0], residuals, reconstructed
         return ref_lib.shape[0], residuals
+
+    if left_eigv:
+        ref_lib = matrix_emp if matrix_ref is None else matrix_ref
+        V = svd_wrapper(ref_lib, mode, ncomp, verbose, to_numpy=False,
+                        left_eigv=True)
+        reconstructed = V @ (matrix_emp.T @ V).T
+        residuals = (matrix - reconstructed).reshape(n, y, x)
+        if full_output:
+            return residuals, reconstructed, V
+        return residuals
 
     residuals, reconstructed, V = project_subtract(
         matrix, matrix_ref, ncomp, method=method, matrix_sig=matrix_sig,

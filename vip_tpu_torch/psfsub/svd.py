@@ -1,19 +1,22 @@
 """SVD front end (port of ``vip_tpu.psfsub.svd``: ``MODE_TO_METHOD``,
-``svd_wrapper`` and ``get_eigenvectors``).
+``svd_wrapper``, ``get_eigenvectors`` and ``SVDecomposer``).
 
 VIP's ten backend modes map onto the three methods of
 ``vip_tpu_torch.ops.linalg.svd_top``, which run on the matrix's device.
-``SVDecomposer`` (CEVR) is not ported yet.
+``SVDecomposer`` takes 2-d matrices and 3-d cubes; 4-d cubes wait for
+ROADMAP Queue 1, slice 7.
 """
 
 import numpy as np
 import torch
 
+from ..config import check_array, sep, time_ini, timing
 from ..config.device import as_tensor
 from ..ops.linalg import matrix_scaling_jax, svd_top
 from ..ops.median import nanmedian_plain
 
-__all__ = ["svd_wrapper", "get_eigenvectors", "MODE_TO_METHOD"]
+__all__ = ["SVDecomposer", "svd_wrapper", "get_eigenvectors",
+           "MODE_TO_METHOD"]
 
 MODE_TO_METHOD = {
     "lapack": "lapack",
@@ -132,3 +135,150 @@ def get_eigenvectors(ncomp, data, svd_mode, mode="noise", noise_error=1e-3,
         if left_eigv:
             V = V.T
     return V
+
+
+class SVDecomposer:
+    """SVD of a 2-d matrix or a 3-d cube ('fullfr' or 'annular') with the
+    cumulative explained variance ratio (CEVR) tools (vip_tpu
+    svd.py:180). The decomposition runs on the data's device; the ratios
+    are host numpy. pandas is imported only by :meth:`get_cevr`, which
+    returns tables, and matplotlib only for its plot."""
+
+    def __init__(self, data, mode="fullfr", inrad=None, outrad=None,
+                 svd_mode="lapack", scaling="temp-standard", scale_list=None,
+                 verbose=True):
+        check_array(data, (2, 3, 4), msg="data")
+        self.data = data
+        self.mode = mode
+        self.svd_mode = svd_mode
+        self.inrad = inrad
+        self.outrad = outrad
+        self.scaling = scaling
+        self.scale_list = scale_list
+        self.verbose = verbose
+        if self.mode == "annular":
+            if inrad is None:
+                raise ValueError("`inrad` must be a positive integer")
+            if outrad is None:
+                raise ValueError("`outrad` must be a positive integer")
+        if self.verbose:
+            print(sep)
+
+    def generate_matrix(self):
+        """Build (and scale) the matrix from ``data``."""
+        from ..var.shapes import prepare_matrix
+
+        start_time = time_ini(False)
+        if self.data.ndim == 2:
+            print("`data` is already a 2d array")
+            self.matrix = matrix_scaling_jax(as_tensor(self.data),
+                                             self.scaling)
+        elif self.data.ndim == 4:
+            raise NotImplementedError(
+                "SVDecomposer: 4-d cubes are not ported yet (ROADMAP.md, "
+                "Queue 1, slice 7)")
+        else:
+            result = prepare_matrix(self.data, self.scaling, mode=self.mode,
+                                    inner_radius=self.inrad,
+                                    outer_radius=self.outrad,
+                                    verbose=self.verbose)
+            if self.mode == "annular":
+                self.matrix, pxind = result
+                self.yy, self.xx = pxind
+            else:
+                self.matrix = result
+        if self.verbose:
+            timing(start_time)
+
+    def run(self):
+        """Decompose the matrix (full SVD, all components kept)."""
+        start_time = time_ini(False)
+        if not hasattr(self, "matrix"):
+            self.generate_matrix()
+        max_pcs = min(self.matrix.shape[0], self.matrix.shape[1])
+        self.u, self.s, self.v = svd_wrapper(self.matrix, self.svd_mode,
+                                             max_pcs, verbose=self.verbose,
+                                             full_output=True)
+        if self.verbose:
+            timing(start_time)
+
+    def _ratios(self):
+        """Explained variance ratio and its cumulative sum, from the
+        singular values."""
+        if not hasattr(self, "v"):
+            self.run()
+        if self.verbose:
+            print("Computing the cumulative explained variance ratios")
+        exp_var = (self.s ** 2) / (self.s.shape[0] - 1)
+        self.explained_variance_ratio = exp_var / np.sum(exp_var)
+        self.cevr = np.cumsum(self.explained_variance_ratio)
+
+    def get_cevr(self, ncomp_list=None, plot=True, plot_save=False,
+                 plot_dpi=90, plot_truncation=None):
+        """Table (pandas) of the explained variance ratio and the CEVR of
+        every component, or of those in ``ncomp_list``."""
+        from pandas import DataFrame
+
+        start_time = time_ini(False)
+        self._ratios()
+        self.ncomp_list = ncomp_list
+        df_allks = DataFrame({"ncomp": range(1, self.s.shape[0] + 1),
+                              "expvar_ratio": self.explained_variance_ratio,
+                              "cevr": self.cevr})
+        self.table_cevr = df_allks
+        if plot:
+            self._plot(plot_save, plot_dpi, plot_truncation)
+        if self.ncomp_list is not None:
+            cevr_klist = [self.cevr[k - 1] for k in self.ncomp_list]
+            expvar_ratio_klist = [self.explained_variance_ratio[k - 1]
+                                  for k in self.ncomp_list]
+            df_klist = DataFrame({"ncomp": self.ncomp_list,
+                                  "exp_var_ratio": expvar_ratio_klist,
+                                  "cevr": cevr_klist})
+            self.cevr_ncomp = cevr_klist
+            self.table_cevr_ncomp = df_klist
+            if self.verbose:
+                timing(start_time)
+            return df_klist
+        if self.verbose:
+            timing(start_time)
+        return df_allks
+
+    def _plot(self, plot_save, plot_dpi, plot_truncation):
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=(8, 5), dpi=plot_dpi)
+        if plot_truncation is not None:
+            ax1 = plt.subplot2grid((1, 3), (0, 0), colspan=2, fig=fig)
+        else:
+            ax1 = fig.add_subplot(111)
+        ax1.step(range(self.explained_variance_ratio.shape[0]),
+                 self.explained_variance_ratio, where="mid",
+                 label="Individual EVR")
+        ax1.plot(self.cevr, ".-", label="Cumulative EVR")
+        ax1.legend(loc="best", frameon=False)
+        ax1.set_ylabel("Explained variance ratio (EVR)")
+        ax1.set_xlabel("Principal components")
+        if plot_truncation is not None:
+            ax2 = plt.subplot2grid((1, 3), (0, 2), colspan=1, fig=fig)
+            ax2.step(range(plot_truncation),
+                     self.explained_variance_ratio[:plot_truncation],
+                     where="mid")
+            ax2.plot(self.cevr[:plot_truncation], ".-")
+            ax2.set_xlabel("Principal components")
+            ax2.grid(linestyle="solid", alpha=0.2)
+            ax2.set_xlim(-2, plot_truncation + 2)
+            ax2.set_ylim(0, 1)
+        if plot_save:
+            plt.savefig("figure.pdf", dpi=300, bbox_inches="tight")
+
+    def cevr_to_ncomp(self, cevr=0.9):
+        """Number of PCs reaching a given CEVR (a float, or a tuple of
+        them)."""
+        if not hasattr(self, "cevr"):
+            self._ratios()
+        if isinstance(cevr, float):
+            return int(np.searchsorted(self.cevr, cevr) + 1)
+        elif isinstance(cevr, tuple):
+            return [int(np.searchsorted(self.cevr, c) + 1) for c in cevr]
+        return cevr

@@ -1,0 +1,327 @@
+"""PCA helpers: the grid over the number of PCs and single-annulus PCA for
+3-d cubes (port of ``vip_tpu.psfsub.utils_pca``: ``pca_grid``,
+``pca_annulus``).
+
+``pca_grid`` keeps VIP's SVD-once, truncate-many design: one SVD of the
+library at the largest ``ncomp``, then each truncation's residual cube is
+built from the shared basis, derotated and collapsed on the cube's
+device. The exact rotation does not depend on how frames are chunked, so
+the exact route builds, derotates and collapses one truncation at a time
+(one residual cube in memory, not k); the fft-small route stacks the k
+residual cubes, because its packed CPU rotation pairs frames across the
+stack as vip_tpu does. pandas is imported only when a table is returned,
+matplotlib only when ``plot`` is set. ``pca_incremental`` and the 4-d
+(mSDI) paths wait for ROADMAP Queue 1 (slices 2 and 7).
+"""
+
+from enum import Enum
+
+import numpy as np
+import torch
+
+from ..config import time_ini, timing
+from ..config.device import as_tensor
+from ..preproc.derotation import _auto_chunk, cube_derotate
+from ..preproc.subsampling import collapse_jax, cube_collapse
+from ..var.coords import dist, frame_center
+from ..var.shapes import disk_coords, prepare_matrix
+from .svd import svd_wrapper
+
+__all__ = ["pca_grid", "pca_annulus"]
+
+
+def _value(v):
+    return v.value if isinstance(v, Enum) else v
+
+
+def _residual_cube(matrix, V, pc, shape, annind):
+    """Residuals of ``matrix`` after the projection on the first ``pc``
+    rows of ``V``, as an (n, y, x) cube (zeros outside the annulus)."""
+    Vk = V[:pc]
+    res = matrix - (Vk @ matrix.T).T @ Vk
+    if annind is None:
+        return res.reshape(shape)
+    cube = res.new_zeros(shape)
+    cube[:, torch.as_tensor(annind[0], device=res.device),
+         torch.as_tensor(annind[1], device=res.device)] = res
+    return cube
+
+
+def _grid_frames(matrix, V, pclist, shape, annind, angle_list, derotate,
+                 collapse_fn, stacked):
+    """One final frame per truncation: residual cube → ``derotate`` →
+    ``collapse_fn``. ``stacked``: derotate the k cubes as one (k·n)-frame
+    cube with the angles tiled, else one truncation at a time."""
+    k = len(pclist)
+    n = shape[0]
+    angles = np.asarray(angle_list, dtype=float)
+    if not stacked:
+        return [collapse_fn(derotate(
+            _residual_cube(matrix, V, pc, shape, annind), angles))
+            for pc in pclist]
+    stack = torch.cat([_residual_cube(matrix, V, pc, shape, annind)
+                       for pc in pclist])
+    der = derotate(stack, np.tile(angles, k)).reshape(k, *shape)
+    return [collapse_fn(der[i]) for i in range(k)]
+
+
+def _snr_of(frame, y, x, fwhm, fmerit, exclude_negative_lobes):
+    """S/N figure of merit of one frame at (y, x) (vip_tpu
+    utils_pca.py:113): 'px' at the pixel, 'max' or 'mean' over the test
+    disk of diameter fwhm, all positions in one batched photometry."""
+    from ..metrics.snr_source import snr_multi
+
+    if fmerit == "px":
+        snr_pixels, fluxes = snr_multi(
+            frame, [x], [y], fwhm,
+            exclude_negative_lobes=exclude_negative_lobes)
+        return snr_pixels[0], fluxes[0]
+    yy, xx = disk_coords((y, x), fwhm / 2.0,
+                         (frame.shape[0], frame.shape[1]))
+    snr_pixels, fluxes = snr_multi(
+        frame, xx, yy, fwhm, exclude_negative_lobes=exclude_negative_lobes)
+    if fmerit == "max":
+        argm = np.argmax(snr_pixels)
+        return np.max(snr_pixels), fluxes[argm]
+    return np.mean(snr_pixels), np.mean(fluxes)
+
+
+def pca_grid(cube, angle_list, fwhm=None, range_pcs=None, source_xy=None,
+             cube_ref=None, mode="fullfr", annulus_width=20,
+             svd_mode="lapack", scaling=None, mask_center_px=None,
+             fmerit="mean", collapse="median", ifs_collapse_range="all",
+             verbose=True, full_output=False, debug=False, plot=True,
+             save_plot=None, start_time=None, scale_list=None,
+             initial_4dshape=None, weights=None,
+             exclude_negative_lobes=False, **rot_options):
+    """Residual PCA frames over a range of numbers of PCs; with
+    ``source_xy`` the S/N-optimal one (vip_tpu utils_pca.py:63). Same
+    parameters and returns: (cubeout, finalfr, table, opt_npc) with a
+    source, else cubeout or (cubeout, pclist) — frames as tensors on the
+    cube's device.
+
+    With ``imlib`` (or nothing) as the only rotation option, a finite
+    cube, and collapse 'median', 'mean' or 'sum' (vip_tpu's device
+    branch), each truncation is derotated by ``ops.pipeline``'s
+    derotation and collapsed by ``collapse_jax`` (CUDA kernels H2 or H4,
+    and H1, on the card); otherwise through ``cube_derotate`` and
+    ``cube_collapse`` with the rotation options (vip_tpu's host branch,
+    which ``pca(ncomp=tuple)`` takes). Both give the same frames.
+    """
+    return _pca_grid(cube, angle_list, fwhm, range_pcs, source_xy, cube_ref,
+                     mode, annulus_width, svd_mode, scaling, mask_center_px,
+                     fmerit, collapse, verbose, full_output, debug, plot,
+                     save_plot, start_time, scale_list, weights,
+                     exclude_negative_lobes, True, rot_options)
+
+
+def _pca_grid(cube, angle_list, fwhm, range_pcs, source_xy, cube_ref, mode,
+              annulus_width, svd_mode, scaling, mask_center_px, fmerit,
+              collapse, verbose, full_output, debug, plot, save_plot,
+              start_time, scale_list, weights, exclude_negative_lobes,
+              table, rot_options):
+    """``pca_grid`` itself; ``table=False`` skips the pandas table (the
+    caller discards it), so that ``pca`` imports pandas only for
+    ``full_output``."""
+    if scale_list is not None:
+        raise NotImplementedError(
+            "pca_grid: 4-d cubes with scale_list (mSDI) are not ported yet "
+            "(ROADMAP.md, Queue 1, slice 7)")
+    if start_time is None:
+        start_time = time_ini(verbose)
+    cube = as_tensor(cube)
+    n = cube.shape[0]
+    if source_xy is not None:
+        if fwhm is None:
+            raise ValueError("if source_xy is provided, so should fwhm")
+        x, y = source_xy
+    else:
+        x = y = None
+
+    if isinstance(range_pcs, list):
+        pclist = range_pcs
+        pcmax = max(pclist)
+    else:
+        if range_pcs is None:
+            pcmin, pcmax, step = 1, n - 1, 1
+        elif len(range_pcs) == 2:
+            pcmin, pcmax = range_pcs
+            pcmax = min(pcmax, n)
+            step = 1
+        elif len(range_pcs) == 3:
+            pcmin, pcmax, step = range_pcs
+            pcmax = min(pcmax, n)
+        else:
+            raise TypeError("`range_pcs` must be None or a tuple, "
+                            "corresponding to (PC_INI, PC_MAX) or "
+                            "(PC_INI, PC_MAX, STEP)")
+        pclist = list(range(pcmin, pcmax + 1, step))
+    if fmerit not in ["px", "max", "mean"]:
+        raise ValueError(f"Invalid value for fmerit: {fmerit}.")
+
+    if mode == "fullfr":
+        matrix = prepare_matrix(cube, scaling, mask_center_px, verbose=False)
+        ref_lib = matrix if cube_ref is None else prepare_matrix(
+            cube_ref, scaling, mask_center_px, verbose=False)
+        annind = None
+    elif mode == "annular":
+        y_cent, x_cent = frame_center(cube[0])
+        ann_radius = dist(y_cent, x_cent, y, x)
+        inrad = int(ann_radius - annulus_width / 2.0)
+        outrad = int(ann_radius + annulus_width / 2.0)
+        matrix, annind = prepare_matrix(cube, scaling, None, mode="annular",
+                                        inner_radius=inrad,
+                                        outer_radius=outrad, verbose=False)
+        if cube_ref is not None:
+            ref_lib, _ = prepare_matrix(cube_ref, scaling, mask_center_px,
+                                        "annular", inner_radius=inrad,
+                                        outer_radius=outrad, verbose=False)
+        else:
+            ref_lib = matrix
+    else:
+        raise RuntimeError("Wrong mode. Choose either fullfr or annular")
+
+    V = svd_wrapper(ref_lib, _value(svd_mode), pcmax, verbose,
+                    to_numpy=False)
+    if verbose:
+        timing(start_time)
+
+    collapse = _value(collapse)
+    imlib = _value(rot_options.get("imlib", "vip-fft"))
+    other_rot = {kk: vv for kk, vv in rot_options.items() if kk != "imlib"}
+    small = imlib == "vip-fft-small"
+    shape = tuple(cube.shape)
+    device_ok = (weights is None and collapse in ("median", "mean", "sum")
+                 and imlib in ("vip-fft", "vip-fft-small") and not other_rot
+                 and bool(torch.isfinite(cube).all())
+                 and (not small or (shape[-1] % 2 == 0
+                                    and shape[-2] == shape[-1])))
+    if device_ok:
+        from ..ops.pipeline import _derotate_frames
+
+        k = len(pclist)
+        itemsize = matrix.element_size()
+        if small:
+            chunk = min(k * n, 4 * _auto_chunk(k * n, shape[-1], itemsize))
+        else:
+            chunk = _auto_chunk(n, shape[-1], itemsize)
+        rot_mode = "fft-small" if small else "fft"
+
+        def derotate(res, angs):
+            return _derotate_frames(res, angs, chunk=chunk,
+                                    rot_mode=rot_mode)
+
+        def collapse_fn(der):
+            return collapse_jax(der, mode=collapse)
+    else:
+        def derotate(res, angs):
+            return cube_derotate(res, angs, **rot_options)
+
+        def collapse_fn(der):
+            return cube_collapse(der, mode=collapse, w=weights)
+    frlist = _grid_frames(matrix, V, pclist, shape, annind, angle_list,
+                          derotate, collapse_fn, stacked=small)
+    cubeout = torch.stack(frlist)
+
+    if x is not None and y is not None and fwhm is not None:
+        snrlist = []
+        fluxlist = []
+        for frame in frlist:
+            snr_value, flux = _snr_of(frame, y, x, fwhm, fmerit,
+                                      exclude_negative_lobes)
+            if np.isnan(snr_value):
+                snr_value = 0
+            snrlist.append(snr_value)
+            fluxlist.append(flux)
+        argmax = int(np.argmax(snrlist))
+        opt_npc = pclist[argmax]
+        df = None
+        if table or debug:
+            from pandas import DataFrame
+
+            df = DataFrame({"PCs": pclist, "S/Ns": snrlist,
+                            "fluxes": fluxlist})
+        if debug:
+            print(df, "\n")
+        if verbose:
+            print("Number of steps", len(pclist))
+            print(f"Optimal number of PCs = {opt_npc}, for "
+                  f"S/N={snrlist[argmax]:.3f}")
+        if plot:
+            _plot_grid(pclist, snrlist, fluxlist, opt_npc, save_plot)
+        return cubeout, cubeout[argmax], df, opt_npc
+
+    if verbose:
+        print(f"Computed residual frames for PCs interval: {range_pcs}")
+        print("Number of steps", len(pclist))
+        timing(start_time)
+    if full_output:
+        return cubeout, pclist
+    return cubeout
+
+
+def _plot_grid(pclist, snrlist, fluxlist, opt_npc, save_plot):
+    """S/N and flux against the number of PCs (vip_tpu utils_pca.py:287)."""
+    import matplotlib.pyplot as plt
+    from matplotlib.ticker import MaxNLocator
+
+    plt.figure(figsize=(8, 6))
+    for k, (vec, ylab, col) in enumerate(
+            ((snrlist, "S/N", "C0"),
+             (fluxlist, "Flux in FWHM ap. [ADUs]", "C1"))):
+        ax = plt.subplot(2, 1, k + 1)
+        ax.plot(pclist, vec, "-", alpha=0.5, color=col)
+        ax.plot(pclist, vec, "o", alpha=0.5, color=col)
+        ax.set_xlim(min(pclist), max(pclist))
+        ax.set_ylim(min(vec), max(vec) + 1)
+        ax.set_ylabel(ylab)
+        ax.minorticks_on()
+        ax.grid("on", "major", linestyle="solid", alpha=0.4)
+        ax.xaxis.set_major_locator(MaxNLocator(integer=True))
+        if k == 0:
+            ax.set_title(f"Optimal # PCs: {opt_npc}")
+        else:
+            ax.set_xlabel("Principal components")
+    if save_plot is not None:
+        plt.savefig(save_plot, dpi=100, bbox_inches="tight")
+
+
+def pca_annulus(cube, angs, ncomp, annulus_width, r_guess, cube_ref=None,
+                svd_mode="lapack", scaling=None, collapse="median",
+                weights=None, collapse_ifs="mean", **rot_options):
+    """PCA of one annulus of a 3-d cube (vip_tpu utils_pca.py:323; the
+    NEGFC forward model): prepare → SVD → project → derotate → collapse,
+    on the cube's device. Returns the collapsed frame, or the derotated
+    (or, without ``angs``, raw) residual cube when ``collapse`` is None.
+    4-d cubes wait for ROADMAP Queue 1, slice 7."""
+    cube = as_tensor(cube)
+    if cube.ndim == 4:
+        raise NotImplementedError(
+            "pca_annulus: 4-d cubes are not ported yet (ROADMAP.md, Queue 1,"
+            " slice 7)")
+    if cube.ndim != 3:
+        raise TypeError("Input cube must be 3d or 4d")
+    inrad = int(r_guess - annulus_width / 2.0)
+    outrad = int(r_guess + annulus_width / 2.0)
+    data, ind = prepare_matrix(cube, scaling, mode="annular", verbose=False,
+                               inner_radius=inrad, outer_radius=outrad)
+    if cube_ref is not None:
+        data_svd, _ = prepare_matrix(cube_ref, scaling, mode="annular",
+                                     verbose=False, inner_radius=inrad,
+                                     outer_radius=outrad)
+    else:
+        data_svd = data
+    V = svd_wrapper(data_svd, _value(svd_mode), ncomp, verbose=False,
+                    to_numpy=False)
+    residuals = data - (data @ V.T) @ V
+    cube_zeros = torch.zeros_like(cube)
+    cube_zeros[:, torch.as_tensor(ind[0], device=cube.device),
+               torch.as_tensor(ind[1], device=cube.device)] = residuals
+    if angs is not None:
+        cube_res_der = cube_derotate(cube_zeros, angs, **rot_options)
+        if collapse is not None:
+            return cube_collapse(cube_res_der, mode=collapse, w=weights)
+        return cube_res_der
+    if collapse is not None:
+        return cube_collapse(cube_zeros, mode=collapse, w=weights)
+    return cube_zeros

@@ -1,5 +1,6 @@
-"""Masks, annulus segments and cube→matrix conversion (port of the part of
-``vip_tpu.var.shapes`` that full-frame and annular PCA run on).
+"""Masks, annulus segments, squares and cube→matrix conversion (port of
+the part of ``vip_tpu.var.shapes`` that PCA, median-ADI and the metrics
+run on).
 
 The pixel selections (strict ``< 1`` normalized distance, skimage.draw
 semantics; annulus segments) are built on the host as static geometry and
@@ -14,7 +15,8 @@ from ..ops.linalg import matrix_scaling_jax
 from .coords import frame_center
 
 __all__ = ["mask_circle", "get_annulus_segments", "matrix_scaling",
-           "prepare_matrix", "reshape_matrix", "resolve_n_segments"]
+           "prepare_matrix", "reshape_matrix", "resolve_n_segments",
+           "disk_coords", "get_square"]
 
 
 def _disk(shape, cy, cx, radius):
@@ -22,6 +24,53 @@ def _disk(shape, cy, cx, radius):
     (skimage.draw.disk semantics, vip_tpu shapes.py:40-52)."""
     yy, xx = np.ogrid[0:float(shape[0]), 0:float(shape[1])]
     return ((yy - cy) / radius) ** 2 + ((xx - cx) / radius) ** 2 < 1
+
+
+def disk_coords(center, radius, shape):
+    """Host (yy, xx) index arrays of the pixels strictly inside a circle
+    (skimage.draw.disk semantics; vip_tpu shapes.py:49)."""
+    return np.nonzero(_disk(shape, center[0], center[1], radius))
+
+
+def get_square(array, size, y, x, position=False, force=False, verbose=True):
+    """Square subframe of ``size`` px centered at (y, x) (vip_tpu
+    shapes.py:186): unless ``force``, the size takes the parity of the
+    frame. A numpy frame gives a numpy copy, a tensor a tensor copy; with
+    ``position`` also the (y0, x0) of its corner."""
+    size_init_y, size_init_x = array.shape[-2:]
+    size_init = array.shape[0]
+    if array.ndim != 2:
+        raise TypeError("Input array is not a 2d array.")
+    if not isinstance(size, (int, np.integer)):
+        raise TypeError("`Size` must be integer")
+    if size >= size_init_y and size >= size_init_x:
+        raise ValueError("`Size` is equal to or bigger than the initial frame"
+                         " size")
+    if not force:
+        if size_init % 2 == 0 and size % 2 != 0:
+            size += 1
+            if verbose:
+                print("`Size` is odd (while input frame size is even). "
+                      f"Setting `size` to {size} pixels")
+        elif size_init % 2 != 0 and size % 2 == 0:
+            size += 1
+            if verbose:
+                print("`Size` is even (while input frame size is odd). "
+                      f"Setting `size` to {size} pixels")
+
+    wing = (size - 1) / 2
+    y0 = int(y - wing)
+    y1 = int(y + wing + 1)
+    x0 = int(x - wing)
+    x1 = int(x + wing + 1)
+    if y0 < 0 or x0 < 0 or y1 > size_init_y or x1 > size_init_x:
+        raise RuntimeError(
+            f"square cannot be obtained with size={size}, y={y}, x={x}")
+    sub = array[y0:y1, x0:x1]
+    sub = sub.clone() if isinstance(sub, torch.Tensor) else np.array(sub)
+    if position:
+        return sub, y0, x0
+    return sub
 
 
 def mask_circle(array, radius, fillwith=0, mode="in", cy=None, cx=None,
@@ -140,12 +189,26 @@ def prepare_matrix(array, scaling=None, mask_center_px=None, mode="fullfr",
                    inner_radius=None, outer_radius=None,
                    discard_mask_pix=False, verbose=True):
     """Build the [n_frames, n_px] matrix for SVD/PCA (vip_tpu
-    shapes.py:458). Only the full-frame mode is ported."""
-    if mode != "fullfr":
-        raise NotImplementedError(
-            "prepare_matrix: only mode='fullfr' is ported (annular mode "
-            "waits for ROADMAP Queue 1, slice 2)")
+    shapes.py:458). 'fullfr' returns the matrix; 'annular' the matrix of
+    the pixels of the centered annulus [inner_radius, outer_radius) and
+    their host (yy, xx) indices."""
     array = as_tensor(array)
+    if mode == "annular":
+        if inner_radius is None or outer_radius is None:
+            raise ValueError("`inner_radius` and `outer_radius` must be "
+                             "defined in annular mode")
+        fr_size = array.shape[1]
+        annulus_width = int(np.round(outer_radius - inner_radius))
+        ind = get_annulus_segments((fr_size, fr_size), inner_radius,
+                                   annulus_width, nsegm=1)[0]
+        yy, xx = (torch.as_tensor(i, device=array.device) for i in ind)
+        matrix = matrix_scaling_jax(array[:, yy, xx], scaling)
+        if verbose:
+            print("Done vectorizing the cube annulus. Matrix shape: "
+                  f"({matrix.shape[0]}, {matrix.shape[1]})")
+        return matrix, ind
+    if mode != "fullfr":
+        raise ValueError("mode not recognized")
     if mask_center_px:
         if discard_mask_pix:
             keep = mask_circle(array, mask_center_px, output="bool_mask")
