@@ -23,7 +23,9 @@ and ``metrics.detection``). Phases, one line each:
 5. H3 (fft-small FFT-shear rotation) against its plain version at float32
    and at float64, on 125 FoV-masked 512² frames on the 640 canvas;
 6. H4 (the three shears in one cooperative launch), exact and small, on
-   the inputs of phases 4 and 5, against the plain versions and H2/H3;
+   the inputs of phases 4 and 5, against the plain versions and within
+   ROT_TOL of H2/H3 (H4 keeps the radix-2 line body, H2 and H3 run the
+   register engine, so they are not bit-equal);
 7. main path, exact rotation: both full-frame entry points, with the
    kernels' launch counts, against the same steps through the plain
    versions on the card;
@@ -39,8 +41,12 @@ and ``metrics.detection``). Phases, one line each:
     H4 and H2 against the plain route, the same S/N-optimal ncomp,
     detection within 3 px of the planted companion; the annular
     ``median_sub`` once; a small search against the CPU float64 mode;
-11. timings, kernel beside plain, warm median of 3, and torch.profiler
-    tables of one ``pca_annular`` run and one ``median_sub`` (H4 route).
+11. timings, kernel beside plain, warm median of 3; H2's three launches
+    and its set-up timed apart with CUDA events; the cuFFT yardstick
+    (``torch.fft.fft`` then ``ifft`` over the line batches one H2 chunk
+    and one H3 chunk shear); torch.profiler tables of one ``pca_annular``
+    run and one ``median_sub`` (H2 route, so that the x- and y-shear
+    kernels show apart).
 
 Prints a JSON line of the kernels (launches on the main paths, errors,
 times, the roofline bound from this run's shapes, the time of one PyTorch
@@ -539,8 +545,9 @@ def phase_annular(cube, angles_np):
 
 def phase_small_pipeline_fused3(run_small):
     """The fft-small ``pca_adi_pipeline`` with ``VIP_SMALL_SHEAR=fused3``:
-    H4's small variant once a chunk instead of H3 three times; the same
-    frame as the H3 route, whose line arithmetic it shares."""
+    H4's small variant once a chunk instead of H3 three times; the H3
+    route's frame within PIPE_TOL (another line body, the same
+    function)."""
     ref = run_small()
 
     def run():
@@ -874,6 +881,82 @@ def _profile_table(fn, rows=15):
     return wall, table
 
 
+def _h2_split(frames, angles, geom, reps=3):
+    """H2 on one chunk, each step timed apart with CUDA events (median of
+    ``reps`` warm runs, ms): the wrapper's set-up (quadrants and shear
+    coefficients), the x-shear of the occupied rows (row kernel, reading
+    the frames' rot90 in place), the y-shear of every column (column
+    kernel), the x-shear of the crop rows (row kernel). The launches are
+    those of ``rotate_fft_exact_fused``."""
+    from vip_tpu_torch.ops import shear
+
+    N, py0, px0, cy0, cy1, cx0, cx1 = geom
+    B, y = frames.shape[0], frames.shape[-1]
+    R1, R2, W3 = y + 1, cy1 - cy0, cx1 - cx0
+    dev = frames.device
+    s1 = torch.empty((B, R1, N), dtype=torch.complex64, device=dev)
+    s2 = torch.empty((B, R2, N), dtype=torch.complex64, device=dev)
+    out = torch.empty((B, R2, W3), dtype=torch.float32, device=dev)
+    got = {}
+
+    def setup():
+        got["s"] = shear._exact_setup(frames, angles, N, "H2 split")
+
+    def x1():
+        lib, a, _, tables, k = got["s"]
+        shear._shear(lib, frames, s1, a, tables, R1, N, py0, (y * y, y, 1),
+                     y, px0, (R1 * N, N, 1), N, 0, "H2 split", quad=k)
+
+    def yy():
+        lib, _, b, tables, _ = got["s"]
+        shear._shear(lib, s1, s2, b, tables, N, N, 0, (R1 * N, 1, N), R1,
+                     py0, (R2 * N, 1, N), R2, cy0, "H2 split")
+
+    def x3():
+        lib, a, _, tables, _ = got["s"]
+        shear._shear(lib, s2, out, a, tables, R2, N, cy0, (R2 * N, N, 1), N,
+                     0, (R2 * W3, W3, 1), W3, cx0, "H2 split")
+
+    steps = (("set-up", setup), ("x-shear rows", x1),
+             ("y-shear columns", yy), ("x-shear crop rows", x3))
+    times = {name: [] for name, _ in steps}
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for i, (_, fn) in enumerate(steps):
+            fn()
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        for i, (name, _) in enumerate(steps):
+            times[name].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: float(np.median(v[1:])) for k, v in times.items()}
+
+
+def _cufft_lines_ms(lines, N):
+    """The yardstick of the FFT work alone on a library: one
+    ``torch.fft.fft`` then one ``torch.fft.ifft`` (cuFFT) over ``lines``
+    complex64 lines of N points, CUDA events, median of 3 warm runs (ms).
+    Used nowhere in the port."""
+    z = torch.randn((lines, N), dtype=torch.complex64, device=DEVICE)
+
+    def run():
+        return torch.fft.ifft(torch.fft.fft(z, dim=1), dim=1)
+
+    run()
+    times = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    del z
+    return float(np.median(times))
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -956,8 +1039,13 @@ def main():
     t_snrf = _sync_time(lambda: snrmap_fast(ms_frame, COMP_FWHM))
     t_ann = _sync_time(run_annular, reps=2)
     prof_wall, table = _profile_table(run_annular)
-    with _env("VIP_EXACT_SHEAR", "fused3"):
-        ms_wall, ms_table = _profile_table(search_runs["H4"][0], rows=10)
+    with _env("VIP_EXACT_SHEAR", "auto"):
+        ms_wall, ms_table = _profile_table(search_runs["H2"][0], rows=10)
+    split = _h2_split(frames, rot_angles, geom)
+    n_lines = CHUNK * (SIZE + 1 + geom[0] + geom[4] - geom[3])
+    t_fft2 = _cufft_lines_ms(n_lines, geom[0])
+    n_lines3 = SMALL_CHUNK * 3 * canvas.shape[-1]
+    t_fft3 = _cufft_lines_ms(n_lines3, canvas.shape[-1])
 
     print(f"timing H1 median {N_FRAMES}x{SIZE}x{SIZE}: kernel "
           f"{t_h1 * 1e3:.3f} ms, plain {t_h1p * 1e3:.3f} ms; at "
@@ -992,7 +1080,13 @@ def main():
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
-    print(f"profile median_sub {N_FRAMES}x{SIZE}x{SIZE}, H4 route: "
+    print(f"timing H2 {CHUNK}x{SIZE}^2 by launch (CUDA events, median of "
+          f"3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()),
+          flush=True)
+    print(f"yardstick cuFFT torch.fft.fft + ifft: {n_lines} lines of "
+          f"{geom[0]} (one H2 chunk) {t_fft2:.3f} ms; {n_lines3} lines of "
+          f"{canvas.shape[-1]} (one H3 chunk) {t_fft3:.3f} ms", flush=True)
+    print(f"profile median_sub {N_FRAMES}x{SIZE}x{SIZE}, H2 route: "
           f"{ms_wall:.4f} s under the profiler; top ops by device time:\n"
           f"{ms_table}", flush=True)
 
@@ -1034,12 +1128,14 @@ def main():
         entry("nanmedian_axis0", "vip_tpu_torch/csrc/nanmedian.cu",
               "vip_tpu/ops/pallas_median.py:104", counts["H1"], h1_err,
               t_h1 * 1e3, t_h1p * 1e3, h1_bound, t_h1lib * 1e3),
-        entry("rotate_fft_exact_fused", "vip_tpu_torch/csrc/fft_shear.cu",
-              "vip_tpu/ops/pallas_shear.py:550", counts["H2"], h2_err,
-              t_h2 * 1e3, t_h2p * 1e3, exact_bound),
-        entry("rotate_fft_small_fused", "vip_tpu_torch/csrc/fft_shear.cu",
-              "vip_tpu/ops/pallas_shear.py:918", ann_counts["H3"], h3_err,
-              t_h3 * 1e3, t_h3p * 1e3, small_bound),
+        dict(entry("rotate_fft_exact_fused", "vip_tpu_torch/csrc/fft_shear.cu",
+                   "vip_tpu/ops/pallas_shear.py:550", counts["H2"], h2_err,
+                   t_h2 * 1e3, t_h2p * 1e3, exact_bound),
+             cufft_lines_ms=t_fft2),
+        dict(entry("rotate_fft_small_fused", "vip_tpu_torch/csrc/fft_shear.cu",
+                   "vip_tpu/ops/pallas_shear.py:918", ann_counts["H3"],
+                   h3_err, t_h3 * 1e3, t_h3p * 1e3, small_bound),
+             cufft_lines_ms=t_fft3),
         entry("rotate_fft_exact_fused3", "vip_tpu_torch/csrc/fft_shear3.cu",
               "vip_tpu/ops/pallas_shear.py:845", h4_counts["H4"], h4_err,
               t_h4 * 1e3, t_h2p * 1e3, exact_bound),

@@ -91,15 +91,20 @@ def test_median_kernel_rejects_what_it_does_not_take(cuda_device):
                         .transpose(0, 1))
 
 
-@pytest.mark.parametrize("y", [32, 64, 96, 128, 160, 256])
-def test_shear_kernel_matches_plain(cuda_device, y):
+@pytest.mark.parametrize("n", [1, 9])
+@pytest.mark.parametrize("y", [32, 64, 96, 128, 160, 256, 512, 640])
+def test_shear_kernel_matches_plain(cuda_device, y, n):
+    """H2 on 1 and 9 frames (a batch of one, an odd batch). Canvases up to
+    2048 (y ≤ 512) run the register engine, y = 640 (N = 2560) the
+    radix-2 body."""
     pad_y, _, py0, px0, cy0, cy1, cx0, cx1 = _fft_rotate_geometry(y, y)
     geom = (pad_y, py0, px0, cy0, cy1, cx0, cx1)
     assert fused_shear_supported(y, pad_y, torch.float32, cuda_device)
+    assert shear.register_engine_takes(pad_y) == (y <= 512)
     rng = np.random.default_rng(y)
-    frames = torch.as_tensor(rng.standard_normal((9, y, y)),
+    frames = torch.as_tensor(rng.standard_normal((n, y, y)),
                              dtype=torch.float32, device=cuda_device)
-    angles = torch.tensor(_ANGLES, device=cuda_device)
+    angles = torch.tensor(_ANGLES[-n:], device=cuda_device)
     before = shear.launches
     got = rotate_fft_exact_fused(frames, angles, *geom)
     ref32 = rotate_fft_exact_pruned(frames, angles, *geom)
@@ -204,7 +209,8 @@ def _within(got, refs):
 @pytest.mark.parametrize("y", [64, 96, 160, 512])
 def test_fused3_exact_matches_plain_and_h2(cuda_device, y):
     """Nine frames: at 512² the scratch holds four, so the launch walks
-    three groups. H4 runs H2's line arithmetic: bit-equal to H2."""
+    three groups. H4 runs the radix-2 line body and H2 the register
+    engine, so they agree within ROT_TOL, not bit for bit."""
     geom = _fft_rotate_geometry(y, y)
     geom = (geom[0],) + geom[2:]
     rng = np.random.default_rng(y)
@@ -218,8 +224,7 @@ def test_fused3_exact_matches_plain_and_h2(cuda_device, y):
     ref64 = rotate_fft_exact_pruned(frames.double(), angles.double(), *geom)
     torch.cuda.synchronize()
     assert shear.fused3_launches == before + 1
-    assert torch.equal(got, h2)
-    _within(got, (ref32, ref64))
+    _within(got, (h2, ref32, ref64))
 
 
 @pytest.mark.parametrize("P", list(range(1, 17)))
@@ -236,8 +241,7 @@ def test_fused3_small_matches_plain_and_h3(cuda_device, P):
     ref64 = rotate_fft_small_plain(frames.double(), angles.double())
     torch.cuda.synchronize()
     assert shear.fused3_launches == before + 1
-    assert torch.equal(got, h3)
-    _within(got, (ref32, ref64))
+    _within(got, (h3, ref32, ref64))
 
 
 def test_fused3_rejects_what_it_does_not_take(cuda_device):
@@ -301,8 +305,8 @@ def test_small_shear_fused3_route_on_the_card(cuda_device, monkeypatch):
     assert (shear.small_launches, shear.fused3_launches) == \
         (before[0], before[1] + 2)
     monkeypatch.setenv("VIP_SMALL_SHEAR", "fused")
-    assert torch.equal(got, pipeline._derotate_frames(
-        cube, angles, chunk=4, rot_mode="fft-small"))
+    _within(got, (pipeline._derotate_frames(cube, angles, chunk=4,
+                                            rot_mode="fft-small"),))
 
 
 def test_companion_search_on_the_card(cuda_device, monkeypatch):

@@ -35,8 +35,9 @@ _lib = None
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "vip_nanmedian_axis0": [_P, _P, _LL, _LL, _I, _P],
-    "vip_shear_lines": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _LL, _LL, _LL, _I, _I, _LL, _LL, _LL, _I, _I, _P],
+    "vip_shear_lines": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _LL, _LL, _LL, _I, _I, _LL, _LL, _LL, _I,
+                        _I, _P],
     "vip_shear3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
