@@ -15,17 +15,18 @@ and ``metrics.detection``). Phases, one line each:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``vip_tpu_torch/csrc``, one nvcc per
    source, all started together;
-3. H1 (radix-select median) against its plain version, bit for bit, and
-   against numpy's nanmedian/median within 1 ulp;
+3. H1 (radix-select median: 8-bit digit histograms up to 1650 frames,
+   bisection above) against its plain version, bit for bit, and against
+   numpy's nanmedian/median within 1 ulp, at 1000 and 999 frames (digit
+   body) and at 1800 (bisection body);
 4. H2 (exact FFT-shear rotation) against its plain version at float32 and
    at float64 on the card, on 512² frames (N = 2048) and on 160² frames
    (the mixed-radix canvas N = 640);
 5. H3 (fft-small FFT-shear rotation) against its plain version at float32
    and at float64, on 125 FoV-masked 512² frames on the 640 canvas;
-6. H4 (the three shears in one cooperative launch), exact and small, on
-   the inputs of phases 4 and 5, against the plain versions and within
-   ROT_TOL of H2/H3 (H4 keeps the radix-2 line body, H2 and H3 run the
-   register engine, so they are not bit-equal);
+6. H4 (the three shears in one cooperative launch on H2's and H3's line
+   engine), exact and small, on the inputs of phases 4 and 5, against the
+   plain versions and bit for bit against H2/H3;
 7. main path, exact rotation: both full-frame entry points, with the
    kernels' launch counts, against the same steps through the plain
    versions on the card;
@@ -41,12 +42,23 @@ and ``metrics.detection``). Phases, one line each:
     H4 and H2 against the plain route, the same S/N-optimal ncomp,
     detection within 3 px of the planted companion; the annular
     ``median_sub`` once; a small search against the CPU float64 mode;
-11. timings, kernel beside plain, warm median of 3; H2's three launches
-    and its set-up timed apart with CUDA events; the cuFFT yardstick
+11. timings, kernel beside plain, warm median of 3 (with the spread of
+    the three runs where a default route is decided from them); H2's
+    three launches and its set-up timed apart with CUDA events; H4's
+    three stages timed apart by the kernel's own %globaltimer stamps,
+    with its default group (a whole chunk) and with a group that fits
+    the L2 cache; the registers, spills, blocks an SM and grid of H4 and
+    H1; H1's bisection body at 1800 frames; the cuFFT yardstick
     (``torch.fft.fft`` then ``ifft`` over the line batches one H2 chunk
     and one H3 chunk shear); torch.profiler tables of one ``pca_annular``
     run and one ``median_sub`` (H2 route, so that the x- and y-shear
     kernels show apart).
+
+``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
+SHA-256 digests of the H1, H2 and H3 outputs on the inputs of phases 3-5,
+computed with the port of the checkout at ROOT, which must be this
+checkout or a tree unpacked under its git-ignored ``chip_archive/``: run
+once per tree, it holds two trees' kernels to the same bits.
 
 Prints a JSON line of the kernels (launches on the main paths, errors,
 times, the roofline bound from this run's shapes, the time of one PyTorch
@@ -67,6 +79,8 @@ import numpy as np
 import torch
 
 N_FRAMES, SIZE, NCOMP, CHUNK = 1000, 512, 10, 50   # bench.py's workload
+# A frame count that H1 takes with its bisection body (1651..3600)
+BISECT_FRAMES = 1800
 DEVICE = "cuda"
 # H2 against its plain version: the bound of tests/test_pallas_shear.py:39
 ROT_TOL = 3e-5
@@ -97,6 +111,9 @@ EXACT_ROUTES = (("fused3", "H4"), ("auto", "H2"), ("pruned", "plain"))
 # max(|ref|, 1): the maps divide by ring standard deviations of a few
 # apertures, which amplify the frames' float32 rounding (~1e-6)
 SNR_TOL = 1e-3
+# H4's groups whose scratch fits the H100's 50 MB L2 (40 MiB): 4 frames of
+# 512² (N = 2048) and 12 of 640² canvases; the default is a whole chunk
+L2_GROUPS = (4, 12)
 # Roofline of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -150,8 +167,8 @@ def _counts():
             "H3": shear.small_launches, "H4": shear.fused3_launches}
 
 
-def _sync_time(fn, reps=3):
-    """Warm median of ``reps`` timed calls, synchronized, in seconds."""
+def _sync_times(fn, reps=3):
+    """``reps`` warm timed calls, synchronized, in seconds."""
     fn()
     times = []
     for _ in range(reps):
@@ -160,7 +177,18 @@ def _sync_time(fn, reps=3):
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return float(np.median(times))
+    return times
+
+
+def _sync_time(fn, reps=3):
+    """Warm median of ``reps`` timed calls, synchronized, in seconds."""
+    return float(np.median(_sync_times(fn, reps)))
+
+
+def _spread(times):
+    """'median [min, max]' of timed runs."""
+    t = np.asarray(times)
+    return f"{np.median(t):.4f} [{t.min():.4f}, {t.max():.4f}]"
 
 
 def _rel_err(got, ref):
@@ -191,12 +219,10 @@ def phase_build():
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def phase_median(cube):
-    """H1 on the main path's shape, with NaNs, even and odd frame counts,
-    both propagate modes."""
-    from vip_tpu_torch.ops.median import nanmedian_axis0, nanmedian_plain
-
-    rng = np.random.default_rng(1)
+def _with_nans(cube, seed):
+    """A copy of ``cube`` with 3000 NaNs at random, an all-NaN, a half-NaN
+    and an all -0.0 pixel."""
+    rng = np.random.default_rng(seed)
     cube = cube.clone()
     flat = cube.view(-1)
     nan_at = torch.as_tensor(rng.choice(flat.numel(), 3000, replace=False),
@@ -205,9 +231,29 @@ def phase_median(cube):
     cube[:, 0, 0] = torch.nan              # all-NaN pixel
     cube[::2, 0, 1] = torch.nan            # half-NaN pixel
     cube[:, 0, 2] = -0.0
+    return cube
+
+
+def phase_median(cube):
+    """H1 on the main path's shape, with NaNs, even and odd frame counts,
+    both propagate modes: the digit body at 1000 and 999 frames, the
+    bisection body at BISECT_FRAMES. Returns (largest error, the
+    BISECT_FRAMES cube without NaNs, for the timings)."""
+    from vip_tpu_torch.ops.median import (median_body, nanmedian_axis0,
+                                          nanmedian_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    big = torch.randn((BISECT_FRAMES, SIZE, SIZE), generator=gen,
+                      device=DEVICE)
+    cube, nan_big = _with_nans(cube, 1), _with_nans(big, 4)
+    cases = ((cube[:N_FRAMES], "digits"), (cube[:N_FRAMES - 1], "digits"),
+             (nan_big, "bisection"))
     max_err = 0.0
-    for n in (N_FRAMES, N_FRAMES - 1):
-        sub = cube[:n].contiguous()
+    for sub, body in cases:
+        n = sub.shape[0]
+        _require(median_body(n) == body,
+                 f"H1 takes {n} frames with the {median_body(n)} body")
+        sub = sub.contiguous()
         host = sub[:, :16].double().cpu().numpy()
         for propagate in (False, True):
             got = nanmedian_axis0(sub, propagate=propagate)
@@ -227,10 +273,11 @@ def phase_median(cube):
                      f"propagate={propagate})")
             max_err = max(max_err, float(
                 (got - ref).nan_to_num().abs().max()))
-    print(f"H1 nanmedian_axis0 vs plain: bit-equal at n={N_FRAMES} and "
-          f"{N_FRAMES - 1}, both propagate modes; within 1 ulp of numpy on "
-          f"16 rows", flush=True)
-    return max_err
+    print(f"H1 nanmedian_axis0 vs plain: bit-equal with the digit body at "
+          f"n={N_FRAMES} and {N_FRAMES - 1} and with the bisection body at "
+          f"n={BISECT_FRAMES}, both propagate modes; within 1 ulp of numpy "
+          f"on 16 rows", flush=True)
+    return max_err, big
 
 
 def phase_rotation():
@@ -277,9 +324,9 @@ def _angles(n):
 
 def _check_rotation(name, frames, angles, kernel, plain, twin=None):
     """A rotation kernel against its plain version at float32 and at
-    float64, at ROT_TOL of max(|ref|, 1), and against ``twin`` (a
-    (name, kernel) pair of the same arithmetic) if given. Returns the
-    largest error."""
+    float64, at ROT_TOL of max(|ref|, 1), and bit for bit against
+    ``twin`` (a (name, kernel) pair of the same arithmetic) if given.
+    Returns the largest error."""
     got = kernel(frames, angles)
     ref32 = plain(frames, angles)
     ref64 = plain(frames.double(), angles.double())
@@ -299,7 +346,8 @@ def _check_rotation(name, frames, angles, kernel, plain, twin=None):
           f"{twin_note}; bound {ROT_TOL:.0e} x {s64:.3f}", flush=True)
     _require(err32 <= ROT_TOL * s32, f"{name} disagrees with f32 plain")
     _require(err64 <= ROT_TOL * s64, f"{name} disagrees with f64 plain")
-    _require(twin_err <= ROT_TOL * s64, f"{name} disagrees with its twin")
+    _require(twin is None or torch.equal(got, other),
+             f"{name} differs bitwise from {twin and twin[0]}")
     return max(err32, err64, twin_err)
 
 
@@ -356,8 +404,9 @@ def phase_fused3(frames, angles, geom, frames160, angles160, geom160,
     """H4 (the three shears in one cooperative launch) on the inputs of
     phases 4 and 5: exact on 50 frames of 512² (N = 2048) and 125 of 160²
     (N = 640), small on the 125 FoV-masked frames on the 640² canvas;
-    against the plain versions and against H2/H3, one launch a call.
-    Returns the largest error of each variant."""
+    against the plain versions and bit for bit against H2/H3 (the same
+    line engine, tables and coefficients), one launch a call. Returns the
+    largest error of each variant."""
     from vip_tpu_torch.ops import shear
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
                                        rotate_fft_small_plain)
@@ -933,6 +982,53 @@ def _h2_split(frames, angles, geom, reps=3):
     return {k: float(np.median(v[1:])) for k, v in times.items()}
 
 
+def _h4_split(frames, angles, geom=None, G=None, reps=3):
+    """H4 on one chunk, its steps timed apart (median of ``reps`` warm
+    runs, ms): the wrapper's set-up (quadrants and shear coefficients) and
+    the launch (scratch allocation and the cooperative kernel), with CUDA
+    events; inside the kernel its three stages, by block 0's %globaltimer
+    stamps at the start and after each grid barrier, summed over the
+    groups. Exact with ``geom`` (frames y², rows y + 1 .. crop), else
+    small (N² canvases); G frames a group (None: the wrapper's own).
+    Returns (frames a group, [set-up, launch, stage 1, stage 2, stage
+    3])."""
+    from vip_tpu_torch.ops import shear
+
+    B, y = frames.shape[0], frames.shape[-1]
+    if geom is not None:
+        N, py0, px0, cy0, cy1, cx0, cx1 = geom
+        R1, R2, W3 = y + 1, cy1 - cy0, cx1 - cx0
+    else:
+        N, py0, px0, cy0, cx0 = y, 0, 0, 0, 0
+        R1 = R2 = W3 = N
+
+    def setup():
+        if geom is not None:
+            return shear._exact_setup(frames, angles, N, "H4 split")
+        return shear._small_setup(frames, angles, "H4 split")
+
+    G = shear._fused3_group(B, R1 * N * 8) if G is None else G
+    groups = -(-B // G)
+    stamps = torch.zeros(1 + 3 * groups, dtype=torch.int64,
+                         device=frames.device)
+    out = torch.empty((B, R2, W3), dtype=torch.float32, device=frames.device)
+    runs = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        lib, a, b, tables, k = setup()
+        ev[1].record()
+        shear._fused3(lib, frames, k, out, a, b, tables, N, R1, py0, px0, R2,
+                      cy0, W3, cx0, "H4 split", stamps=stamps, G=G)
+        ev[2].record()
+        torch.cuda.synchronize()
+        ns = stamps.cpu().numpy().astype(np.int64)
+        runs.append([ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])]
+                    + (np.diff(ns).reshape(groups, 3).sum(0) / 1e6).tolist())
+    return G, np.median(np.array(runs[1:]), axis=0).tolist()
+
+
 def _cufft_lines_ms(lines, N):
     """The yardstick of the FFT work alone on a library: one
     ``torch.fft.fft`` then one ``torch.fft.ifft`` (cuFFT) over ``lines``
@@ -967,7 +1063,7 @@ def main():
     cube = torch.as_tensor(cube_np, device=DEVICE)
     del cube_np
 
-    h1_err = phase_median(cube)
+    h1_err, cube_bisect = phase_median(cube)
     (frames, rot_angles, geom, frames160, angles160, geom160,
      h2_err) = phase_rotation()
     canvas, small_angles, h3_err = phase_small_rotation()
@@ -989,8 +1085,10 @@ def main():
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
                                        rotate_fft_fast_batch,
                                        rotate_fft_small_plain)
-    from vip_tpu_torch.ops.median import nanmedian_axis0, nanmedian_plain
-    from vip_tpu_torch.ops.shear import (rotate_fft_exact_fused,
+    from vip_tpu_torch.ops.median import (median_config, nanmedian_axis0,
+                                          nanmedian_plain)
+    from vip_tpu_torch.ops.shear import (fused3_config,
+                                         rotate_fft_exact_fused,
                                          rotate_fft_exact_fused3,
                                          rotate_fft_small_fused,
                                          rotate_fft_small_fused3)
@@ -1000,6 +1098,9 @@ def main():
     t_h1p = _sync_time(lambda: nanmedian_plain(cube, 0))
     t_h1o = _sync_time(lambda: nanmedian_axis0(cube999))
     t_h1lib = _sync_time(lambda: torch.nanmedian(cube999, dim=0))
+    t_h1b = _sync_time(lambda: nanmedian_axis0(cube_bisect))
+    t_h1bp = _sync_time(lambda: nanmedian_plain(cube_bisect, 0))
+    del cube_bisect
     t_h4 = _sync_time(lambda: rotate_fft_exact_fused3(frames, rot_angles,
                                                       *geom))
     t_h2 = _sync_time(lambda: rotate_fft_exact_fused(frames, rot_angles,
@@ -1020,21 +1121,35 @@ def main():
     t_h3p = _sync_time(lambda: rotate_fft_small_plain(canvas, small_angles))
     t_h3k = _sync_time(lambda: rotate_fft_fast_batch(
         canvas, small_angles, support_rows=(m0, SIZE + 1)))
-    t_e2e = _sync_time(run_kernel)
+    # H4's stages apart, with its default group (a whole chunk) and with
+    # a group whose scratch fits the L2 cache; the launch configurations of
+    # the kernels redesigned last
+    h4_split = {}
+    for g_ex, g_sm in ((None, None), L2_GROUPS):
+        h4_split[g_ex] = (_h4_split(frames, rot_angles, geom, G=g_ex),
+                          _h4_split(canvas, small_angles, G=g_sm))
+    configs = {"H4 N=2048": fused3_config(geom[0]),
+               "H4 N=640": fused3_config(canvas.shape[-1]),
+               f"H1 n={N_FRAMES}": median_config(N_FRAMES)}
+
+    t_e2e_runs = _sync_times(run_kernel)
+    with _env("VIP_EXACT_SHEAR", "fused3"):
+        t_e2e4_runs = _sync_times(run_kernel)
+    t_e2e = float(np.median(t_e2e_runs))
     t_e2ep = _sync_time(run_plain)
 
     def run_packed():
         with _env("VIP_SMALL_SHEAR", "packed"):
             return run_small()
 
-    t_small = _sync_time(run_small)
+    t_small_runs = _sync_times(run_small)
     t_packed = _sync_time(run_packed)
-    t_small3 = _sync_time(run_small3)
-    t_small2 = _sync_time(run_small)
+    t_small3_runs = _sync_times(run_small3)
+    t_small2_runs = _sync_times(run_small)
     t_search = {}
     for route, (medsub, grid, mode) in search_runs.items():
         with _env("VIP_EXACT_SHEAR", mode):
-            t_search[route] = (_sync_time(medsub), _sync_time(grid))
+            t_search[route] = (_sync_times(medsub), _sync_times(grid))
     t_snr = _sync_time(lambda: snrmap(ms_frame, COMP_FWHM, verbose=False))
     t_snrf = _sync_time(lambda: snrmap_fast(ms_frame, COMP_FWHM))
     t_ann = _sync_time(run_annular, reps=2)
@@ -1050,7 +1165,9 @@ def main():
     print(f"timing H1 median {N_FRAMES}x{SIZE}x{SIZE}: kernel "
           f"{t_h1 * 1e3:.3f} ms, plain {t_h1p * 1e3:.3f} ms; at "
           f"{N_FRAMES - 1} frames kernel {t_h1o * 1e3:.3f} ms, "
-          f"torch.nanmedian {t_h1lib * 1e3:.3f} ms", flush=True)
+          f"torch.nanmedian {t_h1lib * 1e3:.3f} ms; at {BISECT_FRAMES} "
+          f"frames (bisection body) kernel {t_h1b * 1e3:.3f} ms, plain "
+          f"{t_h1bp * 1e3:.3f} ms", flush=True)
     print(f"timing exact rotation {CHUNK}x{SIZE}^2 (N=2048): H4 "
           f"{t_h4 * 1e3:.3f} ms, H2 {t_h2 * 1e3:.3f} ms "
           f"({CHUNK / t_h2:.1f} frames/s), plain {t_h2p * 1e3:.3f} ms "
@@ -1064,16 +1181,34 @@ def main():
           f"({SMALL_CHUNK / t_h3:.1f} frames/s), plain {t_h3p * 1e3:.3f} ms, "
           f"packed torch.fft path {t_h3k * 1e3:.3f} ms "
           f"({SMALL_CHUNK / t_h3k:.1f} frames/s)", flush=True)
-    print(f"timing pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} rot_mode=fft: "
-          f"kernels {t_e2e:.4f} s, plain path {t_e2ep:.4f} s", flush=True)
+    for G, ((g_ex, st_ex), (g_sm, st_sm)) in h4_split.items():
+        print(f"timing H4 by step (median of 3, ms: set-up and launch by "
+              f"CUDA events; x-shear rows, y-shear columns, x-shear crop "
+              f"rows inside the kernel by globaltimer stamps), "
+              f"{'default' if G is None else 'L2-sized'} groups: exact "
+              f"{CHUNK}x{SIZE}^2, {g_ex} frames a group: "
+              + ", ".join(f"{v:.3f}" for v in st_ex)
+              + f" (stages {sum(st_ex[2:]):.3f}); small {SMALL_CHUNK} on "
+              f"{canvas.shape[-1]}^2, {g_sm} a group: "
+              + ", ".join(f"{v:.3f}" for v in st_sm)
+              + f" (stages {sum(st_sm[2:]):.3f})", flush=True)
+    print("launch configuration: " + "; ".join(
+        f"{k} " + ", ".join(f"{kk} {vv}" for kk, vv in v.items())
+        for k, v in configs.items()), flush=True)
+    print(f"timing pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} rot_mode=fft "
+          f"(median [min, max] of 3): H2 {_spread(t_e2e_runs)} s, H4 "
+          f"(VIP_EXACT_SHEAR=fused3) {_spread(t_e2e4_runs)} s, plain path "
+          f"{t_e2ep:.4f} s", flush=True)
     print(f"timing pca_adi_pipeline {N_FRAMES}x{SIZE}x{SIZE} "
-          f"rot_mode=fft-small chunk {SMALL_CHUNK}: H3 {t_small:.4f} s, "
-          f"packed {t_packed:.4f} s, H4 {t_small3:.4f} s, H3 again "
-          f"{t_small2:.4f} s", flush=True)
+          f"rot_mode=fft-small chunk {SMALL_CHUNK} (median [min, max] of 3): "
+          f"H3 {_spread(t_small_runs)} s, packed {t_packed:.4f} s, H4 "
+          f"{_spread(t_small3_runs)} s, H3 again {_spread(t_small2_runs)} s",
+          flush=True)
     for route, (t_ms, t_grid) in t_search.items():
         print(f"timing companion search {N_FRAMES}x{SIZE}x{SIZE} ({route} "
-              f"route): median_sub {t_ms:.4f} s, pca_grid ncomp "
-              f"{GRID_PCS[0]}..{GRID_PCS[1]} {t_grid:.4f} s", flush=True)
+              f"route; median [min, max] of 3): median_sub {_spread(t_ms)} s,"
+              f" pca_grid ncomp {GRID_PCS[0]}..{GRID_PCS[1]} "
+              f"{_spread(t_grid)} s", flush=True)
     print(f"timing median_sub annular {N_FRAMES}x{SIZE}x{SIZE}: "
           f"{t_ann_ms:.4f} s (once); snrmap {SIZE}^2 {t_snr:.4f} s, "
           f"snrmap_fast {t_snrf:.4f} s", flush=True)
@@ -1125,9 +1260,11 @@ def main():
                 "library_ms": library_ms}
 
     kernels = [
-        entry("nanmedian_axis0", "vip_tpu_torch/csrc/nanmedian.cu",
-              "vip_tpu/ops/pallas_median.py:104", counts["H1"], h1_err,
-              t_h1 * 1e3, t_h1p * 1e3, h1_bound, t_h1lib * 1e3),
+        dict(entry("nanmedian_axis0", "vip_tpu_torch/csrc/nanmedian.cu",
+                   "vip_tpu/ops/pallas_median.py:104", counts["H1"], h1_err,
+                   t_h1 * 1e3, t_h1p * 1e3, h1_bound, t_h1lib * 1e3),
+             bisection_frames=BISECT_FRAMES, bisection_ms=t_h1b * 1e3,
+             bisection_plain_ms=t_h1bp * 1e3),
         dict(entry("rotate_fft_exact_fused", "vip_tpu_torch/csrc/fft_shear.cu",
                    "vip_tpu/ops/pallas_shear.py:550", counts["H2"], h2_err,
                    t_h2 * 1e3, t_h2p * 1e3, exact_bound),
@@ -1150,8 +1287,51 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def kernel_digests(root):
+    """SHA-256 (first 16 hex digits) of the outputs of H1 (both propagate
+    modes), H2 (512² and 160²) and H3 on the inputs of phases 3-5, with the
+    port of the checkout at ``root``: this checkout or a tree under its
+    ``chip_archive/``."""
+    import hashlib
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.realpath(root)
+    archive = os.path.join(os.path.realpath(here), "chip_archive")
+    _require(root == os.path.realpath(here)
+             or os.path.commonpath([root, archive]) == archive,
+             f"--digests: {root} is neither this checkout nor under "
+             f"{archive}")
+    sys.path.insert(0, root)
+    import vip_tpu_torch
+    from vip_tpu_torch.ops.median import nanmedian_axis0
+    from vip_tpu_torch.ops.shear import (rotate_fft_exact_fused,
+                                         rotate_fft_small_fused)
+
+    vip_tpu_torch.set_device(DEVICE)
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    (frames, angles, geom, frames160, angles160, geom160,
+     _) = phase_rotation()
+    canvas, small_angles, _ = phase_small_rotation()
+    outs = {"H1": nanmedian_axis0(cube),
+            "H1 propagate": nanmedian_axis0(cube, propagate=True),
+            "H2 512^2": rotate_fft_exact_fused(frames, angles, *geom),
+            "H2 160^2": rotate_fft_exact_fused(frames160, angles160,
+                                               *geom160),
+            "H3 640^2": rotate_fft_small_fused(canvas, small_angles)}
+    torch.cuda.synchronize()
+    print(json.dumps({"root": root, "digests": {
+        k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
+        for k, v in outs.items()}}))
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device")
+    if len(sys.argv) == 3 and sys.argv[1] == "--digests":
+        kernel_digests(sys.argv[2])
+        sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

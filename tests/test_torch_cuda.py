@@ -55,25 +55,31 @@ def cuda_device():
 
 def _specials(n, shape, seed):
     """Random f32 cube with ±inf, ±0.0, denormals, half-NaN and all-NaN
-    pixels."""
+    pixels (frames past the last are the last)."""
     rng = np.random.default_rng(seed)
     arr = (rng.standard_normal((n,) + shape) * 100).astype(np.float32)
-    arr[3, 0, 0] = np.inf
-    arr[5, 0, 1] = -np.inf
+    last = n - 1
+    arr[min(3, last), 0, 0] = np.inf
+    arr[min(5, last), 0, 1] = -np.inf
     arr[:, 0, 2] = -0.0
     arr[: n // 2, 0, 3] = 0.0
     arr[::2, 0, 4] = np.nan
     arr[:, 0, 5] = np.nan
-    arr[7, 1, :] = 1e-42
-    arr[8, 2, :] = -1e-42
-    arr[4, 3, 7] = np.nan
+    arr[min(7, last), 1, :] = 1e-42
+    arr[min(8, last), 2, :] = -1e-42
+    arr[min(4, last), 3, 7] = np.nan
     return arr
 
 
 @pytest.mark.parametrize("propagate", [False, True])
-@pytest.mark.parametrize("n", [16, 17, 301])
+@pytest.mark.parametrize("n", [1, 2, 16, 17, 301, 1000, 1650, 1651, 3600])
 def test_median_kernel_bit_equal_to_plain(cuda_device, n, propagate):
-    arr = torch.from_numpy(_specials(n, (11, 150), seed=n)).to(cuda_device)
+    """Both bodies (digits up to 1650 frames, bisection above) on 1650
+    pixels, no multiple of either tile (32 and 16 pixels), with heavy
+    duplicates in row 4."""
+    arr = _specials(n, (11, 150), seed=n)
+    arr[:, 4, :] = np.round(arr[:, 4, :] / 50)
+    arr = torch.from_numpy(arr).to(cuda_device)
     before = median.launches
     got = nanmedian_axis0(arr, propagate=propagate)
     ref = nanmedian_plain(arr, 0, propagate)
@@ -138,6 +144,12 @@ def test_median_gate_frame_bound(cuda_device):
                                                   device=cuda_device))
     assert not median.nanmedian_supported(torch.empty((3601, 1, 2),
                                                       device=cuda_device))
+    for n, body in ((1, "digits"), (1650, "digits"), (1651, "bisection"),
+                    (3600, "bisection")):
+        cfg = median.median_config(n)
+        assert cfg["body"] == body == median.median_body(n)
+        assert cfg["blocks_per_sm"] >= 1 and cfg["spill_bytes"] == 0
+        assert cfg["threads"] == (1024 if body == "digits" else 256)
 
 
 @pytest.mark.parametrize("P", list(range(1, 17)))
@@ -206,11 +218,12 @@ def _within(got, refs):
             <= ROT_TOL * scale
 
 
-@pytest.mark.parametrize("y", [64, 96, 160, 512])
+@pytest.mark.parametrize("y", [64, 96, 160, 512, 640])
 def test_fused3_exact_matches_plain_and_h2(cuda_device, y):
-    """Nine frames: at 512² the scratch holds four, so the launch walks
-    three groups. H4 runs the radix-2 line body and H2 the register
-    engine, so they agree within ROT_TOL, not bit for bit."""
+    """Nine frames. H4 runs H2's line engine on each canvas (the register
+    engine up to N = 2048, the radix-2 body at y = 640, N = 2560) with the
+    same tables and coefficients, so it is bit-equal to H2, and within
+    ROT_TOL of the plain versions."""
     geom = _fft_rotate_geometry(y, y)
     geom = (geom[0],) + geom[2:]
     rng = np.random.default_rng(y)
@@ -224,7 +237,60 @@ def test_fused3_exact_matches_plain_and_h2(cuda_device, y):
     ref64 = rotate_fft_exact_pruned(frames.double(), angles.double(), *geom)
     torch.cuda.synchronize()
     assert shear.fused3_launches == before + 1
-    _within(got, (h2, ref32, ref64))
+    assert torch.equal(got, h2)
+    _within(got, (ref32, ref64))
+
+
+@pytest.mark.parametrize("budget_mb", [9, 20, 40])
+def test_fused3_group_walk_is_bit_equal(cuda_device, monkeypatch,
+                                        budget_mb):
+    """A scratch budget of one, two and four 512² frames makes the launch
+    walk 9, 5 and 3 groups; the frames come out as H2's."""
+    monkeypatch.setattr(shear, "_FUSED3_SCRATCH_BYTES", budget_mb << 20)
+    geom = _fft_rotate_geometry(512, 512)
+    geom = (geom[0],) + geom[2:]
+    rng = np.random.default_rng(5)
+    frames = torch.as_tensor(rng.standard_normal((9, 512, 512)),
+                             dtype=torch.float32, device=cuda_device)
+    angles = torch.tensor(_ANGLES, device=cuda_device)
+    assert shear._fused3_group(9, 513 * 2048 * 8) == {9: 1, 20: 2,
+                                                      40: 4}[budget_mb]
+    got = rotate_fft_exact_fused3(frames, angles, *geom)
+    h2 = rotate_fft_exact_fused(frames, angles, *geom)
+    torch.cuda.synchronize()
+    assert torch.equal(got, h2)
+
+
+def test_fused3_stage_stamps(cuda_device, monkeypatch):
+    """With a stamps buffer H4 records block 0's %globaltimer at the start
+    and after each of its 3 x groups grid barriers, in order, and its
+    frames do not change."""
+    monkeypatch.setattr(shear, "_FUSED3_SCRATCH_BYTES", 20 << 20)
+    geom = _fft_rotate_geometry(512, 512)
+    N, py0, px0, cy0, cy1, cx0, cx1 = (geom[0],) + geom[2:]
+    rng = np.random.default_rng(6)
+    frames = torch.as_tensor(rng.standard_normal((5, 512, 512)),
+                             dtype=torch.float32, device=cuda_device)
+    angles = torch.tensor(_ANGLES[:5], device=cuda_device)
+    lib, a, b, tables, k = shear._exact_setup(frames, angles, N, "stamps")
+    out = torch.empty((5, cy1 - cy0, cx1 - cx0), device=cuda_device)
+    stamps = torch.zeros(1 + 3 * 3, dtype=torch.int64, device=cuda_device)
+    shear._fused3(lib, frames, k, out, a, b, tables, N, 513, py0, px0,
+                  cy1 - cy0, cy0, cx1 - cx0, cx0, "stamps", stamps=stamps)
+    ref = rotate_fft_exact_fused3(frames, angles, N, py0, px0, cy0, cy1,
+                                  cx0, cx1)
+    torch.cuda.synchronize()
+    ns = stamps.cpu().numpy()
+    assert np.all(ns > 0) and np.all(np.diff(ns) >= 0)
+    assert torch.equal(out, ref)
+
+
+def test_fused3_config_is_one_wave_of_resident_blocks(cuda_device):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for N, threads in ((2048, 512), (640, 160), (2560, 256)):
+        cfg = shear.fused3_config(N)
+        assert cfg["threads"] == threads
+        assert cfg["grid"] == cfg["blocks_per_sm"] * sms >= sms
 
 
 @pytest.mark.parametrize("P", list(range(1, 17)))
@@ -241,7 +307,8 @@ def test_fused3_small_matches_plain_and_h3(cuda_device, P):
     ref64 = rotate_fft_small_plain(frames.double(), angles.double())
     torch.cuda.synchronize()
     assert shear.fused3_launches == before + 1
-    _within(got, (h3, ref32, ref64))
+    assert torch.equal(got, h3)
+    _within(got, (ref32, ref64))
 
 
 def test_fused3_rejects_what_it_does_not_take(cuda_device):

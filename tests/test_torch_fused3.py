@@ -136,10 +136,11 @@ def test_small_shear_route_on_the_cpu(monkeypatch, mode):
 
 
 @pytest.mark.parametrize("B,band,expect", [
-    (50, 513 * 2048 * 8, 4),        # 512² frames: 8.4 MB bands
-    (125, 640 * 640 * 8, 12),       # fft-small 640² canvas
+    (50, 513 * 2048 * 8, 50),       # 512² frames: a chunk's 8.4 MB bands
+    (125, 640 * 640 * 8, 125),      # fft-small 640² canvas, a whole chunk
+    (1000, 513 * 2048 * 8, 63),     # a batch beyond the budget: groups
     (3, 640 * 640 * 8, 3),          # never more than the batch
-    (7, 100 << 20, 1),              # at least one frame
+    (7, 600 << 20, 1),              # at least one frame
 ])
 def test_fused3_group_fits_the_scratch_budget(B, band, expect):
     G = shear._fused3_group(B, band)

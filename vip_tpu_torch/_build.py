@@ -38,8 +38,10 @@ _SIGNATURES = {
     "vip_shear_lines": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _LL, _LL, _LL, _I, _I, _LL, _LL, _LL, _I,
                         _I, _P],
-    "vip_shear3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
-                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vip_shear3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "vip_shear3_info": [_I, _I, _P],
+    "vip_nanmedian_info": [_LL, _P],
 }
 
 

@@ -52,8 +52,9 @@
 // Two line engines, chosen by N alone (`vip_tpu_torch.ops.shear.
 // register_engine_takes`): N <= 2048 runs the register-resident engine of
 // shear_regs.cuh; larger canvases (2304 .. 4096, frames of 576 to 1024
-// px) run the radix-2 body `vip::shear_line` of shear_line.cuh, which H4
-// (fft_shear3.cu) also runs. Steps 1-5 above hold for both; the register
+// px) run the radix-2 body `vip::shear_line` of shear_line.cuh. H4
+// (fft_shear3.cu) runs the same engine as H2 and H3 on each canvas, in one
+// cooperative launch. Steps 1-5 above hold for both; the register
 // engine orders the forward passes as its digit-reversed plan and reads
 // each slot's frequency from a host-built int32 table.
 //

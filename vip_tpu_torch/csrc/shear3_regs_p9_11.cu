@@ -1,0 +1,10 @@
+// H4's cooperative kernel on the register engine (csrc/shear3_regs.cuh)
+// for the odd canvas factors p = 9 and 11: one source of four, so that nvcc
+// builds them in parallel (vip_tpu_torch/_build.py).
+
+#include "shear3_regs.cuh"
+
+namespace vip {
+template int launch_shear3<9>(const Shear3Args&, int, cudaStream_t, int*);
+template int launch_shear3<11>(const Shear3Args&, int, cudaStream_t, int*);
+}  // namespace vip

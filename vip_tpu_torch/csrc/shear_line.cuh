@@ -1,8 +1,10 @@
-// The line shear shared by H2/H3 (csrc/fft_shear.cu, one launch per shear)
-// and H4 (csrc/fft_shear3.cu, all three shears in one cooperative launch):
-// one thread block shears one line of a canvas of N = p * M points, p odd
-// <= 15, M = 2^m, 128 <= N <= 4096. fft_shear.cu's header comment gives
-// the algorithm (steps 1-5 below) and the phase precision argument.
+// The radix-2 line shear shared by H2/H3 (csrc/fft_shear.cu, one launch per
+// shear) and H4 (csrc/fft_shear3.cu, all three shears in one cooperative
+// launch) on the canvases above 2048 points, where the register engine
+// (shear_regs.cuh) does not run: one thread block shears one line of a
+// canvas of N = p * M points, p odd <= 15, M = 2^m, 128 <= N <= 4096.
+// fft_shear.cu's header comment gives the algorithm (steps 1-5 below) and
+// the phase precision argument.
 //
 // Every thread of the block must call shear_line together (it synchronizes
 // the block). The caller provides N float2 of dynamic shared memory.

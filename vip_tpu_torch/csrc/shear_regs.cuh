@@ -274,7 +274,11 @@ __device__ __forceinline__ int pow2_log_radix(int i, int logM) {
 // REAL_OUT). `line` is the line's shared memory (reg_line_stride(N) float2).
 // An inactive line (past the end of the batch) loads and stores nothing but
 // still reaches every barrier: all threads of the block call this together.
-template <bool REAL_IN, bool REAL_OUT, int P>
+// NC is the input's load policy (load_in, shear_line.cuh): the read-only
+// path for data no block of the launch writes, else ld.global.cg. The
+// input and the output may be the same memory: every point is loaded in
+// step 1, before the first barrier, and stored in step 5.
+template <bool REAL_IN, bool REAL_OUT, int P, bool NC = true>
 __device__ __forceinline__ void shear_line_regs(
     float2* line, const void* in_ptr, long long ibase, long long in_si,
     int in_len, int in_off, void* out_ptr, long long obase, long long out_si,
@@ -300,9 +304,11 @@ __device__ __forceinline__ void shear_line_regs(
       const int k = j * L0 + beta - in_off;
       if (active && beta < B0 && k >= 0 && k < in_len) {
         if (REAL_IN) {
-          x.x = __ldg(static_cast<const float*>(in_ptr) + ibase + k * in_si);
+          x.x = load_in<float, NC>(static_cast<const float*>(in_ptr) + ibase +
+                                   k * in_si);
         } else {
-          x = __ldg(static_cast<const float2*>(in_ptr) + ibase + k * in_si);
+          x = load_in<float2, NC>(static_cast<const float2*>(in_ptr) + ibase +
+                                  k * in_si);
         }
       }
       v[u * R0 + j] = x;

@@ -5,10 +5,14 @@ H1 (``csrc/nanmedian.cu``) replaces vip_tpu's Pallas TPU kernel
 ``nanmedian_axis0`` (vip_tpu/ops/pallas_median.py:103-127), with the same
 signature and semantics: NaNs are ignored and an all-NaN pixel gives NaN
 (``propagate=True``: any NaN gives NaN), and an even count averages the
-two middle values in float32. It selects the lower middle by 32 rounds of
-MSB-first bisection on the order-preserving uint32 key of each value,
-then the upper middle in one more pass, with a tile of keys staged in
-shared memory (hence at most 3600 frames).
+two middle values in float32. It stages the order-preserving uint32 key
+of each value in shared memory (hence at most 3600 frames) and selects
+the lower and upper middle keys there, with one of two bodies chosen by
+the frame count alone (:func:`median_body`): up to 1650 frames, four
+8-bit digits top first, each from a 256-bin histogram a pixel (the keys
+swept four times, the last two over those of the middle's top-digit bin
+alone); above, 32 rounds of MSB-first bisection and one more sweep for
+the upper middle (34 sweeps).
 
 The plain version sorts the same keys along axis 0 (NaNs last), counts
 the non-NaN values m, gathers ranks (m−1)//2 and m//2 and averages them in
@@ -19,14 +23,18 @@ the lower middle of an even count.
 
 import torch
 
-__all__ = ["nanmedian_supported", "nanmedian_axis0", "nanmedian_plain"]
+__all__ = ["nanmedian_supported", "nanmedian_axis0", "nanmedian_plain",
+           "median_body"]
 
 #: Number of H1 kernel launches since the last reset (set it to 0 to reset).
 launches = 0
 
 _INT = {torch.float32: torch.int32, torch.float64: torch.int64}
-# frames whose keys fit a block's 227 KB of shared memory (csrc/nanmedian.cu)
+# frames whose keys fit a block's 227 KB of shared memory
+# (csrc/nanmedian.cu, which asserts both): a 16-pixel tile of keys, and
+# the digit body's 32-pixel tile beside its histograms and state
 _MAX_FRAMES = 3600
+_DIGIT_MAX_FRAMES = 1650
 
 
 def nanmedian_supported(arr, ax=0):
@@ -36,6 +44,31 @@ def nanmedian_supported(arr, ax=0):
             and arr.ndim == 3 and arr.dtype == torch.float32
             and 1 <= arr.shape[0] <= _MAX_FRAMES
             and arr.shape[1] * arr.shape[2] < 2 ** 31)
+
+
+def median_body(n):
+    """Which body of H1 selects the median of n frames, a pure function of
+    n: "digits" (radix-256 digit histograms) for 1..1650, "bisection" for
+    1651..3600, None outside the gate."""
+    if not 1 <= n <= _MAX_FRAMES:
+        return None
+    return "digits" if n <= _DIGIT_MAX_FRAMES else "bisection"
+
+
+def median_config(n):
+    """H1's launch configuration for n frames, from the card without a
+    launch: registers and spilled bytes a thread, blocks an SM, threads
+    and dynamic shared memory a block, and the body."""
+    import ctypes
+
+    from .._build import check, load
+
+    info = (ctypes.c_int * 6)()
+    check(load().vip_nanmedian_info(n, info), "median_config")
+    out = dict(zip(("registers", "spill_bytes", "blocks_per_sm", "threads",
+                    "smem_bytes"), info))
+    out["body"] = "digits" if info[5] else "bisection"
+    return out
 
 
 def nanmedian_plain(arr, ax=0, propagate=False):

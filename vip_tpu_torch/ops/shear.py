@@ -11,17 +11,17 @@ y-shear's columns in groups that read whole 32-byte sectors; its plan,
 pass twiddles and slot → frequency table are built here:
 :func:`_line_plan`, :func:`_pass_twiddles`, :func:`_freq_table`); above,
 the radix-2 body ``vip::shear_line`` of ``csrc/shear_line.cuh``. H4 is
-one cooperative launch of ``csrc/fft_shear3.cu`` and keeps the radix-2
-body on every canvas, so on N ≤ 2048 it agrees with H2 and H3 within
-rounding (3e-5 of max(|ref|, 1) on the card), not bit for bit.
+one cooperative launch of ``csrc/fft_shear3.cu`` (and, for N ≤ 2048,
+``csrc/shear3_regs.cuh``) that runs the same engine as H2 and H3 on each
+canvas, with the same tables and coefficients, line for line.
 
 H2 replaces vip_tpu's Pallas TPU kernel ``rotate_fft_exact_fused``
 (vip_tpu/ops/pallas_shear.py:550-613): VIP's 4x-padded three-shear
 rotation of a batch of even square float32 frames, as three launches
 (x-shear, y-shear, x-shear) with support pruning. Shear 1 reads each
 frame's quadrant rot90, with the +1-pixel placement, in place from the
-frames (the quadrants are computed here, the placed frames never exist;
-H4 still places them here in PyTorch) and only the occupied (y+1)-column
+frames (the quadrants are computed here, the placed frames never exist)
+and only the occupied (y+1)-column
 band of the y+1 occupied rows, shear 2 writes only the crop rows, shear 3
 writes only the crop columns and keeps the real part.
 Between shears the intermediates are compact complex64 bands of (y+1) x N
@@ -39,8 +39,10 @@ by ``rotate_fft_exact_fused3`` (:845) and ``rotate_fft_small_fused3``
 (:890): the functions of H2 and H3 with all three shears in one
 persistent cooperative launch whose grid walks the batch in groups of
 frames; the complex intermediate band of a group stays in a scratch
-buffer sized to fit the L2 cache (:func:`_fused3_group`). The same
-functions, so the same plain versions.
+buffer (:func:`_fused3_group`; a whole chunk by default), the y-shear
+writes its crop rows in place there, and the first shear reads the
+frames' rot90 in place as H2's and H3's do. The same functions, so the
+same plain versions.
 
 :func:`rotate_exact` is the one route every exact rotation of the port
 takes (``cube_derotate``, ``frame_rotate``, ``ops.pipeline``). It reads
@@ -57,8 +59,8 @@ import os
 import numpy as np
 import torch
 
-from .fft import (_place_quadrants, _shear_coefs, decompose_rotation,
-                  rotate_fft_exact_pruned, rotate_fft_small_plain)
+from .fft import (_shear_coefs, decompose_rotation, rotate_fft_exact_pruned,
+                  rotate_fft_small_plain)
 
 __all__ = ["fused_shear_supported", "rotate_fft_exact_fused",
            "rotate_exact", "fused_small_supported",
@@ -73,9 +75,12 @@ small_launches = 0
 #: last reset.
 fused3_launches = 0
 
-# scratch of one H4 launch: a few frames' intermediate bands, well inside
-# the H100's 50 MB L2
-_FUSED3_SCRATCH_BYTES = 40 << 20
+# scratch of one H4 launch: the intermediate bands of a whole pipeline
+# chunk (50 frames of 512² on N = 2048, 420 MB; 125 on 640², 410 MB). An
+# L2-sized scratch (40 MB, four 512² frames a group) measured slower on the
+# H100: each group's three stages start and end on a grid barrier, and few
+# block iterations a stage leave most of that time to the ramps (PERF.md)
+_FUSED3_SCRATCH_BYTES = 512 << 20
 
 _twiddles = {}
 
@@ -354,28 +359,52 @@ def _fused3_group(B, band_bytes):
     return int(max(1, min(B, _FUSED3_SCRATCH_BYTES // band_bytes)))
 
 
-def _fused3(lib, slab, out, a, b, tw, N, W1, R1, py0, px0, R2, cy0, W3,
-            cx0, what):
-    """One H4 launch; allocates its scratch; raises if it was refused."""
+def _fused3(lib, frames, quad, out, a, b, tables, N, R1, py0, px0, R2, cy0,
+            W3, cx0, what, stamps=None, G=None):
+    """One H4 launch on (B, y, y) frames, read in place as the rot90 of
+    quadrant ``quad[b]``; allocates its scratch for G frames a group
+    (default :func:`_fused3_group`); raises if it was refused. ``stamps``,
+    an int64 tensor of 1 + 3·⌈B/G⌉ entries, gets block 0's %globaltimer
+    (ns) at the start and after each grid barrier."""
     from .._build import check
 
-    B = slab.shape[0]
-    G = _fused3_group(B, R1 * N * 8)
+    tw, ptw, freq = tables
+    B, y = frames.shape[0], frames.shape[-1]
+    G = _fused3_group(B, R1 * N * 8) if G is None else G
     scratch = torch.empty((G, R1, N), dtype=torch.complex64,
-                          device=slab.device)
-    stream = torch.cuda.current_stream(slab.device).cuda_stream
-    rc = lib.vip_shear3(slab.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                        a.data_ptr(), b.data_ptr(), tw.data_ptr(), B, G, N,
-                        slab.stride(0), slab.stride(1), R1, W1, py0, px0, R2,
-                        cy0, W3, cx0, stream)
+                          device=frames.device)
+    stream = torch.cuda.current_stream(frames.device).cuda_stream
+    rc = lib.vip_shear3(
+        frames.data_ptr(), quad.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), a.data_ptr(), b.data_ptr(), tw.data_ptr(),
+        None if ptw is None else ptw.data_ptr(),
+        None if freq is None else freq.data_ptr(), B, G,
+        _line_group(N, columns=True), N, y, R1, py0, px0, R2, cy0, W3, cx0,
+        None if stamps is None else stamps.data_ptr(), stream)
     check(rc, what)
+
+
+def fused3_config(N):
+    """H4's launch configuration on a canvas of N points, from the card
+    without a launch: registers and spilled bytes a thread, blocks an SM,
+    the grid, threads and dynamic shared memory a block."""
+    import ctypes
+
+    from .._build import check, load
+
+    info = (ctypes.c_int * 6)()
+    check(load().vip_shear3_info(N, _line_group(N, columns=True), info),
+          "fused3_config")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "grid",
+                     "threads", "smem_bytes"), info))
 
 
 def rotate_fft_exact_fused3(frames, angles, pad_y, py0, px0, cy0, cy1, cx0,
                             cx1):
     """:func:`rotate_fft_exact_fused` with the three shears in one
     cooperative launch (H4; vip_tpu pallas_shear.py:845). Same function,
-    same arguments.
+    same arguments; the first shear reads each frame's rot90 in place, as
+    H2's.
 
     CPU tensors take the plain version (``rotate_fft_exact_pruned``). CUDA
     tensors launch H4 and raise on anything it does not take (H2's gate,
@@ -386,16 +415,14 @@ def rotate_fft_exact_fused3(frames, angles, pad_y, py0, px0, cy0, cy1, cx0,
         return rotate_fft_exact_pruned(frames, angles, pad_y, py0, px0, cy0,
                                        cy1, cx0, cx1)
     B, y, _ = frames.shape
-    lib, a, b, (tw, _, _), k = _exact_setup(frames, angles, pad_y,
-                                         "rotate_fft_exact_fused3")
+    lib, a, b, tables, k = _exact_setup(frames, angles, pad_y,
+                                        "rotate_fft_exact_fused3")
     dev = frames.device
-    R1, R2, W3 = y + 1, cy1 - cy0, cx1 - cx0
-    slab = torch.zeros((B, R1, R1), dtype=torch.float32, device=dev)
-    _place_quadrants(frames, k, slab, 0, 0, shifted=True)
+    R2, W3 = cy1 - cy0, cx1 - cx0
     out = torch.empty((B, R2, W3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _fused3(lib, slab, out, a, b, tw, pad_y, R1, R1, py0, px0, R2, cy0,
-                W3, cx0, "rotate_fft_exact_fused3")
+        _fused3(lib, frames, k, out, a, b, tables, pad_y, y + 1, py0, px0,
+                R2, cy0, W3, cx0, "rotate_fft_exact_fused3")
     fused3_launches += 1
     return out
 
@@ -403,7 +430,9 @@ def rotate_fft_exact_fused3(frames, angles, pad_y, py0, px0, cy0, cy1, cx0,
 def rotate_fft_small_fused3(cube, angles):
     """:func:`rotate_fft_small_fused` with the three shears in one
     cooperative launch (H4; vip_tpu pallas_shear.py:890): full bands on
-    the (N+1)²-extended canvas. Same function, same arguments.
+    the N x N canvas, its rot90 read in place as H3's first shear reads it
+    (the turn of the (N+1)²-extended canvas, cut back to N x N). Same
+    function, same arguments.
 
     CPU tensors take the plain version (``rotate_fft_small_plain``). CUDA
     tensors launch H4 and raise on anything it does not take (H3's gate,
@@ -413,14 +442,12 @@ def rotate_fft_small_fused3(cube, angles):
     if cube.device.type == "cpu":
         return rotate_fft_small_plain(cube, angles)
     B, N, _ = cube.shape
-    lib, a, b, (tw, _, _), k = _small_setup(cube, angles,
-                                         "rotate_fft_small_fused3")
+    lib, a, b, tables, k = _small_setup(cube, angles,
+                                        "rotate_fft_small_fused3")
     dev = cube.device
-    ext = torch.zeros((B, N + 1, N + 1), dtype=torch.float32, device=dev)
-    _place_quadrants(cube, k, ext, 0, 0, shifted=True)
     out = torch.empty((B, N, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _fused3(lib, ext, out, a, b, tw, N, N, N, 0, 0, N, 0, N, 0,
+        _fused3(lib, cube, k, out, a, b, tables, N, N, 0, 0, N, 0, N, 0,
                 "rotate_fft_small_fused3")
     fused3_launches += 1
     return out
