@@ -10,7 +10,9 @@ annular PCA (the public ``psfsub.pca_annular``, bench.py's annular leg:
 ncomp 10, fwhm 4, asize 4, 'vip-fft-small') and the companion search
 (a companion planted in the cube, then ``psfsub.median_sub``, the
 ``psfsub.pca_grid`` over ncomp 1..10, ``metrics.snrmap``/``snrmap_fast``
-and ``metrics.detection``). Phases, one line each:
+and ``metrics.detection``), the streamed ``psfsub.pca_incremental`` and
+the injection → contrast curve → completeness path (``metrics``), and the
+goldens in float32. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``vip_tpu_torch/csrc``, one nvcc per
@@ -42,7 +44,21 @@ and ``metrics.detection``). Phases, one line each:
     H4 and H2 against the plain route, the same S/N-optimal ncomp,
     detection within 3 px of the planted companion; the annular
     ``median_sub`` once; a small search against the CPU float64 mode;
-11. timings, kernel beside plain, warm median of 3 (with the spread of
+11. the streamed PCA (``psfsub.pca_incremental``) of the cube written to
+    a FITS file, 10 batches of 100 frames, with the kernels (H2, H1) and
+    through the plain versions, the card's block cache off, a bfloat16
+    wire, and the pass-1 merge in float64;
+12. the contrast curve of the port's ``pca`` (3 patterns of injected
+    companions and the reduction without, injected and reduced on the
+    card) through its pandas-free ``metrics.contrcurve._contrast_curve``,
+    against the plain route; then ``completeness_curve`` at two radii from
+    its Student contrast; ``normalized_stim_map`` of the PCA residuals of
+    the cube with the planted companion (its maximum at the companion);
+13. F2: the goldens' configurations (pca_adi, medsub_adi, pca_ann_adi,
+    pca_incr_adi) on the committed NACO replica in float32 on the card,
+    their errors against VIP's float64 frames and the 3-px detection
+    oracle; the golden injection's PSF normalization and injection;
+14. timings, kernel beside plain, warm median of 3 (with the spread of
     the three runs where a default route is decided from them); H2's
     three launches and its set-up timed apart with CUDA events; H4's
     three stages timed apart by the kernel's own %globaltimer stamps,
@@ -73,6 +89,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -114,6 +131,23 @@ SNR_TOL = 1e-3
 # H4's groups whose scratch fits the H100's 50 MB L2 (40 MiB): 4 frames of
 # 512² (N = 2048) and 12 of 640² canvases; the default is a whole chunk
 L2_GROUPS = (4, 12)
+# The streamed PCA: batches of 100 frames from a FITS file (10 batches)
+INC_BATCH = 100
+# The contrast curve and the completeness probes: the port's pca with the
+# main path's parameters, a Gaussian PSF of FWHM COMP_FWHM, NACO's plate
+# scale, and a star flux that keeps the 5-sigma contrast of the noise
+# frames below 1 (VIP clips contrasts to 1)
+CC_ALGO = dict(ncomp=NCOMP, svd_mode="eigen", collapse="median")
+CC_PXSCALE, CC_STARPHOT = 0.02719, 100.0
+# completeness at two radii only, to stay within the time limit
+COMPL_RADII, COMPL_NFC = (20, 40), 20
+# The goldens of F2 (tests/gen_golden.py:psfsub_configs), besides fwhm and
+# verbose
+F2_CONFIGS = (("pca_adi", "pca", dict(svd_mode="lapack")),
+              ("medsub_adi", "median_sub",
+               dict(mode="fullfr", imlib="vip-fft", interpolation=None)),
+              ("pca_ann_adi", "pca_annular", dict(n_segments="auto")),
+              ("pca_incr_adi", "pca", dict(batch=30)))
 # Roofline of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -914,6 +948,303 @@ def phase_small_reference():
     _require(err <= SMALL_TOL * scale, "small cube disagrees with CPU f64")
 
 
+@contextlib.contextmanager
+def _plain_route():
+    """Route the exact derotation (``VIP_EXACT_SHEAR=pruned``) and the
+    median collapse through their plain PyTorch versions on the card, for
+    a block; the kernels' counts must not move inside it."""
+    from vip_tpu_torch.preproc import subsampling
+
+    supported = subsampling.nanmedian_supported
+    subsampling.nanmedian_supported = lambda arr, ax=0: False
+    try:
+        with _env("VIP_EXACT_SHEAR", "pruned"):
+            before = _counts()
+            yield
+            _require(_counts() == before,
+                     f"the plain route launched kernels: {before} -> "
+                     f"{_counts()}")
+    finally:
+        subsampling.nanmedian_supported = supported
+
+
+def phase_incremental(cube, angles_np, tmpdir):
+    """``pca_incremental`` of the cube written to a FITS file (10 batches
+    of 100 frames, ncomp 10, the card's block cache on): H1 once and H2
+    three times a 50-frame chunk per batch, against the same call through
+    the plain versions; then the pass-1 merge in float64 on the card.
+    Returns (counts, runs by variant, the float32 frame)."""
+    from vip_tpu_torch.fits import write_fits
+    from vip_tpu_torch.psfsub import utils_pca
+    from vip_tpu_torch.psfsub.utils_pca import pca_incremental
+
+    path = os.path.join(tmpdir, "cube.fits")
+    t0 = time.perf_counter()
+    write_fits(path, cube.cpu().numpy(), verbose=False)
+    t_write = time.perf_counter() - t0
+    size_gb = os.path.getsize(path) / 1e9
+
+    def run(**kw):
+        return pca_incremental(path, angles_np, batch=INC_BATCH,
+                               ncomp=NCOMP, verbose=False, **kw)
+
+    def run_nocache():
+        keep = utils_pca._CACHE_FRACTION
+        utils_pca._CACHE_FRACTION = 0.0
+        try:
+            return run()
+        finally:
+            utils_pca._CACHE_FRACTION = keep
+
+    _reset_counts()
+    frame = run()
+    torch.cuda.synchronize()
+    counts = _counts()
+    nb = -(-N_FRAMES // INC_BATCH)
+    want_h2 = 3 * nb * -(-INC_BATCH // CHUNK)
+    _require(counts["H1"] == nb and counts["H2"] == want_h2,
+             f"pca_incremental launches {counts}, want H1 {nb}, H2 {want_h2}")
+    with _plain_route():
+        ref = run()
+    _require(frame.shape == (SIZE, SIZE) and np.isfinite(frame).all(),
+             "pca_incremental: not a finite frame")
+    err, scale = _rel_err(torch.as_tensor(frame), torch.as_tensor(ref))
+    nocache = run_nocache()
+    bf16 = run(wire_dtype="bfloat16")
+    f64_err = float(np.abs(_incremental_f64(path, angles_np) - frame).max())
+    print(f"pca_incremental {N_FRAMES}x{SIZE}x{SIZE} from a {size_gb:.3f} GB "
+          f"FITS file (written in {t_write:.3f} s), batch {INC_BATCH}: "
+          f"launches {counts}; max abs err vs plain route {err:.3e} (bound "
+          f"{PIPE_TOL:.0e} x {scale:.3f}); cache off vs on "
+          f"{float(np.abs(nocache - frame).max()):.3e}; bfloat16 wire vs "
+          f"float32 {float(np.abs(bf16 - frame).max()):.3e}; pass-1 merge "
+          f"in float64 vs float32 {f64_err:.3e} (frame max |x| "
+          f"{float(np.abs(frame).max()):.3e})", flush=True)
+    _require(err <= PIPE_TOL * scale, "pca_incremental disagrees with the "
+             "plain route")
+    _require(np.array_equal(nocache, frame), "cache off changed the frame")
+    return counts, {"cache on": run, "cache off": run_nocache,
+                    "bfloat16 wire": lambda: run(wire_dtype="bfloat16")}
+
+
+def _incremental_f64(path, angles_np):
+    """``pca_incremental``'s frame with the pass-1 merge in float64 on the
+    card (pass 2 as in float32 mode: the blocks, the basis and the mean in
+    float32 through H2 and H1)."""
+    from vip_tpu_torch.fits import open_fits
+    from vip_tpu_torch.ops.pipeline import derotate_collapse
+    from vip_tpu_torch.psfsub.utils_pca import (_incremental_merge_svd,
+                                                _project_subtract_blk)
+
+    lazy = open_fits(path, return_memmap=True, verbose=False)
+    npx = SIZE * SIZE
+    basis = torch.zeros((NCOMP, npx), dtype=torch.float64, device=DEVICE)
+    mean = torch.zeros(npx, dtype=torch.float64, device=DEVICE)
+    count = 0
+    for lo in range(0, N_FRAMES, INC_BATCH):
+        blk = torch.as_tensor(lazy[lo:lo + INC_BATCH].reshape(-1, npx),
+                              device=DEVICE).double()
+        basis, mean, count = _incremental_merge_svd(basis, blk, mean, count,
+                                                    NCOMP)
+    V = basis / basis.norm(dim=1, keepdim=True)
+    V, mean = V.float(), mean.float()
+    medians = []
+    for lo in range(0, N_FRAMES, INC_BATCH):
+        blk = torch.as_tensor(lazy[lo:lo + INC_BATCH].reshape(-1, npx),
+                              device=DEVICE)
+        resid = _project_subtract_blk(blk, mean, V).reshape(-1, SIZE, SIZE)
+        medians.append(derotate_collapse(
+            resid, torch.as_tensor(angles_np[lo:lo + INC_BATCH],
+                                   device=DEVICE), chunk=CHUNK).cpu().numpy())
+    return np.median(np.array(medians), axis=0)
+
+
+def _gaussian_psf(size=21):
+    """A Gaussian stamp of FWHM COMP_FWHM px."""
+    q = np.arange(size) - size // 2
+    two_sig2 = 2 * (COMP_FWHM / (2 * np.sqrt(2 * np.log(2)))) ** 2
+    return np.exp(-(q[:, None] ** 2 + q[None, :] ** 2) / two_sig2)
+
+
+def phase_contrast(cube, angles_np):
+    """The contrast curve of the port's ``pca`` (ncomp 10, eigen, median)
+    through its pandas-free ``_contrast_curve``: 3 patterns of injected
+    companions plus the reduction without, injected and reduced on the
+    card (H2, H1), against the plain route. Returns (counts, the columns,
+    the run, the normalized PSF)."""
+    from vip_tpu_torch.fm import normalize_psf
+    from vip_tpu_torch.metrics.contrcurve import _contrast_curve
+    from vip_tpu_torch.psfsub import pca
+
+    psfn = normalize_psf(_gaussian_psf(), fwhm=COMP_FWHM, verbose=False)
+
+    def run():
+        return _contrast_curve(cube, angles_np, psfn, COMP_FWHM, CC_PXSCALE,
+                               CC_STARPHOT, pca, nbranch=1, fc_rad_sep=3,
+                               fc_snr=100, student=True, plot=False,
+                               verbose=False, **CC_ALGO)[0]
+
+    _reset_counts()
+    cols = run()
+    torch.cuda.synchronize()
+    counts = _counts()
+    _require(counts["H1"] == 4 and counts["H2"] > 0 and counts["H4"] == 0,
+             f"contrast curve launches {counts}, want H1 4 (3 patterns and "
+             "the empty reduction) and H2")
+    with _plain_route():
+        ref = run()
+    worst = {}
+    for name in ("sensitivity_student", "throughput"):
+        got, want = cols[name], ref[name]
+        _require(got.shape == want.shape and np.isfinite(got).all(),
+                 f"contrast curve {name}: not finite")
+        worst[name] = float(np.max(np.abs(got - want) / np.abs(want)))
+    thr = cols["throughput"]
+    print(f"contrast curve {N_FRAMES}x{SIZE}x{SIZE} ({len(thr)} radii "
+          f"{cols['distance'][0]:.1f}..{cols['distance'][-1]:.1f} px): "
+          f"launches {counts} (H1 = PCA reductions); throughput "
+          f"{thr.min():.4f}..{thr.max():.4f}; student sensitivity "
+          f"{cols['sensitivity_student'].min():.3e}.."
+          f"{cols['sensitivity_student'].max():.3e}; max relative err vs "
+          f"plain route: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       worst.items())
+          + " (bound 1e-4)", flush=True)
+    _require(max(worst.values()) <= 1e-4, "contrast curve disagrees with "
+             "the plain route")
+    _require(np.all((thr > 0) & (thr <= 1)), "a throughput outside (0, 1]")
+    return counts, cols, run, psfn
+
+
+def phase_completeness(cube, angles_np, psfn, cols):
+    """``completeness_curve`` of the same algo at two radii (the depth cut
+    to stay within the time limit), each probe injected and reduced on
+    the card, starting from the contrast phase's Student contrast.
+    Returns (counts, wall seconds)."""
+    from vip_tpu_torch.fm import find_nearest
+    from vip_tpu_torch.metrics import completeness_curve
+    from vip_tpu_torch.psfsub import pca
+
+    ini = [float(cols["sensitivity_student"][find_nearest(
+        cols["distance"], a)]) for a in COMPL_RADII]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    an_dist, levels = completeness_curve(
+        cube, angles_np, psfn, COMP_FWHM, pca, an_dist=list(COMPL_RADII),
+        ini_contrast=ini, starphot=CC_STARPHOT, n_fc=COMPL_NFC,
+        snr_approximation=True, algo_dict=dict(CC_ALGO), plot=False,
+        verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    _require(counts["H1"] > 1 and counts["H2"] > 0,
+             f"completeness launches {counts}")
+    _require(np.all(np.isfinite(levels)) and np.all(levels > 0),
+             f"completeness levels {levels}")
+    print(f"completeness_curve {N_FRAMES}x{SIZE}x{SIZE} at r = "
+          f"{list(an_dist)} px, n_fc {COMPL_NFC}, 95%: levels "
+          f"{[float(v) for v in levels]} (starting from {ini}); "
+          f"{counts['H1'] - 1} probes (H1 launches less the empty "
+          f"reduction); launches {counts}; {wall:.3f} s", flush=True)
+    return counts, wall
+
+
+def phase_stim(pcube, angles_np, src):
+    """``normalized_stim_map`` of the PCA residual cube of the cube with
+    the planted companion: two derotations through H2; the map's maximum
+    within 3 px of the companion. Returns (counts, the run)."""
+    from vip_tpu_torch.metrics import normalized_stim_map
+    from vip_tpu_torch.psfsub import pca
+
+    resid = pca(pcube, angles_np, ncomp=NCOMP, svd_mode="eigen",
+                full_output=True, verbose=False)[3]
+
+    def run():
+        return normalized_stim_map(resid, angles_np)
+
+    _reset_counts()
+    smap = run()
+    torch.cuda.synchronize()
+    counts = _counts()
+    _require(counts["H2"] > 0 and smap.is_cuda
+             and bool(torch.isfinite(smap).all()),
+             f"normalized_stim_map: launches {counts}")
+    peak = np.unravel_index(int(smap.argmax()), smap.shape)
+    print(f"normalized_stim_map {N_FRAMES}x{SIZE}x{SIZE}: launches {counts};"
+          f" max {float(smap.max()):.3f} at (y, x) "
+          f"{tuple(int(v) for v in peak)}, planted at {(src[1], src[0])}",
+          flush=True)
+    _require(_near([peak[0]], [peak[1]], src), "STIM maximum is not at the "
+             "planted companion")
+    return counts, run
+
+
+def _moffat_psf(size=39, fwhm=4.800919383981533, alpha=2.5, peak=1680.0):
+    """The NACO replica's raw PSF (tests/naco_replica.py:moffat_psf)."""
+    gamma = fwhm / (2.0 * np.sqrt(2.0 ** (1.0 / alpha) - 1.0))
+    yy, xx = np.mgrid[:size, :size].astype(np.float64)
+    c = (size - 1) / 2.0
+    return peak * (1.0 + ((xx - c) ** 2 + (yy - c) ** 2) / gamma ** 2) \
+        ** (-alpha)
+
+
+def phase_f2():
+    """F2: the goldens' configurations on the committed NACO replica in
+    float32 on the card, each frame's max abs error against VIP's float64
+    golden (recorded, not gated) and the 3-px detection oracle (gated);
+    the golden injection's PSF normalization and its flux-300 / radius-30
+    injection, against the golden PSF and the float64 CPU injection."""
+    import vip_tpu_torch
+    import vip_tpu_torch.psfsub as tps
+    from vip_tpu_torch.fm import cube_inject_companions, normalize_psf
+    from vip_tpu_torch.metrics import detection
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+    meta = np.load(os.path.join(golden, "meta.npz"))
+    cube = torch.as_tensor(np.load(os.path.join(golden, "inputs.npz"))["cube"],
+                           dtype=torch.float32, device=DEVICE)
+    fwhm = float(meta["fwhm"])
+    errs = {}
+    for name, fn, kwargs in F2_CONFIGS:
+        frame = getattr(tps, fn)(cube=cube, angle_list=meta["angles"],
+                                 fwhm=fwhm, verbose=False, **kwargs)
+        frame = frame.cpu().double().numpy() \
+            if isinstance(frame, torch.Tensor) else np.asarray(frame, float)
+        ref = np.load(os.path.join(golden, f"{name}.npy"))
+        errs[name] = float(np.abs(frame - ref).max())
+        _require(np.isfinite(frame).all(), f"F2 {name}: not finite")
+        found = np.load(os.path.join(golden, f"{name}_detect.npy"))
+        ys, xs = detection(frame, fwhm=fwhm, mode="lpeaks", bkg_sigma=5,
+                           matched_filter=False, mask=True, snr_thresh=2,
+                           plot=False, verbose=False)
+        for c in (tuple(meta["planet_yx"]), tuple(meta["injected_yx"])):
+            if any(abs(y - c[0]) <= 3 and abs(x - c[1]) <= 3
+                   for y, x in found):
+                _require(_near(ys, xs, (c[1], c[0])),
+                         f"F2 {name}: the companion at {c} was missed")
+    psfn, _, fit_fwhm = normalize_psf(_moffat_psf(), fwhm="fit", size=20,
+                                      force_odd=False, full_output=True,
+                                      verbose=False)
+    zeros = np.zeros((meta["angles"].shape[0], 101, 101))
+    kw = dict(flevel=300.0, rad_dists=30.0, verbose=False)
+    inj = cube_inject_companions(zeros, psfn, meta["angles"], **kw)
+    vip_tpu_torch.set_device("cpu")
+    try:
+        inj64 = cube_inject_companions(zeros, psfn, meta["angles"], **kw)
+    finally:
+        vip_tpu_torch.set_device(DEVICE)
+    print("F2 float32 on the card vs the float64 goldens, max abs err: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; normalize_psf vs golden PSF "
+          f"{float(np.abs(psfn - meta['psfn']).max()):.3e}, FWHM "
+          f"{abs(float(fit_fwhm) - float(meta['fwhm'])):.3e}; injection "
+          f"(flux 300, r 30) vs CPU float64 "
+          f"{float(np.abs(inj - inj64).max()):.3e}; detection oracle "
+          f"passed", flush=True)
+    return errs
+
+
 def _profile_table(fn, rows=15):
     """torch.profiler over one call of ``fn``: wall seconds and the top
     rows by device self time."""
@@ -1080,6 +1411,17 @@ def main():
         pcube, angles_np, src)
     t_ann_ms = phase_annular_median(pcube, angles_np, src)
     phase_small_companion_reference()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        inc_counts, inc_runs = phase_incremental(cube, angles_np, tmpdir)
+        t_inc = {k: _sync_times(fn, reps=3 if k == "cache on" else 1)
+                 for k, fn in inc_runs.items()}
+    cc_counts, cc_cols, run_cc, psfn = phase_contrast(cube, angles_np)
+    compl_counts, t_compl = phase_completeness(cube, angles_np, psfn,
+                                               cc_cols)
+    stim_counts, run_stim = phase_stim(pcube, angles_np, src)
+    phase_f2()
+    new_paths = {"incremental": inc_counts, "contrast": cc_counts,
+                 "completeness": compl_counts, "stim": stim_counts}
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -1152,6 +1494,8 @@ def main():
             t_search[route] = (_sync_times(medsub), _sync_times(grid))
     t_snr = _sync_time(lambda: snrmap(ms_frame, COMP_FWHM, verbose=False))
     t_snrf = _sync_time(lambda: snrmap_fast(ms_frame, COMP_FWHM))
+    t_cc_runs = _sync_times(run_cc)
+    t_stim = _sync_time(run_stim)
     t_ann = _sync_time(run_annular, reps=2)
     prof_wall, table = _profile_table(run_annular)
     with _env("VIP_EXACT_SHEAR", "auto"):
@@ -1212,6 +1556,14 @@ def main():
     print(f"timing median_sub annular {N_FRAMES}x{SIZE}x{SIZE}: "
           f"{t_ann_ms:.4f} s (once); snrmap {SIZE}^2 {t_snr:.4f} s, "
           f"snrmap_fast {t_snrf:.4f} s", flush=True)
+    print(f"timing pca_incremental {N_FRAMES}x{SIZE}x{SIZE} from FITS, "
+          f"batch {INC_BATCH} (warm): " + ", ".join(
+              f"{k} {_spread(v)} s" for k, v in t_inc.items())
+          + f"; contrast curve (3 patterns + empty) {_spread(t_cc_runs)} s;"
+          f" completeness (2 radii, once) {t_compl:.4f} s; "
+          f"normalized_stim_map {t_stim:.4f} s", flush=True)
+    print("launches on the new paths: " + "; ".join(
+        f"{k} {v}" for k, v in new_paths.items()), flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
@@ -1259,16 +1611,20 @@ def main():
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms}
 
+    def on_new_paths(kernel):
+        return {k: v[kernel] for k, v in new_paths.items()}
+
     kernels = [
         dict(entry("nanmedian_axis0", "vip_tpu_torch/csrc/nanmedian.cu",
                    "vip_tpu/ops/pallas_median.py:104", counts["H1"], h1_err,
                    t_h1 * 1e3, t_h1p * 1e3, h1_bound, t_h1lib * 1e3),
              bisection_frames=BISECT_FRAMES, bisection_ms=t_h1b * 1e3,
-             bisection_plain_ms=t_h1bp * 1e3),
+             bisection_plain_ms=t_h1bp * 1e3,
+             launches_new_paths=on_new_paths("H1")),
         dict(entry("rotate_fft_exact_fused", "vip_tpu_torch/csrc/fft_shear.cu",
                    "vip_tpu/ops/pallas_shear.py:550", counts["H2"], h2_err,
                    t_h2 * 1e3, t_h2p * 1e3, exact_bound),
-             cufft_lines_ms=t_fft2),
+             cufft_lines_ms=t_fft2, launches_new_paths=on_new_paths("H2")),
         dict(entry("rotate_fft_small_fused", "vip_tpu_torch/csrc/fft_shear.cu",
                    "vip_tpu/ops/pallas_shear.py:918", ann_counts["H3"],
                    h3_err, t_h3 * 1e3, t_h3p * 1e3, small_bound),

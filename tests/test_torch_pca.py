@@ -104,7 +104,7 @@ def test_pca_source_xy_delta_rot_vs_vip_tpu(small):
 
 def test_pca_paths_still_to_port_raise(small):
     cube, angles, _ = small
-    for kw in (dict(batch=10), dict(smooth=2),
+    for kw in (dict(smooth=2),
                dict(mask_rdi=np.ones((32, 32))),
                dict(scale_list=np.ones(24))):
         with pytest.raises(NotImplementedError):

@@ -12,7 +12,8 @@ use. Subpackages load lazily.
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("config", "var", "preproc", "ops", "psfsub", "metrics")
+_SUBPACKAGES = ("config", "var", "preproc", "ops", "psfsub", "metrics", "fm",
+                "fits")
 
 from .config.device import get_device, set_device  # noqa: E402
 

@@ -1,12 +1,13 @@
-"""Array checks (port of ``vip_tpu.config.utils_conf``, the part ``pca``
-calls)."""
+"""Array checks and the task map (port of the part of
+``vip_tpu.config.utils_conf`` that ``pca`` and the completeness curves
+call: ``check_array``, ``pool_map``, ``iterable``)."""
 
 import numpy as np
 import torch
 
 sep = "-" * 80
 
-__all__ = ["sep", "check_array"]
+__all__ = ["sep", "check_array", "pool_map", "iterable"]
 
 
 def check_array(input_array, dim, msg=None):
@@ -28,3 +29,33 @@ def check_array(input_array, dim, msg=None):
         raise TypeError(f"`{msg}` must be a {wanted} numpy ndarray or "
                         "torch tensor")
     return input_array
+
+
+class _Iterable:
+    """Marker of the ``pool_map`` arguments that vary from task to task."""
+
+    def __init__(self, it):
+        self.it = it
+
+
+def iterable(v):
+    """Mark ``v`` as the sequence ``pool_map`` maps over."""
+    return _Iterable(v)
+
+
+def pool_map(nproc, fkt, *args, msg=None, verbose=True,
+             progressbar_single=False, **kwargs):
+    """``fkt`` over the elements of the ``iterable``-marked arguments,
+    the others passed whole, and ``kwargs`` to every call (vip_tpu
+    utils_conf.py:108, which dropped them). The calls run one after
+    another in this process: a forked worker cannot use the parent's CUDA
+    context, and the heavy work of each call is on the card already.
+    ``nproc`` is accepted and changes nothing, results included."""
+    iterables = [a.it for a in args if isinstance(a, _Iterable)]
+    if not iterables:
+        return [fkt(*args, **kwargs)]
+    if verbose and msg is not None:
+        print(f"{msg} serially")
+    return [fkt(*[a.it[i] if isinstance(a, _Iterable) else a for a in args],
+                **kwargs)
+            for i in range(len(iterables[0]))]

@@ -8,6 +8,8 @@ numpy and scipy, as in vip_tpu. S/N values are host floats; maps are
 tensors on the image's device.
 """
 
+import functools
+
 import numpy as np
 import torch
 from scipy.stats import norm, t
@@ -314,42 +316,104 @@ def _circle_perimeter(cy, cx, radius):
     return coords[:, 0], coords[:, 1]
 
 
+@functools.lru_cache(maxsize=8)
+def _approx_geometry(shape, cy, cx, r, yy_bytes, xx_bytes):
+    """The static geometry of :func:`_snrmap_approx` for the pixels
+    (yy, xx): the (Bresenham) rings through them, as an (R, M) array of
+    flat pixel indices with its validity mask; each pixel's ring row; and
+    the (K, O) flat indices of the pixels under each pixel's aperture
+    (|d|² < r², skimage.draw.disk) that lie on its own ring, with their
+    mask. Host numpy, cached: a completeness search asks again and again
+    for the same pixels."""
+    sizey, sizex = shape
+    yy = np.frombuffer(yy_bytes, dtype=np.int64)
+    xx = np.frombuffer(xx_bytes, dtype=np.int64)
+    irad = np.hypot(yy - cy, xx - cx).astype(int)
+    radii, row = np.unique(irad, return_inverse=True)
+    rings = []
+    for ir in radii:
+        py, px = _circle_perimeter(int(cy), int(cx), int(ir))
+        keep = (py >= 0) & (py < sizey) & (px >= 0) & (px < sizex)
+        rings.append(py[keep] * sizex + px[keep])
+    width = max(len(f) for f in rings)
+    ring_idx = np.zeros((len(rings), width), dtype=np.int64)
+    ring_ok = np.zeros((len(rings), width), dtype=bool)
+    for i, f in enumerate(rings):
+        ring_idx[i, :len(f)] = f
+        ring_ok[i, :len(f)] = True
+
+    ro = int(np.ceil(r))
+    oy, ox = np.mgrid[-ro:ro + 1, -ro:ro + 1]
+    inside = oy ** 2 + ox ** 2 < r ** 2
+    ay = yy[:, None] + oy[inside][None, :]
+    ax = xx[:, None] + ox[inside][None, :]
+    in_frame = (ay >= 0) & (ay < sizey) & (ax >= 0) & (ax < sizex)
+    ap_flat = np.where(in_frame, ay * sizex + ax, 0)
+    # on the pixel's own ring: its (ring, flat pixel) key among the rings'
+    keys = np.concatenate([i * sizey * sizex + f
+                           for i, f in enumerate(rings)])
+    on_ring = in_frame & np.isin(row[:, None] * sizey * sizex + ap_flat, keys)
+    return ring_idx, ring_ok, row, ap_flat, on_ring
+
+
+def _middle(sorted_vals, counts):
+    """numpy's median of the first ``counts[i]`` values of each sorted
+    row: the mean of the two middle values for an even count."""
+    lo = ((counts - 1) // 2)[:, None]
+    hi = (counts // 2)[:, None]
+    return 0.5 * (sorted_vals.gather(1, lo) + sorted_vals.gather(1, hi))[:, 0]
+
+
 def _snrmap_approx(array, yy, xx, fwhm, cy, cx):
     """Approximated S/N proxy (vip_tpu snr_source.py:329): a tophat
-    convolution on the device, then host ring statistics per pixel with
-    the flux aperture masked by the ring MAD."""
+    convolution, then, for each pixel, the statistics of the convolved
+    values on the (Bresenham) ring through it, with the ring's pixels
+    inside the pixel's own aperture replaced by the ring's MAD.
+
+    vip_tpu copies the frame once per pixel; here every ring's sum, sum
+    of squares (about the ring mean), median and MAD are row reductions
+    of one padded (rings, ring pixels) array, and each pixel subtracts
+    the values under its aperture and adds as many MADs: a few batched
+    ops on the frame's device in its dtype, over geometry built once on
+    the host (:func:`_approx_geometry`)."""
     from ..var.filters import convolve_with_mask
 
-    sizey, sizex = array.shape
     r = fwhm / 2.0
     size = int(2 * np.ceil(r) + 1)
     yk, xk = np.mgrid[:size, :size] - size // 2
     kernel = ((yk ** 2 + xk ** 2) <= r ** 2).astype(float)
     kernel /= kernel.sum()
-    conv = _host(convolve_with_mask(array, kernel, interpolate_nan=True))
+    conv = convolve_with_mask(array, kernel, interpolate_nan=True).reshape(-1)
+    yy = np.ascontiguousarray(yy, dtype=np.int64)
+    xx = np.ascontiguousarray(xx, dtype=np.int64)
+    ring_idx, ring_ok, row, ap_flat, on_ring = (
+        torch.as_tensor(a, device=array.device) for a in _approx_geometry(
+            tuple(array.shape), int(cy), int(cx), float(r), yy.tobytes(),
+            xx.tobytes()))
 
-    def mad(a):
-        return np.median(np.abs(a - np.median(a)))
+    ring = conv[ring_idx]
+    m = ring_ok.sum(dim=1)
+    mu = torch.where(ring_ok, ring, 0.0).sum(dim=1) / m
+    srt = torch.where(ring_ok, ring, torch.inf).sort(dim=1).values
+    med = _middle(srt, m)
+    dev = torch.where(ring_ok, (ring - med[:, None]).abs(), torch.inf)
+    mad = _middle(dev.sort(dim=1).values, m) - mu         # about the mean
+    v = torch.where(ring_ok, ring - mu[:, None], 0.0)
+    s1_ring, s2_ring = v.sum(dim=1), (v * v).sum(dim=1)
 
-    out = np.zeros(len(yy))
-    ring_cache = {}
-    for k in range(len(yy)):
-        sy, sx = yy[k], xx[k]
-        rad = np.hypot(sy - cy, sx - cx)
-        irad = int(rad)
-        if irad not in ring_cache:
-            py, px = _circle_perimeter(int(cy), int(cx), irad)
-            keep = (py >= 0) & (py < sizey) & (px >= 0) & (px < sizex)
-            ring_cache[irad] = (py[keep], px[keep])
-        py, px = ring_cache[irad]
-        ind_aper = disk_coords((sy, sx), fwhm / 2.0, (sizey, sizex))
-        arr2 = conv.copy()
-        arr2[ind_aper] = mad(conv[py, px])
-        n2 = (2 * np.pi * rad) / fwhm - 1
-        noise = arr2[py, px].std(ddof=1) * np.sqrt(1 + (1 / n2))
-        signal = conv[sy, sx] - arr2[py, px].mean()
-        out[k] = signal / noise
-    return torch.as_tensor(out, dtype=array.dtype, device=array.device)
+    under = torch.where(on_ring, conv[ap_flat] - mu[row][:, None], 0.0)
+    c = on_ring.sum(dim=1).to(conv.dtype)
+    s1 = s1_ring[row] - under.sum(dim=1) + c * mad[row]
+    s2 = s2_ring[row] - (under * under).sum(dim=1) + c * mad[row] ** 2
+    n = m[row].to(conv.dtype)
+    mean = s1 / n
+    var = (s2 - n * mean * mean) / (n - 1)
+    rad = torch.as_tensor(np.hypot(yy - cy, xx - cx), dtype=conv.dtype,
+                          device=conv.device)
+    n2 = (2 * np.pi * rad) / fwhm - 1
+    noise = torch.sqrt(var) * torch.sqrt(1 + (1 / n2))
+    pix = torch.as_tensor(yy * array.shape[1] + xx, device=conv.device)
+    return (conv[pix] - (mean + mu[row])) / noise
 
 
 def significance(snr, rad, fwhm, n_ap=None, student_to_gauss=True,

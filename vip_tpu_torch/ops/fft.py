@@ -18,15 +18,24 @@ cycles, where a float32 evaluation loses ~1e-4 rad.
 ``rotate_fft_exact_pruned`` and ``rotate_fft_small_plain`` are the plain
 versions of the CUDA shear kernels H2 and H3 in
 :mod:`vip_tpu_torch.ops.shear`.
+
+``fourier_shift_batch`` is VIP's 'vip-fft' sub-pixel shift (pad to a
+square even canvas, FFT phase ramp, crop) over a batch of frames, each
+with its own shift; ``fourier_shift`` is a batch of one. vip_tpu also had
+a host numpy twin, ``fourier_shift_np``, only so that its TPU would not
+compile one program per canvas size; PyTorch runs eagerly, so the port
+has none.
 """
 
 import math
 
 import torch
 
+from ..config.device import as_tensor
+
 __all__ = ["decompose_rotation", "quad_rot90", "fft_shear", "rotate_fft",
            "rotate_fft_exact_pruned", "rotate_fft_small_plain",
-           "rotate_fft_fast_batch"]
+           "rotate_fft_fast_batch", "fourier_shift", "fourier_shift_batch"]
 
 # +1-pixel placement of a rot90'd even frame per quadrant k (the reference
 # rot90s the (N+1)-extended canvas about its center)
@@ -118,9 +127,11 @@ def _shear_lines(z, c, q, dim):
     return torch.fft.ifft(s, dim=dim)
 
 
-def fft_shear(arr, c, ax):
+def fft_shear(arr, c, ax, phase=None):
     """One linear shear of an even square 2-d array (complex ok) as a 1-D
-    FFT phase multiplication along ``ax`` (vip_tpu fft.py:74)."""
+    FFT phase multiplication along ``ax`` (vip_tpu fft.py:74). ``phase`` is
+    accepted and ignored, as in vip_tpu, whose shear builds its own phase
+    ramp too."""
     N = arr.shape[0]
     real = _real_dtype(arr.real.dtype if arr.is_complex() else arr.dtype)
     z = arr.to(_complex_dtype(real))
@@ -286,3 +297,82 @@ def rotate_fft_fast_batch(cube, angles, support_rows=None):
     out[0::2] = z.real
     out[1::2] = z.imag
     return out[:n].to(cube.dtype)
+
+
+def _frame_center_static(ny, nx):
+    """The frame-center convention of ``var.coords.frame_center`` on
+    ints."""
+    return int(ny / 2 - 0.5 * (ny % 2)), int(nx / 2 - 0.5 * (nx % 2))
+
+
+def _shift_geometry(ny, nx, npad):
+    """The pad-to-square-even geometry of VIP's 'vip-fft' shift (vip_tpu
+    fft.py:309-332): (even canvas side, frame row and column on it
+    before the per-frame odd offset)."""
+    cy_ori, cx_ori = _frame_center_static(ny, nx)
+    new_y, new_x = ny + 2 * npad, nx + 2 * npad
+    cy, cx = _frame_center_static(new_y, new_x)
+    npix = max(new_y, new_x)
+    sq_y0 = int(cx - cy) if new_x > new_y else 0
+    sq_x0 = int(cy - cx) if new_y > new_x else 0
+    npix_f = npix + npix % 2
+    return (npix_f, npix % 2 == 1, sq_y0 + int(cy - cy_ori),
+            sq_x0 + int(cx - cx_ori), npad + sq_y0, npad + sq_x0)
+
+
+def fourier_shift_batch(cube, shifts_y, shifts_x, npad):
+    """Shift each frame of a (B, ny, nx) batch by its own (shift_y,
+    shift_x) pixels with an FFT phase ramp on a zero-padded square even
+    canvas (vip_tpu fft.py:293 and :362, VIP recentering.py:126-189).
+
+    ``npad`` is the pad margin, shared by the batch: VIP takes
+    ``ceil(max|shift|)`` of each call. For an odd canvas each frame sits
+    one pixel further along an axis whose shift is not positive, so the
+    placement (and the crop) depends on the sign of each frame's own
+    shift. Returns a tensor of the frames' dtype on their device (numpy
+    input goes to the default device); the phase is evaluated in
+    float64.
+    """
+    cube = as_tensor(cube)
+    B, ny, nx = cube.shape
+    real = _real_dtype(cube.dtype)
+    dev = cube.device
+    sy = torch.as_tensor(shifts_y, dtype=torch.float64).reshape(-1).expand(B)
+    sx = torch.as_tensor(shifts_x, dtype=torch.float64).reshape(-1).expand(B)
+    N, odd, y0, x0, p_y0, p_x0 = _shift_geometry(ny, nx, int(npad))
+    off_y = (sy <= 0).long() if odd else torch.zeros(B, dtype=torch.long)
+    off_x = (sx <= 0).long() if odd else torch.zeros(B, dtype=torch.long)
+
+    canvas = torch.zeros((B, N, N), dtype=real, device=dev)
+    groups = []
+    for oy in (0, 1):
+        for ox in (0, 1):
+            sel = ((off_y == oy) & (off_x == ox)).to(dev)
+            if bool(sel.any()):
+                groups.append((sel, oy, ox))
+                canvas[sel, y0 + oy:y0 + oy + ny, x0 + ox:x0 + ox + nx] = \
+                    cube[sel].to(real)
+
+    # the phase ramp exp(-2πi/N (sx·r_x + sy·r_y)), r = q - N/2, fftshifted
+    # along both axes; it factors into one ramp along each axis
+    r = torch.fft.fftshift(torch.arange(N, dtype=torch.float64) - N / 2)
+    ph_y = torch.exp((-2j * math.pi / N) * sy[:, None] * r[None, :])
+    ph_x = torch.exp((-2j * math.pi / N) * sx[:, None] * r[None, :])
+    cdt = _complex_dtype(real)
+    fact = (ph_y.to(dev, cdt)[:, :, None] * ph_x.to(dev, cdt)[:, None, :])
+    shifted = torch.fft.ifft2(torch.fft.fft2(canvas) * fact).real
+
+    out = torch.empty((B, ny, nx), dtype=cube.dtype if cube.is_floating_point()
+                      else real, device=dev)
+    for sel, oy, ox in groups:
+        out[sel] = shifted[sel, p_y0 + oy:p_y0 + oy + ny,
+                           p_x0 + ox:p_x0 + ox + nx].to(out.dtype)
+    return out
+
+
+def fourier_shift(array, shift_y, shift_x, npad):
+    """Shift a 2-d frame by (shift_y, shift_x) pixels (vip_tpu
+    fft.py:293): :func:`fourier_shift_batch` on a batch of one."""
+    array = as_tensor(array)
+    return fourier_shift_batch(array[None], [float(shift_y)],
+                               [float(shift_x)], npad)[0]

@@ -38,15 +38,16 @@ def matrix_scaling_jax(matrix, scaling):
     raise ValueError("Scaling mode not recognized")
 
 
-def randomized_svd(matrix, ncomp, omega=None, generator=None,
-                   n_oversamples=10, n_iter=2):
+def randomized_svd(matrix, ncomp, omega=None, n_oversamples=10, n_iter=2,
+                   *, generator=None):
     """Halko et al. randomized SVD (vip_tpu linalg.py:54). Returns
     (U, S, Vh) with ``ncomp`` components; power iterations are
     QR-stabilized.
 
     ``omega`` is the Gaussian sketch, of shape (min-side, k) with
-    ``k = min(ncomp + n_oversamples, n, p)``; when it is None it is drawn
-    with ``generator`` on the matrix's device.
+    ``k = min(ncomp + n_oversamples, n, p)``; it takes the slot of
+    vip_tpu's ``key``. When it is None it is drawn with the keyword-only
+    ``generator`` on the matrix's device.
     """
     n, p = matrix.shape
     k = min(ncomp + n_oversamples, min(n, p))
@@ -72,8 +73,8 @@ def randomized_svd(matrix, ncomp, omega=None, generator=None,
     return U, S, Vh
 
 
-def svd_top(matrix, ncomp, method="lapack", omega=None, generator=None,
-            full_output=False):
+def svd_top(matrix, ncomp, method="lapack", omega=None, full_output=False,
+            *, generator=None):
     """Top-``ncomp`` principal components (right singular vectors) of a
     [n, p] matrix, shape (ncomp, p) (vip_tpu linalg.py:80).
 
@@ -82,6 +83,9 @@ def svd_top(matrix, ncomp, method="lapack", omega=None, generator=None,
     method='eigen'   → eigh of the n×n Gram matrix.
     method='randsvd' → randomized SVD (``omega``/``generator``, see
                        :func:`randomized_svd`).
+
+    The positional order is vip_tpu's, ``omega`` in the slot of its
+    ``key``; ``generator`` is keyword-only.
 
     With ``full_output`` returns (U, S, V): U (n, ncomp), S (ncomp,),
     V (ncomp, p), in vip_tpu's orientation.
@@ -120,7 +124,7 @@ def svd_top(matrix, ncomp, method="lapack", omega=None, generator=None,
 
 
 def project_subtract(matrix, matrix_ref, ncomp, method="lapack", omega=None,
-                     generator=None, matrix_sig=None, full_output=False):
+                     matrix_sig=None, full_output=False, *, generator=None):
     """PCA project-and-subtract on prepared [n, p] matrices (vip_tpu
     linalg.py:135): the PCs come from ``matrix_ref`` (or from the
     signal-subtracted science matrix), the projection applies to the

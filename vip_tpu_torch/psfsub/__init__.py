@@ -1,5 +1,5 @@
-"""PSF subtraction (port of ``vip_tpu.psfsub``: full-frame and annular
-PCA, the PCA grid and single-annulus PCA, median-ADI)."""
+"""PSF subtraction (port of ``vip_tpu.psfsub``: full-frame, annular and
+streamed PCA, the PCA grid and single-annulus PCA, median-ADI)."""
 
 from .medsub import *
 from .pca_fullfr import *

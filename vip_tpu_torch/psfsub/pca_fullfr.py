@@ -11,9 +11,12 @@ grid (``utils_pca.pca_grid``), a float ``ncomp`` the number of PCs that
 reach that cumulative explained variance ratio (``svd.SVDecomposer``),
 and ``left_eigv`` projects on the left singular vectors.
 
+``batch`` streams the cube through ``utils_pca.pca_incremental`` (a
+FITS path is read lazily) and returns host numpy results, as vip_tpu.
+
 Not ported yet (each raises ``NotImplementedError``; ROADMAP.md Queue 1,
-"pca paths still to port"): 4-D/SDI cubes and ``scale_list``, ``batch``
-(incremental PCA), ``mask_rdi`` and ``smooth``.
+"pca paths still to port"): 4-D/SDI cubes and ``scale_list``, ``mask_rdi``
+and ``smooth``.
 """
 
 from dataclasses import dataclass
@@ -121,13 +124,14 @@ def pca(*all_args: List, **all_kwargs: dict):
         raise NotImplementedError(
             "left_eigv is not compatible with 'mask_rdi' nor 'batch'")
     for what, waits in (("scale_list (4-d/SDI)", p.scale_list is not None),
-                        ("batch (incremental PCA)", p.batch is not None),
                         ("mask_rdi", p.mask_rdi is not None),
                         ("smooth", p.smooth is not None)):
         if waits:
             raise NotImplementedError(f"pca: {what} {_WAITS}")
     if getattr(p.cube, "ndim", None) == 4:
         raise NotImplementedError(f"pca: 4-d cubes {_WAITS}")
+    if p.batch is not None:
+        return _pca_batch(p, start_time, rot_options)
     check_array(p.cube, 3, msg="cube")
 
     input_bytes = _nbytes(p.cube_ref if p.cube_ref is not None else p.cube)
@@ -174,6 +178,34 @@ def pca(*all_args: List, **all_kwargs: dict):
     if p.full_output:
         return frame, pcs, recon, residuals_cube, residuals_cube_
     return frame
+
+
+def _pca_batch(p, start_time, rot_options):
+    """``pca(batch=...)``: the streamed ``utils_pca.pca_incremental``
+    (vip_tpu pca_fullfr.py:271-287). Returns its numpy frame, or (frame,
+    pcs, medians) with ``full_output``."""
+    from .utils_pca import pca_incremental
+
+    if not isinstance(p.cube, (str, np.ndarray, torch.Tensor)):
+        raise TypeError("`cube` must be a numpy (3d or 4d) array or a str "
+                        "with the full path on disk")
+    if not isinstance(p.cube, str):
+        check_enough_memory(
+            _nbytes(p.cube), 1.0, raise_error=p.check_memory,
+            error_msg=(" Set check_memory=False to override this memory "
+                       "check or set `batch` to run incremental PCA"),
+            verbose=p.verbose)
+    if p.cube_ref is not None:
+        raise ValueError("RDI not compatible with batch mode")
+    res_inc = pca_incremental(
+        p.cube, p.angle_list, batch=p.batch, ncomp=p.ncomp,
+        collapse=p.collapse, verbose=p.verbose, full_output=p.full_output,
+        start_time=start_time, weights=p.weights, nproc=p.nproc,
+        imlib=p.imlib, interpolation=p.interpolation, **rot_options)
+    if p.full_output:
+        frame, _, pcs, medians = res_inc
+        return frame, pcs, medians
+    return res_inc
 
 
 def _median_of_frames(frames):

@@ -1,6 +1,7 @@
-"""PCA helpers: the grid over the number of PCs and single-annulus PCA for
-3-d cubes (port of ``vip_tpu.psfsub.utils_pca``: ``pca_grid``,
-``pca_annulus``).
+"""PCA helpers: the grid over the number of PCs, single-annulus PCA and
+the streamed (out-of-core) PCA for 3-d cubes (port of
+``vip_tpu.psfsub.utils_pca``: ``pca_grid``, ``pca_annulus``,
+``pca_incremental``).
 
 ``pca_grid`` keeps VIP's SVD-once, truncate-many design: one SVD of the
 library at the largest ``ncomp``, then each truncation's residual cube is
@@ -10,24 +11,37 @@ the exact route builds, derotates and collapses one truncation at a time
 (one residual cube in memory, not k); the fft-small route stacks the k
 residual cubes, because its packed CPU rotation pairs frames across the
 stack as vip_tpu does. pandas is imported only when a table is returned,
-matplotlib only when ``plot`` is set. ``pca_incremental`` and the 4-d
-(mSDI) paths wait for ROADMAP Queue 1 (slices 2 and 7).
+matplotlib only when ``plot`` is set. The 4-d (mSDI) paths wait for
+ROADMAP Queue 1, slice 7.
+
+``pca_incremental`` streams a cube (a FITS path, a lazy HDU, an array or
+a tensor) in batches: pass 1 merges each batch into a truncated SVD (the
+Gram-eigh merge of vip_tpu), pass 2 projects each batch, derotates and
+collapses it on the card (CUDA kernels H2 and H1), and the final frame is
+the host median of the per-batch frames.
 """
 
+import concurrent.futures
+import math
 from enum import Enum
 
 import numpy as np
 import torch
 
 from ..config import time_ini, timing
-from ..config.device import as_tensor
+from ..config.device import as_tensor, get_device
 from ..preproc.derotation import _auto_chunk, cube_derotate
 from ..preproc.subsampling import collapse_jax, cube_collapse
 from ..var.coords import dist, frame_center
 from ..var.shapes import disk_coords, prepare_matrix
 from .svd import svd_wrapper
 
-__all__ = ["pca_grid", "pca_annulus"]
+__all__ = ["pca_grid", "pca_annulus", "pca_incremental"]
+
+# pca_incremental keeps the pass-1 blocks on the card when the whole cube
+# takes at most this fraction of its free memory (vip_tpu's budget: pass
+# 2's padded rotation canvases need the rest)
+_CACHE_FRACTION = 0.25
 
 
 def _value(v):
@@ -325,3 +339,191 @@ def pca_annulus(cube, angs, ncomp, annulus_width, r_guess, cube_ref=None,
     if collapse is not None:
         return cube_collapse(cube_zeros, mode=collapse, w=weights)
     return cube_zeros
+
+
+def _incremental_merge_svd(basis, blk, mean, count, keep):
+    """One merge-and-truncate step of the streamed SVD (vip_tpu
+    utils_pca.py:391): the eigh of the small Gram matrix of ``stack =
+    [basis; centred block; mean correction]`` gives the new S-scaled basis
+    as ``Uᵀ @ stack``, truncated to ``keep`` rows as sklearn's
+    IncrementalPCA truncates. ``count`` is a Python number."""
+    m = blk.shape[0]
+    new_count = count + m
+    blk_mean = blk.mean(dim=0)
+    mean_corr = math.sqrt(count * m / new_count) * (blk_mean - mean)
+    stack = torch.cat([basis, blk - blk_mean, mean_corr[None]])
+    _, U = torch.linalg.eigh(stack @ stack.T)     # ascending eigenvalues
+    top = U[:, -keep:].flip(1)                    # top-keep, descending
+    new_mean = (count * mean + m * blk_mean) / new_count
+    return top.T @ stack, new_mean, new_count
+
+
+def _project_subtract_blk(blk, mean, V):
+    """Pass-2 residuals of one block (vip_tpu utils_pca.py:421)."""
+    M = blk - mean
+    return M - (M @ V.T) @ V
+
+
+def _wire_dtype(wire_dtype, work):
+    """The torch dtype blocks travel in from the host."""
+    if wire_dtype is None:
+        return work
+    if str(wire_dtype) in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, np.dtype(wire_dtype))).dtype
+
+
+def pca_incremental(cube, angle_list, batch=0.25, ncomp=1, collapse="median",
+                    verbose=True, full_output=False, start_time=None,
+                    weights=None, nproc=1, imlib="vip-fft",
+                    interpolation="lanczos4", return_residuals=False,
+                    wire_dtype=None, pixel_mesh=None, **rot_options):
+    """Incremental (out-of-core) full-frame PCA (vip_tpu utils_pca.py:430;
+    same parameters and returns).
+
+    ``cube`` is a FITS path (read lazily: only ``batch`` frames are
+    decoded at a time), a lazy HDU, an array or a tensor. The work runs
+    on the default device (:func:`vip_tpu_torch.set_device`), or on the
+    tensor's own, in float32 on a card and float64 on the CPU (the parity
+    mode). ``batch``: an int is frames a batch, a float in (0, 1) the
+    fraction of the available host memory a batch may take.
+
+    Pass 1 merges each batch into the truncated SVD (exactly ``ncomp``
+    rows). A host thread reads the next batch ahead; blocks cross to the
+    card from pinned memory, and stay there for pass 2 when the whole
+    cube takes at most a quarter of the card's free memory. Pass 2
+    projects each batch and, for ``imlib='vip-fft'`` with no weights or
+    rotation options and collapse 'median', 'mean' or 'sum', derotates and
+    collapses it on the device in chunks of 50 frames (CUDA kernels H2
+    and H1 on the card); otherwise through ``cube_derotate`` and
+    ``cube_collapse``. The final frame is the host ``np.median`` of the
+    per-batch frames, a numpy array, as are ``full_output``'s (frame,
+    None, pcs, medians) and ``return_residuals``' cube.
+
+    ``wire_dtype="bfloat16"`` casts each block on the host with
+    ``torch.bfloat16`` and upcasts it on the device: half the bytes over
+    the link, at ~4e-3 of the cube's dynamic range (see vip_tpu).
+    ``pixel_mesh`` (several devices) waits for ROADMAP Queue 1, slice 11.
+    """
+    from ..config.mem import get_available_hbm, get_available_memory
+    from ..preproc.derotation import cube_derotate
+
+    if pixel_mesh is not None:
+        raise NotImplementedError(
+            "pca_incremental: pixel_mesh (several devices) is not ported yet "
+            "(ROADMAP.md, Queue 1, slice 11)")
+    from ..fits import open_fits
+
+    if isinstance(cube, str):
+        cube = open_fits(cube, n=0, return_memmap=True, verbose=False)
+    if isinstance(angle_list, str):
+        angle_list = open_fits(angle_list, verbose=False)
+    angle_list = np.asarray(angle_list.detach().cpu() if isinstance(
+        angle_list, torch.Tensor) else angle_list, dtype=np.float64)
+    n = cube.shape[0]
+    y, x = cube.shape[1:]
+    npx = y * x
+    collapse, imlib = _value(collapse), _value(imlib)
+    interpolation = _value(interpolation)
+
+    if start_time is None:
+        start_time = time_ini(verbose)
+
+    if isinstance(batch, float):
+        if not 0 < batch < 1:
+            raise ValueError("float `batch` must lie in (0, 1)")
+        budget = batch * get_available_memory(False)
+        batch_size = int(min(n, max(1, budget // (npx * 8))))
+    else:
+        batch_size = min(n, int(batch))
+    n_batches = int(np.ceil(n / batch_size))
+    if verbose:
+        print(f"Cube: {n} frames; batch size = {batch_size} frames "
+              f"({n_batches} batches)")
+
+    dev = cube.device if isinstance(cube, torch.Tensor) else get_device()
+    work = torch.float32 if dev.type == "cuda" else torch.float64
+    wire = _wire_dtype(wire_dtype, work)
+    work_np = np.float32 if work == torch.float32 else np.float64
+
+    def read_batch(b):
+        """Host (or the tensor's) block ``b`` in the wire dtype, pinned
+        when it will cross to a card."""
+        blk = cube[b * batch_size:min(n, (b + 1) * batch_size)]
+        if isinstance(blk, torch.Tensor):
+            return blk.reshape(blk.shape[0], npx).to(wire)
+        blk = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(blk, dtype=work_np).reshape(-1, npx))).to(wire)
+        return blk.pin_memory() if dev.type == "cuda" else blk
+
+    def to_device(blk):
+        blk = blk.to(dev, non_blocking=True)
+        return blk if blk.dtype == work else blk.to(work)
+
+    def prefetched_blocks():
+        """(index, block) while one host thread reads the next block."""
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            nxt = pool.submit(read_batch, 0)
+            for b in range(n_batches):
+                blk = nxt.result()
+                if b + 1 < n_batches:
+                    nxt = pool.submit(read_batch, b + 1)
+                yield b, blk
+
+    # pass 1: streaming mean and merge-and-truncate SVD of the centred data
+    k = int(ncomp)
+    mean = torch.zeros(npx, dtype=work, device=dev)
+    count = 0
+    basis = torch.zeros((k, npx), dtype=work, device=dev)
+    budget = _CACHE_FRACTION * get_available_hbm(dev)
+    cache_on_device = n * npx * torch.finfo(work).bits // 8 <= budget
+    dev_blocks = []
+    for b, blk in prefetched_blocks():
+        blk_d = to_device(blk)
+        if cache_on_device:
+            dev_blocks.append(blk_d)
+        basis, mean, count = _incremental_merge_svd(basis, blk_d, mean,
+                                                    count, k)
+        if verbose:
+            print(f"Batch {b + 1}/{n_batches} processed")
+    norms = torch.linalg.norm(basis, dim=1, keepdim=True)
+    V = basis / torch.where(norms == 0, 1.0, norms)
+
+    def pass2_blocks():
+        if cache_on_device:
+            yield from enumerate(dev_blocks)
+        else:
+            for b, blk in prefetched_blocks():
+                yield b, to_device(blk)
+
+    device_tail = (imlib == "vip-fft" and weights is None and not rot_options
+                   and str(collapse) in ("median", "mean", "sum"))
+    if return_residuals:
+        residuals_all = np.empty((n, y, x))
+    medians = []
+    for b, blk in pass2_blocks():
+        lo = b * batch_size
+        m_b = blk.shape[0]
+        resid = _project_subtract_blk(blk, mean, V).reshape(-1, y, x)
+        angs = angle_list[lo:lo + m_b]
+        if return_residuals:
+            residuals_all[lo:lo + m_b] = resid.cpu().numpy()
+        elif device_tail:
+            from ..ops.pipeline import derotate_collapse
+
+            medians.append(derotate_collapse(
+                resid, as_tensor(angs, dev, work), collapse=collapse,
+                chunk=50))
+        else:
+            der = cube_derotate(resid, angs, nproc=nproc, imlib=imlib,
+                                interpolation=interpolation, **rot_options)
+            medians.append(cube_collapse(der, mode=collapse, w=weights))
+    if return_residuals:
+        return residuals_all
+    medians = np.array([m_.cpu().numpy() for m_ in medians])
+    frame = np.median(medians, axis=0)
+    if verbose:
+        timing(start_time)
+    if full_output:
+        return frame, None, V.reshape(-1, y, x).cpu().numpy(), medians
+    return frame

@@ -1,4 +1,5 @@
-"""Coordinates and shapes (port of ``vip_tpu.var``, the part PCA uses)."""
+"""Coordinates and shapes (port of the part of ``vip_tpu.var`` that PCA,
+injection and the metrics use)."""
 
 from .coords import *
 from .shapes import *

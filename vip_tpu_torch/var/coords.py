@@ -7,12 +7,28 @@ pixel of the central 2x2 block. Every FFT rotation in the port assumes it.
 
 import numpy as np
 
-__all__ = ["dist", "frame_center"]
+__all__ = ["dist", "dist_matrix", "frame_center"]
 
 
 def dist(yc, xc, y1, x1):
     """Euclidean distance between two points (or arrays of points)."""
     return np.hypot(yc - y1, xc - x1)
+
+
+def dist_matrix(n, cx=None, cy=None):
+    """Host matrix of the Euclidean distances of the pixels of an n x n
+    frame (or of ``n``'s first two axes when it is an array) from (cx,
+    cy), the geometric center by default (vip_tpu coords.py:28)."""
+    if isinstance(n, (int, np.integer)):
+        n1 = n2 = int(n)
+    else:
+        n1, n2 = n.shape[:2]
+    if cy is None:
+        cy = (n1 - 1) / 2
+    if cx is None:
+        cx = (n2 - 1) / 2
+    yy, xx = np.ogrid[:n1, :n2]
+    return np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
 
 
 def frame_center(array, verbose=False):

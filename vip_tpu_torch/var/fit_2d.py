@@ -108,12 +108,11 @@ def _prepare_subimage(array, crop, cent, cropsize, bpm):
     return psf_subimage, bpm_subimage, suby, subx
 
 
-def fit_2dgaussian(array, crop=False, cent=None, cropsize=15, fwhmx=4,
-                   fwhmy=4, theta=0, threshold=False, sigfactor=6, bpm=None,
-                   full_output=True, debug=True):
-    """Fit a 2-d Gaussian to a frame (vip_tpu fit_2d.py:171). Returns a
-    one-row pandas table with ``full_output`` (pandas is imported only
-    then), else the (y, x) centroid."""
+def _gaussian_fit(array, crop=False, cent=None, cropsize=15, fwhmx=4,
+                  fwhmy=4, theta=0, threshold=False, sigfactor=6, bpm=None,
+                  debug=True):
+    """The 2-d Gaussian fit of :func:`fit_2dgaussian` as a dict of its
+    table's columns (floats), without pandas."""
     check_array(array, dim=2, msg="array")
     psf_subimage, bpm_subimage, suby, subx = _prepare_subimage(
         array, crop, cent, cropsize, bpm)
@@ -149,14 +148,24 @@ def fit_2dgaussian(array, crop=False, cent=None, cropsize=15, fwhmx=4,
         print("centroid x =", mean_x_tot)
         print("amplitude =", amplitude)
         print("theta =", theta_deg)
+    return {"centroid_y": mean_y_tot, "centroid_x": mean_x_tot,
+            "fwhm_y": fwhm_y, "fwhm_x": fwhm_x, "amplitude": amplitude,
+            "theta": theta_deg, "centroid_y_err": mean_y_e,
+            "centroid_x_err": mean_x_e, "fwhm_y_err": fwhm_y_e,
+            "fwhm_x_err": fwhm_x_e, "amplitude_err": amplitude_e,
+            "theta_err": theta_e}
+
+
+def fit_2dgaussian(array, crop=False, cent=None, cropsize=15, fwhmx=4,
+                   fwhmy=4, theta=0, threshold=False, sigfactor=6, bpm=None,
+                   full_output=True, debug=True):
+    """Fit a 2-d Gaussian to a frame (vip_tpu fit_2d.py:171). Returns a
+    one-row pandas table with ``full_output`` (pandas is imported only
+    then), else the (y, x) centroid."""
+    fit = _gaussian_fit(array, crop, cent, cropsize, fwhmx, fwhmy, theta,
+                        threshold, sigfactor, bpm, debug)
     if full_output:
         import pandas as pd
 
-        return pd.DataFrame(
-            {"centroid_y": mean_y_tot, "centroid_x": mean_x_tot,
-             "fwhm_y": fwhm_y, "fwhm_x": fwhm_x, "amplitude": amplitude,
-             "theta": theta_deg, "centroid_y_err": mean_y_e,
-             "centroid_x_err": mean_x_e, "fwhm_y_err": fwhm_y_e,
-             "fwhm_x_err": fwhm_x_e, "amplitude_err": amplitude_e,
-             "theta_err": theta_e}, index=[0], dtype=np.float64)
-    return mean_y_tot, mean_x_tot
+        return pd.DataFrame(fit, index=[0], dtype=np.float64)
+    return fit["centroid_y"], fit["centroid_x"]

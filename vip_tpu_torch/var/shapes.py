@@ -16,7 +16,7 @@ from .coords import frame_center
 
 __all__ = ["mask_circle", "get_annulus_segments", "matrix_scaling",
            "prepare_matrix", "reshape_matrix", "resolve_n_segments",
-           "disk_coords", "get_square"]
+           "disk_coords", "get_square", "get_circle"]
 
 
 def _disk(shape, cy, cx, radius):
@@ -101,6 +101,32 @@ def mask_circle(array, radius, fillwith=0, mode="in", cy=None, cx=None,
     elif mode == "out":
         return array.masked_fill(~inside, fillwith)
     raise ValueError("mode not recognized")
+
+
+def get_circle(array, radius, cy=None, cx=None, mode="mask"):
+    """The pixels of a 2d frame strictly inside ``(y - cy)² + (x - cx)² <
+    radius²`` (vip_tpu shapes.py:229; a stricter test than
+    ``mask_circle``'s). 'mask' zeroes the rest, 'val' returns the values
+    inside, 'ind' their host (yy, xx). A tensor stays a tensor on its own
+    device, numpy stays numpy."""
+    if array.ndim != 2:
+        raise TypeError("Input array is not a frame or 2d array.")
+    sy, sx = array.shape
+    if cy is None or cx is None:
+        cy, cx = frame_center(array, verbose=False)
+    yy, xx = np.ogrid[:sy, :sx]
+    circle = (yy - cy) ** 2 + (xx - cx) ** 2 < radius ** 2
+    if mode == "ind":
+        return np.where(circle)
+    if isinstance(array, torch.Tensor):
+        circle = torch.as_tensor(circle, device=array.device)
+    else:
+        array = np.asarray(array)
+    if mode == "mask":
+        return array * circle
+    if mode == "val":
+        return array[circle]
+    raise ValueError(f"mode '{mode}' unknown!")
 
 
 def get_annulus_segments(data, inner_radius, width, nsegm=1, theta_init=0,
