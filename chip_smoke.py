@@ -11,8 +11,9 @@ ncomp 10, fwhm 4, asize 4, 'vip-fft-small') and the companion search
 (a companion planted in the cube, then ``psfsub.median_sub``, the
 ``psfsub.pca_grid`` over ncomp 1..10, ``metrics.snrmap``/``snrmap_fast``
 and ``metrics.detection``), the streamed ``psfsub.pca_incremental`` and
-the injection → contrast curve → completeness path (``metrics``), and the
-goldens in float32. Phases, one line each:
+the injection → contrast curve → completeness path (``metrics``), the
+goldens in float32, and slice 4 (NMF, LLSG, LOCI, frame differencing,
+roll subtraction, the greedy loops). Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``vip_tpu_torch/csrc``, one nvcc per
@@ -55,9 +56,10 @@ goldens in float32. Phases, one line each:
     its Student contrast; ``normalized_stim_map`` of the PCA residuals of
     the cube with the planted companion (its maximum at the companion);
 13. F2: the goldens' configurations (pca_adi, medsub_adi, pca_ann_adi,
-    pca_incr_adi) on the committed NACO replica in float32 on the card,
-    their errors against VIP's float64 frames and the 3-px detection
-    oracle; the golden injection's PSF normalization and injection;
+    pca_incr_adi) on the committed NACO replica in float32, on the card
+    and on the CPU: each card frame within 10x the CPU's error against
+    VIP's float64 frame (floor 1e-4), and the 3-px detection oracle; the
+    golden injection's PSF normalization and injection;
 14. timings, kernel beside plain, warm median of 3 (with the spread of
     the three runs where a default route is decided from them); H2's
     three launches and its set-up timed apart with CUDA events; H4's
@@ -68,8 +70,19 @@ goldens in float32. Phases, one line each:
     (``torch.fft.fft`` then ``ifft`` over the line batches one H2 chunk
     and one H3 chunk shear); torch.profiler tables of one ``pca_annular``
     run and one ``median_sub`` (H2 route, so that the x- and y-shear
-    kernels show apart).
+    kernels show apart);
+15. slice 4 on the cube with the planted companion (run before the
+    timings of 14, printed with them): ``psfsub.nmf``, ``nmf_annular``,
+    ``llsg``, ``frame_diff`` (two configurations), ``xloci``,
+    ``roll_sub`` and ``greedy.ipca``, ``inmf``, ``iroll``, each through
+    the kernels with its H1/H2 launches, against the plain route, timed,
+    and the companion detected on the full-width frames (the cuts are
+    printed).
 
+``python3 chip_smoke.py --f2`` instead bisects F2 on the card and the CPU
+(the golden PCA step by step, the card's SVD routines, the four frames
+under gesvd and gesvdj, the lapack PCA at full size under each), and
+``--svd`` times the dense factorizations the slice-4 paths call.
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
 SHA-256 digests of the H1, H2 and H3 outputs on the inputs of phases 3-5,
 computed with the port of the checkout at ROOT, which must be this
@@ -148,6 +161,33 @@ F2_CONFIGS = (("pca_adi", "pca", dict(svd_mode="lapack")),
                dict(mode="fullfr", imlib="vip-fft", interpolation=None)),
               ("pca_ann_adi", "pca_annular", dict(n_segments="auto")),
               ("pca_incr_adi", "pca", dict(batch=30)))
+# Slice 4 (phase 15): the goldens' parameters (tests/gen_golden.py) on the cube with the planted companion.
+# NMF, the roll subtractions and the greedy loops at full size; the
+# annulus-by-annulus methods on the central SLICE4_CROP² (annuli to 60 px:
+# the same radii, a smaller canvas), annular NMF and LLSG on every
+# SLICE4_EVERY-th frame and LOCI on every LOCI_EVERY-th: their cost is one
+# cuSOLVER call a frame and segment (eigh of a 200² Gram: 4.0 ms) or an
+# SVD a segment and iteration (gesvd of (200, 3200): 20.3 ms; both on an
+# H100 80GB HBM3 at 700 W, ``--svd``); the roll
+# angles are the cube's angles split at their mean into two rolls
+SLICE4_CROP, SLICE4_EVERY, LOCI_EVERY = 120, 5, 10
+# The greedy loops against their plain route, after their first pass: a
+# change of 1e-7 in the frame fed back (the derotations differ by that)
+# redraws the float32 rounding of the next PCA's residuals (~1e-5 of the
+# frame at 200x128² on a CPU, 1.9e-3 at 1000x512² on an H100 80GB HBM3
+# at 700 W, PERF.md), and can flip a pixel of a STIM mask thresholded at 0
+GREEDY_TOL = 1e-2
+NMF4 = dict(ncomp=14, handle_neg="subtr_min")
+NMF_ANN4 = dict(ncomp=9, radius_int=20, asize=4, handle_neg="subtr_min")
+LLSG4 = dict(rank=5, thresh=1, max_iter=20, random_seed=10, fwhm=4)
+FD4 = dict(fwhm=4, metric="l1", dist_threshold=90, delta_rot=0.5,
+           radius_int=4, asize=4)
+LOCI4 = dict(fwhm=4, asize=4, n_segments="auto", metric="correlation",
+             radius_int=20, dist_threshold=90, delta_rot=0.5,
+             optim_scale_fact=3, solver="lstsq", tol=0.01)
+# F2's gate: each golden frame in float32 on the card within F2_RATIO
+# times the same call's error in float32 on the CPU, floored at F2_FLOOR
+F2_RATIO, F2_FLOOR = 10.0, 1e-4
 # Roofline of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -1179,6 +1219,148 @@ def phase_stim(pcube, angles_np, src):
     return counts, run
 
 
+def _nmf_iterations():
+    """Wrap ``psfsub.nmf_fullfr.nmf_fit`` so that it records the
+    iterations of each fit; returns the list it appends to."""
+    from vip_tpu_torch.psfsub import nmf_fullfr
+
+    fit, iters = nmf_fullfr.nmf_fit, []
+
+    def counted(*args, **kwargs):
+        W, H, it = fit(*args, **kwargs)
+        iters.append(it)
+        return W, H, it
+
+    nmf_fullfr.nmf_fit = counted
+    return iters
+
+
+def _last_and_first(out):
+    """(final frame, first pass's frame) of an entry point's output: a
+    frame, or the full output of ``ipca`` (frame, it_cube, ...) or
+    ``iroll`` (cube_res, cube_der, frame, the frames of every pass)."""
+    if not isinstance(out, tuple):
+        return out, out
+    if len(out) == 4:
+        return out[2], out[3][0]
+    return out[0], out[1][0]
+
+
+def phase_slice4(pcube, angles_np, src):
+    """Slice 4 at full width: each new entry point through the kernels
+    (launches counted from 0 just before it), through the plain route
+    (``_plain_route``: the plain derotation and median), the two within
+    PIPE_TOL of max(|ref|, 1) (the greedy loops: their first pass, and
+    their last within GREEDY_TOL); its warm time (median of 3, or the counted
+    run alone for the long ones); the planted companion detected where
+    the frame keeps the full width. Returns {name: (counts, seconds)}."""
+    from vip_tpu_torch import greedy, psfsub
+    from vip_tpu_torch.metrics import detection
+
+    t_phase = time.perf_counter()
+    lo, hi = SIZE // 2 - SLICE4_CROP // 2, SIZE // 2 + SLICE4_CROP // 2
+    crop = pcube[:, lo:hi, lo:hi].contiguous()
+    crop5, ang5 = crop[::SLICE4_EVERY].contiguous(), \
+        angles_np[::SLICE4_EVERY]
+    crop10, ang10 = crop[::LOCI_EVERY].contiguous(), angles_np[::LOCI_EVERY]
+    mid = float(np.mean(angles_np))
+    low, high = angles_np <= mid, angles_np > mid
+    rolls = np.where(low, angles_np[low].mean(), angles_np[high].mean())
+    # annular NMF and INMF check each library's median for a sign before
+    # any handle_neg: they take the cube shifted to positive values
+    positive = pcube - pcube.min() + 1.0
+    pos5 = (crop5 - pcube.min() + 1.0).contiguous()
+    iters = _nmf_iterations()
+    # (name, run, timed reps (1: the counted run), whether the median
+    # collapse runs H1, detect the companion)
+    cases = [
+        ("nmf", lambda: psfsub.nmf(pcube, angles_np, verbose=False,
+                                   **NMF4), 1, True, True),
+        ("nmf_annular", lambda: psfsub.nmf_annular(
+            pos5, ang5, verbose=False, **NMF_ANN4), 1, True, False),
+        ("llsg", lambda: psfsub.llsg(crop5, ang5, verbose=False, **LLSG4),
+         1, True, False),
+        ("frame_diff", lambda: psfsub.frame_diff(
+            crop, angles_np, verbose=False, **FD4), 1, True, False),
+        ("frame_diff n_similar 4", lambda: psfsub.frame_diff(
+            crop, angles_np, n_similar=4, verbose=False, **FD4), 1, True,
+         False),
+        ("xloci", lambda: psfsub.xloci(crop10, ang10, verbose=False,
+                                       **LOCI4), 1, True, False),
+        ("roll_sub", lambda: psfsub.roll_sub(pcube, rolls, verbose=False),
+         3, False, False),
+        # the greedy loops with full output: their first pass's frame is
+        # compared too
+        ("ipca", lambda: greedy.ipca(pcube, angles_np, ncomp=3, nit=3,
+                                     full_output=True, verbose=False), 1,
+         True, True),
+        # inmf and iroll hand only their keyword arguments on to nmf and
+        # roll_sub, as vip_tpu does
+        ("inmf", lambda: greedy.inmf(cube=positive, angle_list=angles_np,
+                                     verbose=False), 1, True, True),
+        ("iroll", lambda: greedy.iroll(cube=pcube, angle_list=rolls,
+                                       mode="individual", full_output=True,
+                                       verbose=False), 1, False, False),
+    ]
+    out = {}
+    for name, run, reps, median_collapse, detect in cases:
+        del iters[:]
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame, first = _last_and_first(run())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        n_fits = len(iters)
+        _require(frame.is_cuda and frame.dim() == 2
+                 and bool(torch.isfinite(frame).all()),
+                 f"{name}: not a finite CUDA frame")
+        _require(counts["H2"] > 0 and (counts["H1"] > 0) == median_collapse
+                 and counts["H3"] == counts["H4"] == 0,
+                 f"{name}: launches {counts}")
+        with _plain_route():
+            ref, ref_first = _last_and_first(run())
+        err, scale = _rel_err(frame, ref)
+        err_first, scale_first = _rel_err(first, ref_first)
+        del ref, ref_first
+        # the greedy loops feed each frame back into the next pass: their
+        # first pass is held to PIPE_TOL, their last to GREEDY_TOL
+        _require(err_first <= PIPE_TOL * scale_first,
+                 f"{name}: {err_first:.3e} from the plain route (first "
+                 f"pass)")
+        tol = GREEDY_TOL if first is not frame else PIPE_TOL
+        _require(err <= tol * scale,
+                 f"{name}: {err:.3e} from the plain route")
+        if reps > 1:
+            wall = float(np.median(_sync_times(run, reps)))
+        line = (f"slice 4 {name}: launches {counts}; vs plain route "
+                f"{err:.3e} (bound {tol:.0e} x {scale:.3f}"
+                + (f"; first pass {err_first:.3e}, bound "
+                   f"{PIPE_TOL:.0e} x {scale_first:.3f}"
+                   if first is not frame else "") + "); "
+                f"{'warm median of 3' if reps > 1 else 'one run'} "
+                f"{wall:.4f} s")
+        if n_fits:
+            line += f"; NMF fits {n_fits}, iterations {sorted(set(iters))}"
+        if detect:
+            ys, xs = detection(frame, fwhm=COMP_FWHM, mode="lpeaks",
+                               bkg_sigma=5, snr_thresh=5, full_output=False,
+                               plot=False, verbose=False)
+            found = _near(ys, xs, src)
+            line += f"; companion detected: {found}"
+            _require(found, f"{name}: the planted companion was missed")
+        print(line, flush=True)
+        out[name] = (counts, wall)
+    print(f"slice 4 cuts: annular NMF, LLSG, frame differencing and LOCI "
+          f"on the central {SLICE4_CROP}x{SLICE4_CROP} (annuli to 60 px); "
+          f"annular NMF and LLSG on every {SLICE4_EVERY}th frame "
+          f"({crop5.shape[0]} of {N_FRAMES}), LOCI on every {LOCI_EVERY}th "
+          f"({crop10.shape[0]}); the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def _moffat_psf(size=39, fwhm=4.800919383981533, alpha=2.5, peak=1680.0):
     """The NACO replica's raw PSF (tests/naco_replica.py:moffat_psf)."""
     gamma = fwhm / (2.0 * np.sqrt(2.0 ** (1.0 / alpha) - 1.0))
@@ -1190,10 +1372,12 @@ def _moffat_psf(size=39, fwhm=4.800919383981533, alpha=2.5, peak=1680.0):
 
 def phase_f2():
     """F2: the goldens' configurations on the committed NACO replica in
-    float32 on the card, each frame's max abs error against VIP's float64
-    golden (recorded, not gated) and the 3-px detection oracle (gated);
-    the golden injection's PSF normalization and its flux-300 / radius-30
-    injection, against the golden PSF and the float64 CPU injection."""
+    float32, on the card and on the CPU from the same float32 cube; each
+    card frame's max abs error against VIP's float64 golden must stay
+    within F2_RATIO times the CPU's (at least F2_FLOOR), and the 3-px
+    detection oracle must pass; the golden injection's PSF normalization
+    and its flux-300 / radius-30 injection, against the golden PSF and the
+    float64 CPU injection."""
     import vip_tpu_torch
     import vip_tpu_torch.psfsub as tps
     from vip_tpu_torch.fm import cube_inject_companions, normalize_psf
@@ -1202,18 +1386,24 @@ def phase_f2():
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tests", "golden")
     meta = np.load(os.path.join(golden, "meta.npz"))
-    cube = torch.as_tensor(np.load(os.path.join(golden, "inputs.npz"))["cube"],
-                           dtype=torch.float32, device=DEVICE)
+    cube32 = np.load(os.path.join(golden, "inputs.npz"))["cube"] \
+        .astype(np.float32)
     fwhm = float(meta["fwhm"])
-    errs = {}
-    for name, fn, kwargs in F2_CONFIGS:
-        frame = getattr(tps, fn)(cube=cube, angle_list=meta["angles"],
-                                 fwhm=fwhm, verbose=False, **kwargs)
-        frame = frame.cpu().double().numpy() \
-            if isinstance(frame, torch.Tensor) else np.asarray(frame, float)
-        ref = np.load(os.path.join(golden, f"{name}.npy"))
-        errs[name] = float(np.abs(frame - ref).max())
+    frames = {}
+    errs = _f2_frames(fwhm, meta["angles"], golden,
+                      torch.as_tensor(cube32, device=DEVICE), frames)
+    vip_tpu_torch.set_device("cpu")
+    try:
+        errs_cpu = _f2_frames(fwhm, meta["angles"], golden,
+                              torch.as_tensor(cube32))
+    finally:
+        vip_tpu_torch.set_device(DEVICE)
+    for name, frame in frames.items():
         _require(np.isfinite(frame).all(), f"F2 {name}: not finite")
+        bound = max(F2_RATIO * errs_cpu[name], F2_FLOOR)
+        _require(errs[name] <= bound,
+                 f"F2 {name}: {errs[name]:.3e} from the golden on the card, "
+                 f"over {bound:.3e} (the CPU's float32 {errs_cpu[name]:.3e})")
         found = np.load(os.path.join(golden, f"{name}_detect.npy"))
         ys, xs = detection(frame, fwhm=fwhm, mode="lpeaks", bkg_sigma=5,
                            matched_filter=False, mask=True, snr_thresh=2,
@@ -1234,8 +1424,10 @@ def phase_f2():
         inj64 = cube_inject_companions(zeros, psfn, meta["angles"], **kw)
     finally:
         vip_tpu_torch.set_device(DEVICE)
-    print("F2 float32 on the card vs the float64 goldens, max abs err: "
-          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print("F2 float32 vs the float64 goldens, max abs err on the card "
+          "(on the CPU, ratio): " + ", ".join(
+              f"{k} {v:.3e} ({errs_cpu[k]:.3e}, {v / errs_cpu[k]:.2f}x)"
+              for k, v in errs.items())
           + f"; normalize_psf vs golden PSF "
           f"{float(np.abs(psfn - meta['psfn']).max()):.3e}, FWHM "
           f"{abs(float(fit_fwhm) - float(meta['fwhm'])):.3e}; injection "
@@ -1243,6 +1435,213 @@ def phase_f2():
           f"{float(np.abs(inj - inj64).max()):.3e}; detection oracle "
           f"passed", flush=True)
     return errs
+
+
+@contextlib.contextmanager
+def _svd_routine(routine):
+    """Every ``torch.linalg.svd`` of a CUDA tensor inside the block takes
+    the cuSOLVER ``routine`` ("gesvd", "gesvdj", "gesvda"); None leaves
+    PyTorch's choice."""
+    svd = torch.linalg.svd
+
+    def forced(A, full_matrices=True, *, driver=None, out=None):
+        if A.is_cuda and forced.routine is not None:
+            driver = forced.routine
+        return svd(A, full_matrices=full_matrices, driver=driver)
+
+    forced.routine = routine
+    torch.linalg.svd = forced
+    try:
+        yield
+    finally:
+        torch.linalg.svd = svd
+
+
+def _subspace_err(V, V_ref):
+    """Largest norm of a (normalized) row of ``V`` outside the row space
+    of the orthonormal ``V_ref``: the sine of its angle to that space,
+    free of signs and rotations within the space."""
+    Vd = V.detach().double().cpu()
+    Vd = Vd / Vd.norm(dim=1, keepdim=True)
+    Vr = V_ref.detach().double().cpu()
+    return float((Vd - (Vd @ Vr.T) @ Vr).norm(dim=1).max())
+
+
+def f2_bisect():
+    """F2 step by step: ``pca(svd_mode="lapack")`` of the golden replica
+    (61x101x101, ncomp 1) in float32 on the card and on the CPU from the
+    same float32 inputs, each intermediate against the float64 CPU chain:
+    the prepared matrix, the top-k basis (as a subspace), the residuals,
+    the derotation and the collapse, each step fed the float64 chain's
+    input cast to float32 so that it is measured alone; the card's SVD of
+    the QR factor R under each cuSOLVER routine; and the four F2 frames
+    under each routine. One line per step."""
+    import vip_tpu_torch
+    import vip_tpu_torch.psfsub as tps
+    from vip_tpu_torch.ops.linalg import svd_top
+    from vip_tpu_torch.preproc.derotation import cube_derotate
+    from vip_tpu_torch.preproc.subsampling import cube_collapse
+    from vip_tpu_torch.var.shapes import prepare_matrix
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+    meta = np.load(os.path.join(golden, "meta.npz"))
+    cube32 = np.load(os.path.join(golden, "inputs.npz"))["cube"] \
+        .astype(np.float32)
+    angles = meta["angles"]
+    n, y, x = cube32.shape
+    ref_frame = np.load(os.path.join(golden, "pca_adi.npy"))
+
+    def err(a, b):
+        a = a.detach().double().cpu() if isinstance(a, torch.Tensor) else \
+            torch.as_tensor(np.asarray(a, np.float64))
+        b = b.detach().double().cpu() if isinstance(b, torch.Tensor) else \
+            torch.as_tensor(np.asarray(b, np.float64))
+        return float((a - b).abs().max())
+
+    vip_tpu_torch.set_device("cpu")
+    c64 = torch.as_tensor(cube32, dtype=torch.float64)
+    M64 = prepare_matrix(c64, None, None, mode="fullfr", verbose=False)
+    V64 = svd_top(M64, 1, "lapack")
+    R64 = (M64 - (M64 @ V64.T) @ V64).reshape(n, y, x)
+    D64 = cube_derotate(R64, angles)
+    F64 = cube_collapse(D64, "median")
+    print(f"F2 bisect: float64 chain on the CPU vs golden "
+          f"{err(F64, ref_frame):.3e}; top singular value "
+          f"{float(torch.linalg.svdvals(M64)[0]):.6e}", flush=True)
+    rows = {}
+    for dev in ("cpu", DEVICE):
+        vip_tpu_torch.set_device(dev)
+        c = torch.as_tensor(cube32, device=dev)
+        M = prepare_matrix(c, None, None, mode="fullfr", verbose=False)
+        V = svd_top(M, 1, "lapack")
+        R = (M - (M @ V.T) @ V).reshape(n, y, x)
+        V64c = V64.to(dev, torch.float32)
+        R_own64 = (M - (M @ V64c.T) @ V64c).reshape(n, y, x)
+        D = cube_derotate(R64.to(dev, torch.float32), angles)
+        F = cube_collapse(D64.to(dev, torch.float32), "median")
+        frame = tps.pca(cube=c, angle_list=angles, fwhm=float(meta["fwhm"]),
+                        svd_mode="lapack", verbose=False)
+        rows[dev] = dict(matrix=err(M, M64), basis=_subspace_err(V, V64),
+                         residuals=err(R, R64),
+                         residuals_f64_basis=err(R_own64, R64),
+                         derotated=err(D, D64), collapsed=err(F, F64),
+                         frame_vs_f64=err(frame, F64),
+                         frame_vs_golden=err(frame, ref_frame))
+        print(f"F2 bisect {dev} float32: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rows[dev].items()), flush=True)
+    vip_tpu_torch.set_device(DEVICE)
+    M = prepare_matrix(torch.as_tensor(cube32, device=DEVICE), None, None,
+                       mode="fullfr", verbose=False)
+    Q, R = torch.linalg.qr(M.T)
+    Q64, R_64 = torch.linalg.qr(M64.T)
+    line = []
+    for routine in (None, "gesvd", "gesvdj", "gesvda"):
+        Ur = torch.linalg.svd(R, full_matrices=False, driver=routine)[0]
+        V = (Q @ Ur)[:, :1].T
+        Vn = torch.linalg.svd(M.T, full_matrices=False, driver=routine)[0]
+        line.append(f"{routine or 'default'}: R-factor SVD "
+                    f"{_subspace_err(V, V64):.3e}, no-QR SVD "
+                    f"{_subspace_err(Vn[:, :1].T, V64):.3e}")
+    Ur_cpu = torch.linalg.svd(R.cpu(), full_matrices=False)[0]
+    line.append(f"R factor's SVD on the CPU: "
+                f"{_subspace_err((Q.cpu() @ Ur_cpu)[:, :1].T, V64):.3e}")
+    e, EV = torch.linalg.eigh(M @ M.T)
+    line.append(f"Gram eigh: "
+                f"{_subspace_err((EV[:, -1:].T @ M), V64):.3e}")
+    line.append(f"QR factor R vs float64 {err(R.abs(), R_64.abs()):.3e} "
+                f"of {float(R_64.abs().max()):.3e}")
+    print("F2 bisect, the card's top-1 basis (sine of the angle to the "
+          "float64 basis) by SVD routine: " + "; ".join(line), flush=True)
+    for routine in ("gesvd", "gesvdj"):
+        with _svd_routine(routine):
+            errs = _f2_frames(float(meta["fwhm"]), angles, golden,
+                              torch.as_tensor(cube32, device=DEVICE))
+        print(f"F2 frames on the card, SVD routine {routine}: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              flush=True)
+    # the cost of the fix: the lapack PCA at full size, before (gesvdj) and
+    # after (gesvd), in the order before, after, after, before
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(rng.standard_normal((N_FRAMES, SIZE, SIZE))
+                           .astype(np.float32), device=DEVICE)
+    ang = np.linspace(0.0, 80.0, N_FRAMES)
+
+    def run():
+        return tps.pca(cube, ang, ncomp=NCOMP, svd_mode="lapack",
+                       verbose=False)
+
+    times = {"gesvdj": [], "gesvd": []}
+    for routine in ("gesvdj", "gesvd", "gesvd", "gesvdj"):
+        with _svd_routine(routine):
+            times[routine] += _sync_times(run, reps=2)
+    print(f"F2 fix cost: pca(svd_mode='lapack', ncomp={NCOMP}) "
+          f"{N_FRAMES}x{SIZE}x{SIZE}, warm, seconds: " + "; ".join(
+              f"{k} {_spread(v)}" for k, v in times.items()), flush=True)
+
+
+def _f2_frames(fwhm, angles, golden, cube, frames=None):
+    """Max abs error of each F2 configuration's frame against its golden
+    (the float64 frames into ``frames`` when given)."""
+    import vip_tpu_torch.psfsub as tps
+
+    errs = {}
+    for name, fn, kwargs in F2_CONFIGS:
+        frame = getattr(tps, fn)(cube=cube, angle_list=angles, fwhm=fwhm,
+                                 verbose=False, **kwargs)
+        frame = frame.cpu().double().numpy() \
+            if isinstance(frame, torch.Tensor) else np.asarray(frame, float)
+        errs[name] = float(np.abs(
+            frame - np.load(os.path.join(golden, f"{name}.npy"))).max())
+        if frames is not None:
+            frames[name] = frame
+    return errs
+
+
+def svd_costs(reps=3):
+    """CUDA-event times (ms, median of ``reps``) of the dense
+    factorizations the slice-4 paths call, at their shapes on the
+    1000x512x512 cube: the top-k SVD of an (n, p) segment or frame matrix
+    by cuSOLVER's gesvd (the port's routine since F2) and gesvdj
+    (PyTorch's default), through the (n, n) R factor of a QR where p >
+    4n; the eigh of the (n, n) Gram; and a batch of 200 (200, 200)
+    masked Grams by eigh (one cuSOLVER call a matrix), LOCI's segment."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    out = {}
+
+    def ms(fn):
+        times = []
+        for _ in range(reps + 1):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return float(np.median(times[1:]))
+
+    for n, p in ((1000, 3200), (1000, 262144), (200, 3200)):
+        M = torch.randn((n, p), generator=gen, device=DEVICE)
+        A = torch.linalg.qr(M.T)[1] if p > 4 * n else M.T
+        for drv in ("gesvd", "gesvdj"):
+            out[f"svd {drv} ({n}, {p})"] = ms(
+                lambda: torch.linalg.svd(A, full_matrices=False, driver=drv))
+        out[f"QR of ({p}, {n})"] = ms(lambda: torch.linalg.qr(M.T))
+        out[f"eigh Gram ({n}, {p})"] = ms(
+            lambda: torch.linalg.eigh(M @ M.T))
+        del M, A
+    B = torch.randn((200, 200, 200), generator=gen, device=DEVICE)
+    B = B @ B.transpose(-1, -2)
+    out["eigh batch (200, 200, 200)"] = ms(lambda: torch.linalg.eigh(B))
+    L = torch.randn((1000, 208, 1500), generator=gen, device=DEVICE)
+    G = L @ L.transpose(-1, -2)
+    out["eigh batch (1000, 208, 208)"] = ms(lambda: torch.linalg.eigh(G),)
+    out["svd gesvd batch (100, 1500, 208)"] = ms(
+        lambda: torch.linalg.svd(L[:100].transpose(-1, -2),
+                                 full_matrices=False, driver="gesvd"))
+    del B, L, G
+    return out
 
 
 def _profile_table(fn, rows=15):
@@ -1385,6 +1784,7 @@ def _cufft_lines_ms(lines, N):
 
 
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
 
@@ -1420,8 +1820,10 @@ def main():
                                                cc_cols)
     stim_counts, run_stim = phase_stim(pcube, angles_np, src)
     phase_f2()
+    slice4 = phase_slice4(pcube, angles_np, src)
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
+    new_paths.update({k: v[0] for k, v in slice4.items()})
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -1564,6 +1966,8 @@ def main():
           f"normalized_stim_map {t_stim:.4f} s", flush=True)
     print("launches on the new paths: " + "; ".join(
         f"{k} {v}" for k, v in new_paths.items()), flush=True)
+    print("timing slice 4 (s; see the phase 15 lines): " + ", ".join(
+        f"{k} {v[1]:.4f}" for k, v in slice4.items()), flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
@@ -1636,6 +2040,8 @@ def main():
               "vip_tpu/ops/pallas_shear.py:890", h4s_counts["H4"], h4s_err,
               t_h4s * 1e3, t_h3p * 1e3, small_bound),
     ]
+    print(f"wall time of chip_smoke.py: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
@@ -1686,6 +2092,15 @@ def kernel_digests(root):
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device")
+    if len(sys.argv) == 2 and sys.argv[1] == "--svd":
+        print("svd costs (ms, CUDA events): " + "; ".join(
+            f"{k} {v:.3f}" for k, v in svd_costs().items()), flush=True)
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--f2":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        phase_build()
+        f2_bisect()
+        sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--digests":
         kernel_digests(sys.argv[2])
         sys.exit(0)

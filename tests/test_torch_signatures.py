@@ -83,6 +83,17 @@ def test_generator_is_keyword_only():
         assert kwonly[name] == ["generator"]
 
 
+def test_nmf_draws_are_keyword_only():
+    """The draw arguments the port adds to vip_tpu's NMF (whose draws are
+    ``jax.random.PRNGKey(0)``) come after every positional one."""
+    tree = ast.parse(open(os.path.join(ROOT, "vip_tpu_torch", "ops",
+                                       "nmf.py")).read())
+    kwonly = {n.name: [a.arg for a in n.args.kwonlyargs] for n in tree.body
+              if isinstance(n, ast.FunctionDef)}
+    for name in ("nndsvd_init", "nmf_fit", "nmf_patch_batched"):
+        assert kwonly[name] == ["draws", "generator"]
+
+
 @pytest.fixture(scope="module")
 def matrix():
     rng = np.random.default_rng(11)

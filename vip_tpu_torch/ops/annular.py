@@ -27,6 +27,8 @@ All of it is ``torch.matmul`` and ``torch.linalg`` on the tensors' device
 
 import torch
 
+from .linalg import svd
+
 __all__ = ["batched_pca_patch_residuals",
            "batched_pca_patch_residuals_gram",
            "resident_annulus_update"]
@@ -44,7 +46,7 @@ def _masked_top_v(lib, ncomp, method):
         S = torch.where(S == 0, 1.0, S)
         return (V / S[..., None])[..., :ncomp, :]
     # 'lapack' and the fallback of every other method
-    U2 = torch.linalg.svd(lib.transpose(-1, -2), full_matrices=False)[0]
+    U2 = svd(lib.transpose(-1, -2))[0]
     return U2[..., :ncomp].transpose(-1, -2)
 
 

@@ -4,6 +4,8 @@
   for tall matrices), 'eigen' (Gram ``eigh`` trick) or 'randsvd' (Halko).
 - ``matrix_scaling_jax``: sklearn.preprocessing.scale semantics.
 - ``project_subtract``: SVD → project → reconstruct → residual.
+- ``svd``: ``torch.linalg.svd`` with cuSOLVER's QR-based ``gesvd`` on
+  CUDA tensors; every SVD of the port goes through it.
 
 vip_tpu left these to XLA and has no Pallas code here; on the card they
 stay ``torch.matmul`` and ``torch.linalg`` (cuBLAS/cuSOLVER).
@@ -12,7 +14,26 @@ stay ``torch.matmul`` and ``torch.linalg`` (cuBLAS/cuSOLVER).
 import torch
 
 __all__ = ["svd_top", "matrix_scaling_jax", "project_subtract",
-           "randomized_svd"]
+           "randomized_svd", "svd"]
+
+
+def svd(A, full_matrices=False):
+    """``torch.linalg.svd(A, full_matrices)``; on a CUDA tensor with the
+    QR-based cuSOLVER routine ``gesvd``.
+
+    PyTorch's default CUDA routine is the Jacobi ``gesvdj``. On the golden
+    NACO replica in float32 its top singular vector is as close to the
+    float64 one as gesvd's in angle (4.6e-7 against 2.3e-7), but its error
+    is not spread like a rounding error: the full-frame PCA frame came out
+    1.419e-01 from VIP's golden against 1.425e-03 with gesvd, and the
+    annular one 3.465e-02 against 2.064e-03, where the same float32 code
+    on a CPU gives 1.287e-03 and 1.487e-03 (ROADMAP.md Queue 3, F2; NVIDIA
+    H100 80GB HBM3 at 700 W, ``chip_smoke.py --f2``).
+    """
+    if A.is_cuda:
+        return torch.linalg.svd(A, full_matrices=full_matrices,
+                                driver="gesvd")
+    return torch.linalg.svd(A, full_matrices=full_matrices)
 
 
 def matrix_scaling_jax(matrix, scaling):
@@ -65,7 +86,7 @@ def randomized_svd(matrix, ncomp, omega=None, n_oversamples=10, n_iter=2,
         Q, _ = torch.linalg.qr(A @ Q)
     Q, _ = torch.linalg.qr(Q)
     B = Q.T @ A
-    Ub, S, Vh = torch.linalg.svd(B, full_matrices=False)
+    Ub, S, Vh = svd(B)
     U = Q @ Ub
     U, S, Vh = U[:, :ncomp], S[:ncomp], Vh[:ncomp]
     if transpose:
@@ -94,10 +115,10 @@ def svd_top(matrix, ncomp, method="lapack", omega=None, full_output=False,
     if method == "lapack":
         if matrix.shape[1] > 4 * n:
             Q, R = torch.linalg.qr(matrix.T)
-            Ur, S2, V2 = torch.linalg.svd(R, full_matrices=False)
+            Ur, S2, V2 = svd(R)
             U2 = Q @ Ur
         else:
-            U2, S2, V2 = torch.linalg.svd(matrix.T, full_matrices=False)
+            U2, S2, V2 = svd(matrix.T)
         V = U2[:, :ncomp].T
         if full_output:
             return V2[:ncomp].T, S2[:ncomp], V

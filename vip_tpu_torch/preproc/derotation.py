@@ -7,6 +7,12 @@ inside a ~4x zero canvas, rotates by three FFT shears and is cropped back
 through :func:`vip_tpu_torch.ops.shear.rotate_exact` (CUDA kernel H2 where
 its gate holds). The PA-threshold library selection helpers are host-side
 numpy, as in vip_tpu.
+
+The 'skimage' imlib with bilinear interpolation and a constant border
+(what VIP's greedy algorithms use to rotate their signal masks) is
+OpenCV's float64 ``warpAffine``, as vip_tpu calls it, computed on the
+tensor's device (:func:`_warp_bilinear`); its other interpolations and
+the 'opencv' imlib wait for ROADMAP Queue 1, slice 8.
 """
 
 import numpy as np
@@ -145,6 +151,8 @@ def frame_rotate(array, angle, imlib="vip-fft", interpolation="lanczos4",
     array = as_tensor(array)
     if array.ndim != 2:
         raise TypeError("Input array is not a frame or 2d array")
+    if _interp_supported(imlib, interpolation, border_mode, cxy):
+        return _warp_bilinear(array[None], [float(angle)])[0]
     if imlib != "vip-fft" or edge_blend:
         raise NotImplementedError(
             "frame_rotate: only imlib='vip-fft' without edge_blend is "
@@ -156,6 +164,78 @@ def frame_rotate(array, angle, imlib="vip-fft", interpolation="lanczos4",
     angles = torch.tensor([float(angle)], dtype=torch.float64)
     out = rotate_exact(work[None], angles)[0]
     return out.masked_fill(mask, mask_val)
+
+
+# frames a chunk of the bilinear warp: its int64 source coordinates take
+# about 40 bytes a pixel
+_WARP_CHUNK_BYTES = 1 << 30
+
+
+def _warp_bilinear(cube, angles):
+    """Each frame of a (n, y, x) tensor rotated by its angle (degrees,
+    counter-clockwise) about the frame center, as OpenCV's
+    ``warpAffine(frame, getRotationMatrix2D((cx, cy), angle, 1), (x, y),
+    INTER_LINEAR, BORDER_CONSTANT)`` computes it: the inverse map in
+    fixed point (1/1024 rounded to nearest even, then 1/32 steps), the
+    four taps weighted by the 1/32 fractions, zeros outside."""
+    n, y, x = cube.shape
+    cy, cx = frame_center((y, x))
+    t = np.deg2rad(np.asarray(angles, dtype=np.float64))
+    alpha, beta = np.cos(t), np.sin(t)
+    m02 = (1 - alpha) * cx - beta * cy
+    m12 = beta * cx + (1 - alpha) * cy
+    # cv2.invertAffineTransform of [[a, b, m02], [-b, a, m12]]
+    d = alpha * alpha + beta * beta
+    d = np.where(d != 0, 1.0 / d, 0.0)
+    a11, a12, a21, a22 = alpha * d, -beta * d, beta * d, alpha * d
+    b1 = -a11 * m02 - a12 * m12
+    b2 = -a21 * m02 - a22 * m12
+    scale, half = 1024, 1024 // 32 // 2
+    xs, ys = np.arange(x), np.arange(y)
+    adelta = np.rint(a11[:, None] * xs * scale).astype(np.int64)
+    bdelta = np.rint(a21[:, None] * xs * scale).astype(np.int64)
+    x0 = np.rint((a12[:, None] * ys + b1[:, None]) * scale).astype(
+        np.int64) + half
+    y0 = np.rint((a22[:, None] * ys + b2[:, None]) * scale).astype(
+        np.int64) + half
+    dev = cube.device
+    out = torch.empty_like(cube)
+    step = int(max(1, _WARP_CHUNK_BYTES // (40 * y * x)))
+    for s in range(0, n, step):
+        sl = slice(s, min(n, s + step))
+        X = (torch.as_tensor(x0[sl], device=dev)[:, :, None]
+             + torch.as_tensor(adelta[sl], device=dev)[:, None, :]) >> 5
+        Y = (torch.as_tensor(y0[sl], device=dev)[:, :, None]
+             + torch.as_tensor(bdelta[sl], device=dev)[:, None, :]) >> 5
+        fx = (X & 31).to(cube.dtype) / 32
+        fy = (Y & 31).to(cube.dtype) / 32
+        ix, iy = X >> 5, Y >> 5
+        flat = cube[sl].reshape(ix.shape[0], -1)
+
+        def tap(yy, xx):
+            ok = (yy >= 0) & (yy < y) & (xx >= 0) & (xx < x)
+            idx = (yy.clamp(0, y - 1) * x + xx.clamp(0, x - 1)).reshape(
+                ix.shape[0], -1)
+            v = flat.gather(1, idx).reshape(ix.shape)
+            return torch.where(ok, v, 0.0)
+
+        out[sl] = ((1 - fy) * (1 - fx) * tap(iy, ix)
+                   + (1 - fy) * fx * tap(iy, ix + 1)
+                   + fy * (1 - fx) * tap(iy + 1, ix)
+                   + fy * fx * tap(iy + 1, ix + 1))
+    return out
+
+
+def _interp_supported(imlib, interpolation, border_mode, cxy):
+    if imlib != "skimage":
+        return False
+    if interpolation != "bilinear" or border_mode != "constant" \
+            or cxy is not None:
+        raise NotImplementedError(
+            "imlib 'skimage': only bilinear interpolation with a constant "
+            "border about the frame center is ported (ROADMAP Queue 1, "
+            "slice 8)")
+    return True
 
 
 def _mask_of(array, mask_val):
@@ -210,10 +290,15 @@ def cube_derotate(array, angle_list, imlib="vip-fft",
         work = torch.nan_to_num(array)
         return _derotate_frames(work, angles, chunk=chunk,
                                 rot_mode="fft-small")
+    elif _interp_supported(imlib, interpolation, border_mode, cxy):
+        host = angle_list.detach().cpu().numpy() \
+            if isinstance(angle_list, torch.Tensor) else angle_list
+        host = np.broadcast_to(np.asarray(host, np.float64), (n,))
+        return _warp_bilinear(array, -host)
     raise NotImplementedError(
-        f"cube_derotate: imlib {imlib!r} is not ported (only 'vip-fft' and "
-        "'vip-fft-small'; interpolation rotations wait for ROADMAP Queue 1, "
-        "slice 8)")
+        f"cube_derotate: imlib {imlib!r} is not ported (only 'vip-fft', "
+        "'vip-fft-small', and 'skimage' bilinear; the other interpolation "
+        "rotations wait for ROADMAP Queue 1, slice 8)")
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,8 @@ from ..config.device import as_tensor
 
 GAUSSIAN_FWHM_TO_SIGMA = 1.0 / (2.0 * np.sqrt(2.0 * np.log(2.0)))
 
-__all__ = ["frame_filter_lowpass", "gaussian_kernel_2d", "convolve_with_mask"]
+__all__ = ["frame_filter_lowpass", "cube_filter_lowpass", "gaussian_kernel_2d",
+           "convolve_with_mask"]
 
 
 def _round_up_to_odd_integer(value):
@@ -135,3 +136,17 @@ def frame_filter_lowpass(array, mode="gauss", median_size=5, fwhm_size=5,
     if iterate and bool(torch.isnan(filtered).any()):
         filtered = _interp_remaining_nan(filtered, kernel)
     return filtered
+
+
+def cube_filter_lowpass(array, mode="gauss", median_size=5, fwhm_size=5,
+                        conv_mode="conv", kernel_sz=None, verbose=True,
+                        psf=None, mask=None, iterate=True, half_res_y=False,
+                        nproc=1, **kwargs):
+    """:func:`frame_filter_lowpass` of every frame of a cube (vip_tpu
+    filters.py:267). Returns a tensor on the cube's device."""
+    array = as_tensor(array)
+    return torch.stack([
+        frame_filter_lowpass(array[i], mode, median_size, fwhm_size,
+                             conv_mode, kernel_sz, psf, mask, iterate,
+                             half_res_y, **kwargs)
+        for i in range(array.shape[0])])
