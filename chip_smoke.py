@@ -12,8 +12,9 @@ ncomp 10, fwhm 4, asize 4, 'vip-fft-small') and the companion search
 ``psfsub.pca_grid`` over ncomp 1..10, ``metrics.snrmap``/``snrmap_fast``
 and ``metrics.detection``), the streamed ``psfsub.pca_incremental`` and
 the injection → contrast curve → completeness path (``metrics``), the
-goldens in float32, and slice 4 (NMF, LLSG, LOCI, frame differencing,
-roll subtraction, the greedy loops). Phases, one line each:
+goldens in float32, slice 4 (NMF, LLSG, LOCI, frame differencing,
+roll subtraction, the greedy loops) and slice 5 (NEGFC: the first guess
+and the MCMC of the planted companion). Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``vip_tpu_torch/csrc``, one nvcc per
@@ -77,12 +78,24 @@ roll subtraction, the greedy loops). Phases, one line each:
     ``roll_sub`` and ``greedy.ipca``, ``inmf``, ``iroll``, each through
     the kernels with its H1/H2 launches, against the plain route, timed,
     and the companion detected on the full-width frames (the cuts are
-    printed).
+    printed);
+16. slice 5, NEGFC, on every 5th frame of the cube with the planted
+    companion (200 x 512²; run before the timings of 14): ``firstguess``
+    (a 12-value flux grid, then the simplex) and ``mcmc_negfc_sampling``
+    (100 walkers, Gelman-Rubin test, 5 to 10 iterations) with their H1/H2
+    launches, held to the companion's (r, theta, flux); ``confidence`` of
+    the chain's second half; 8 walkers of the batched likelihood through
+    the kernels against the plain route and the host ``lnprob``; a
+    half-step of 50 walkers timed; the likelihood of 16
+    walkers at full depth (1000 frames) and at bench.py's NEGFC shape.
 
 ``python3 chip_smoke.py --f2`` instead bisects F2 on the card and the CPU
 (the golden PCA step by step, the card's SVD routines, the four frames
 under gesvd and gesvdj, the lapack PCA at full size under each), and
-``--svd`` times the dense factorizations the slice-4 paths call.
+``--svd`` times the dense factorizations the slice-4 and NEGFC paths
+call.
+``python3 chip_smoke.py --negfc`` runs phase 16 alone (with the build),
+with a torch.profiler table of one half-step.
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
 SHA-256 digests of the H1, H2 and H3 outputs on the inputs of phases 3-5,
 computed with the port of the checkout at ROOT, which must be this
@@ -177,6 +190,21 @@ SLICE4_CROP, SLICE4_EVERY, LOCI_EVERY = 120, 5, 10
 # frame at 200x128² on a CPU, 1.9e-3 at 1000x512² on an H100 80GB HBM3
 # at 700 W, PERF.md), and can flip a pixel of a STIM mask thresholded at 0
 GREEDY_TOL = 1e-2
+# NEGFC (phase 16): firstguess and the MCMC on every NEGFC_EVERY-th frame
+# of the cube with the planted companion (200 x 512²): each walker's
+# likelihood takes one cuSOLVER gesvd of its (200, ~3000) annulus matrix
+# (19-20 ms at (200, 3200), ``--svd``, an H100 80GB HBM3 at 700 W) beside
+# the derotation of its 200 frames (H2); the likelihood once at full depth
+# (1000 frames) for NEGFC_FULL_WALKERS walkers; bench.py's NEGFC leg shape (50x64x64, 16
+# walkers, ncomp 5, bench.py:289-312). The acceptance bounds (px, degrees,
+# relative flux) of the first guess and of the posterior median
+NEGFC_EVERY, NEGFC_FULL_WALKERS = 5, 16
+NEGFC_MCMC = dict(nwalkers=100, conv_test="gb", niteration_min=5,
+                  niteration_limit=10)
+NEGFC_FG_TOL, NEGFC_MCMC_TOL = (0.5, 2.0, 0.2), (1.0, 3.0, 0.3)
+# the batched likelihood against the host lnprob, both float32 on the
+# card: vip_tpu's own device-against-host bound (tests/test_fm_negfc.py:83)
+NEGFC_HOST_RTOL = 1e-4
 NMF4 = dict(ncomp=14, handle_neg="subtr_min")
 NMF_ANN4 = dict(ncomp=9, radius_int=20, asize=4, handle_neg="subtr_min")
 LLSG4 = dict(rank=5, thresh=1, max_iter=20, random_seed=10, fwhm=4)
@@ -1361,6 +1389,202 @@ def phase_slice4(pcube, angles_np, src):
     return out
 
 
+def _negfc_near(p, truth, tol):
+    """Whether (r, theta, f) lies within ``tol`` = (px, degrees, relative
+    flux) of ``truth``, theta compared modulo 360."""
+    dth = (p[1] - truth[1] + 180) % 360 - 180
+    return (abs(p[0] - truth[0]) < tol[0] and abs(dth) < tol[1]
+            and abs(p[2] - truth[2]) < tol[2] * truth[2])
+
+
+def phase_negfc(pcube, angles_np, src, profile=False):
+    """NEGFC on the cube with the planted companion (slice 5): the truth
+    (COMP_SEP, 0, f_true) with f_true the companion's flux in the units of
+    the normalized PSF; ``firstguess`` (a 12-value flux grid, the simplex)
+    and ``mcmc_negfc_sampling`` (NEGFC_MCMC) on every NEGFC_EVERY-th frame,
+    each with its H1/H2 launches, the first guess and the posterior median
+    of the chain's second half (and its ``confidence`` mode) held to the
+    truth; 8 walkers (one out of bounds) through the kernels against the
+    plain route and the host ``lnprob``; a half-step of 50 walkers timed
+    (and with ``profile`` traced by torch.profiler: building its table
+    takes minutes, the half-step's SVDs making ~90k device events); the
+    likelihood at full depth and at bench.py's shape. Returns {path:
+    counts} and the timings."""
+    from vip_tpu_torch.fm import (confidence, firstguess, get_mu_and_sigma,
+                                  lnprob, mcmc_negfc_sampling, normalize_psf)
+    from vip_tpu_torch.ops.apertures import aperture_flux
+    from vip_tpu_torch.ops.negfc_model import make_batched_lnprob
+
+    t_phase = time.perf_counter()
+    raw = _gaussian_psf()
+    psfn = normalize_psf(raw, fwhm=COMP_FWHM, verbose=False)
+    c = float(raw.shape[0] // 2)
+    # the companion is COMP_PEAK times raw's unit-peak Gaussian, and psfn
+    # is raw over its 1-FWHM aperture flux
+    f_true = COMP_PEAK * float(aperture_flux(raw, np.array([c]),
+                                             np.array([c]),
+                                             COMP_FWHM / 2)[0])
+    sigma = COMP_FWHM / (2 * np.sqrt(2 * np.log(2)))
+    print(f"negfc truth: r {COMP_SEP}, theta 0, flux {f_true:.4f} in the "
+          f"normalized PSF's units (COMP_PEAK pi sigma^2 = "
+          f"{COMP_PEAK * np.pi * sigma ** 2:.4f})", flush=True)
+    truth = (COMP_SEP, 0.0, f_true)
+    cube = pcube[::NEGFC_EVERY].contiguous()
+    angs = angles_np[::NEGFC_EVERY].astype(np.float64)
+    counts, times = {}, {}
+
+    def run(name, fn):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        counts[name] = _counts()
+        _require(counts[name]["H1"] > 0 and counts[name]["H2"] > 0
+                 and counts[name]["H3"] == counts[name]["H4"] == 0,
+                 f"{name}: launches {counts[name]}")
+        return out
+
+    r0, th0, f0 = run("negfc firstguess", lambda: firstguess(
+        cube, angs, psfn, [src],
+        f_range=np.geomspace(f_true / 10, f_true * 10, 12), verbose=False))
+    guess = (float(r0[0]), float(th0[0]), float(f0[0]))
+    n_chi2 = counts["negfc firstguess"]["H1"] - 1
+    print(f"negfc firstguess: ({guess[0]:.4f}, {guess[1]:.4f}, "
+          f"{guess[2]:.4f}) in {times['negfc firstguess']:.3f} s, {n_chi2} "
+          f"chi2 and 1 annulus statistics; launches "
+          f"{counts['negfc firstguess']}", flush=True)
+    _require(_negfc_near(guess, truth, NEGFC_FG_TOL),
+             f"negfc firstguess {guess} is not within {NEGFC_FG_TOL} of "
+             f"{truth}")
+
+    # the first guess's theta in [0, 360): the initial ball scales with
+    # theta, and a theta just below 0 makes it negative (as in vip_tpu)
+    init = (guess[0], guess[1] % 360, guess[2])
+    chain = run("negfc mcmc", lambda: mcmc_negfc_sampling(
+        cube, angs, psfn, init, **NEGFC_MCMC))
+    nw, steps = chain.shape[:2]
+    evals = nw * (1 + steps)
+    second = chain[:, steps // 2:].reshape(-1, 3)
+    median = np.median(second, axis=0)
+    mode, ci = confidence(second, bins=30, verbose=False,
+                          labels=["r", "theta", "f"])
+    print(f"negfc mcmc: {nw} walkers x {steps} steps, {evals} walker "
+          f"evaluations in {times['negfc mcmc']:.3f} s "
+          f"({evals / times['negfc mcmc']:.1f} walker-evals/s); launches "
+          f"{counts['negfc mcmc']}; median of the second half "
+          f"({median[0]:.4f}, {median[1]:.4f}, {median[2]:.4f}); confidence "
+          f"mode " + ", ".join(f"{k} {v:.4f} [{ci[k][0]:.4f}, "
+                               f"{ci[k][1]:.4f}]" for k, v in mode.items()),
+          flush=True)
+    _require(bool(np.isfinite(chain).all())
+             and NEGFC_MCMC["niteration_min"] <= steps
+             <= NEGFC_MCMC["niteration_limit"], "negfc mcmc: chain")
+    # H1 once a batch: the two reductions of the annulus statistics, the
+    # first batch and two half-steps a step
+    _require(counts["negfc mcmc"]["H1"] == 3 + 2 * steps,
+             f"negfc mcmc: {counts['negfc mcmc']['H1']} H1 launches for "
+             f"{steps} steps")
+    _require(_negfc_near(median, truth, NEGFC_MCMC_TOL),
+             f"negfc mcmc: posterior median {median} is not within "
+             f"{NEGFC_MCMC_TOL} of {truth}")
+
+    # 8 walkers, one out of bounds, with the MCMC's statistics and bounds
+    t0 = time.perf_counter()
+    mu, sig = get_mu_and_sigma(cube, angs, 1, 8, 1, COMP_FWHM, guess[0],
+                               guess[1], guess[2], psfn)
+    print(f"negfc get_mu_and_sigma (the companion removed on the host): "
+          f"({mu:.4e}, {sig:.4e}) in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    dth = 360.0 / (2 * np.pi * guess[0] / (COMP_FWHM / 2))
+    bounds = [(guess[0] - 2, guess[0] + 2), (guess[1] - dth, guess[1] + dth),
+              (0, 5 * guess[2])]
+    rng = np.random.default_rng(16)
+    step = np.array([0.5, 0.5 * dth, 0.2 * guess[2]])
+    walkers = np.asarray(guess) + rng.uniform(-1, 1, (8, 3)) * step
+    walkers[-1, 0] = guess[0] + 3
+    args = (angs, psfn, 1, 8, guess[0], guess[1], 1, COMP_FWHM, mu,
+            sig ** 2, bounds)
+    lnp = make_batched_lnprob(cube, *args)
+    got = run("negfc lnprob 8 walkers", lambda: lnp(walkers)).cpu().double()
+    with _plain_route():
+        plain = lnp(walkers).cpu().double()
+    host = torch.tensor([
+        lnprob(tuple(p), bounds, cube, angs, psfn, COMP_FWHM, 8, 1, 1,
+               guess, mu_sigma=(mu, sig)) for p in walkers],
+        dtype=torch.float64)
+    fin = torch.isfinite(got)
+    _require(fin.sum() == 7 and torch.equal(fin, torch.isfinite(plain))
+             and torch.equal(fin, torch.isfinite(host)),
+             "negfc lnprob: out-of-bounds walkers")
+    err_plain = float(((got - plain).abs() / plain.abs())[fin].max())
+    err_host = float(((got - host).abs() / host.abs())[fin].max())
+    print(f"negfc lnprob of 8 walkers (one out of bounds) on "
+          f"{cube.shape[0]}x{SIZE}^2: launches "
+          f"{counts['negfc lnprob 8 walkers']}; against the plain route "
+          f"{err_plain:.3e} relative (bound {PIPE_TOL:.0e}), against the "
+          f"host lnprob {err_host:.3e} (bound {NEGFC_HOST_RTOL:.0e})",
+          flush=True)
+    _require(err_plain <= PIPE_TOL, "negfc lnprob disagrees with the plain "
+             "route")
+    _require(err_host <= NEGFC_HOST_RTOL, "negfc lnprob disagrees with the "
+             "host lnprob")
+    print(f"negfc: {time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+
+    # a half-step: 50 proposals in bounds
+    half = np.asarray(guess) \
+        + rng.uniform(-1, 1, (NEGFC_MCMC["nwalkers"] // 2, 3)) * step
+    t_half = _sync_times(lambda: lnp(half))
+    print(f"negfc half-step (50 walkers x {cube.shape[0]} frames): "
+          f"{_spread(t_half)} s, {50 / np.median(t_half):.1f} walker-evals/s;"
+          f" {time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+    if profile:
+        t0 = time.perf_counter()
+        prof_wall, table = _profile_table(lambda: lnp(half), rows=12)
+        print(f"negfc half-step under the profiler {prof_wall:.4f} s (the "
+              f"table took {time.perf_counter() - t0 - prof_wall:.1f} s); "
+              f"top ops by device time:\n{table}", flush=True)
+
+    full = make_batched_lnprob(pcube, angles_np.astype(np.float64), psfn,
+                               *args[2:])
+    full_walkers = np.asarray(guess) \
+        + rng.uniform(-1, 1, (NEGFC_FULL_WALKERS, 3)) * step
+    v = run("negfc lnprob full depth", lambda: full(full_walkers))
+    _require(bool(torch.isfinite(v).all()), "negfc full depth: lnprob")
+    t_full = times["negfc lnprob full depth"]
+    print(f"negfc lnprob at full depth ({N_FRAMES}x{SIZE}^2, "
+          f"{NEGFC_FULL_WALKERS} walkers, one call): {t_full:.3f} s, "
+          f"{NEGFC_FULL_WALKERS / t_full:.2f} walker-evals/s; launches "
+          f"{counts['negfc lnprob full depth']}", flush=True)
+    del full
+
+    # bench.py's NEGFC leg: 50x64x64, 16 walkers, ncomp 5
+    yy, xx = np.mgrid[:13, :13]
+    psf_b = np.exp(-((yy - 6.0) ** 2 + (xx - 6.0) ** 2)
+                   / (2 * (4 / 2.355) ** 2))
+    lnp_b = make_batched_lnprob(
+        pcube[:50, :64, :64].contiguous(), angles_np[:50].astype(np.float64),
+        psf_b, 5, 4, 20.0, 45.0, 2.0, 4.0, np.zeros(1), 1.0,
+        [(10.0, 30.0), (10.0, 80.0), (0.1, 100.0)])
+    wb = np.column_stack([rng.uniform(15, 25, 16), rng.uniform(30, 60, 16),
+                          rng.uniform(1, 50, 16)])
+    vb = run("negfc lnprob bench shape", lambda: lnp_b(wb))
+    _require(bool(torch.isfinite(vb).all()), "negfc bench shape: lnprob")
+    t_b = _sync_times(lambda: lnp_b(wb))
+    print(f"negfc lnprob at bench.py's shape (50x64x64, 16 walkers, ncomp "
+          f"5): {_spread(t_b)} s, {16 / np.median(t_b):.1f} walker-evals/s; "
+          f"launches {counts['negfc lnprob bench shape']}", flush=True)
+    times.update(half_step=float(np.median(t_half)),
+                 bench_shape=float(np.median(t_b)))
+    print(f"negfc cuts: the sampler on every {NEGFC_EVERY}th frame "
+          f"({cube.shape[0]} of {N_FRAMES}); the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, times
+
+
 def _moffat_psf(size=39, fwhm=4.800919383981533, alpha=2.5, peak=1680.0):
     """The NACO replica's raw PSF (tests/naco_replica.py:moffat_psf)."""
     gamma = fwhm / (2.0 * np.sqrt(2.0 ** (1.0 / alpha) - 1.0))
@@ -1641,6 +1865,15 @@ def svd_costs(reps=3):
         lambda: torch.linalg.svd(L[:100].transpose(-1, -2),
                                  full_matrices=False, driver="gesvd"))
     del B, L, G
+    # NEGFC: the batched top-1 SVD of a half-step's walkers (50 annulus
+    # matrices of the 200-frame cut) and of 16 at full depth
+    from vip_tpu_torch.ops.linalg import svd_top
+
+    for W, n in ((1, 200), (50, 200), (1, 1000), (16, 1000)):
+        M = torch.randn((W, n, 3000), generator=gen, device=DEVICE)
+        out[f"svd_top lapack batch ({W}, {n}, 3000)"] = ms(
+            lambda: svd_top(M, 1, "lapack"))
+        del M
     return out
 
 
@@ -1821,9 +2054,11 @@ def main():
     stim_counts, run_stim = phase_stim(pcube, angles_np, src)
     phase_f2()
     slice4 = phase_slice4(pcube, angles_np, src)
+    negfc_counts, negfc_times = phase_negfc(pcube, angles_np, src)
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
     new_paths.update({k: v[0] for k, v in slice4.items()})
+    new_paths.update(negfc_counts)
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -1968,6 +2203,8 @@ def main():
         f"{k} {v}" for k, v in new_paths.items()), flush=True)
     print("timing slice 4 (s; see the phase 15 lines): " + ", ".join(
         f"{k} {v[1]:.4f}" for k, v in slice4.items()), flush=True)
+    print("timing NEGFC (s; see the phase 16 lines): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in negfc_times.items()), flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
@@ -2049,6 +2286,23 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def negfc_only():
+    """Phase 16 alone (``--negfc``): the build, the cube with the planted
+    companion, NEGFC."""
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    angles_np = np.linspace(0.0, 80.0, N_FRAMES).astype(np.float32)
+    pcube, src = _plant_companion(cube, angles_np)
+    del cube
+    counts, times = phase_negfc(pcube, angles_np, src, profile=True)
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()),
+          flush=True)
+
+
 def kernel_digests(root):
     """SHA-256 (first 16 hex digits) of the outputs of H1 (both propagate
     modes), H2 (512² and 160²) and H3 on the inputs of phases 3-5, with the
@@ -2103,6 +2357,10 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--digests":
         kernel_digests(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--negfc":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        negfc_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

@@ -627,3 +627,141 @@ def test_slice4_entry_points_on_the_card(cuda_device, case):
     assert got.is_cuda and got.dtype == torch.float32
     assert counts == (n_h1, n_h2), name
     assert err <= tol, name
+
+
+# NEGFC (slice 5): a companion injected at (16 px, 30°) into 40x64² frames
+# of smooth noise; its float32 log-probabilities on the card against the
+# CPU float64 mode (relative: the float32 SVD and projections of a noise
+# annulus, then a sum of squares; measured 2.4e-6 on an H100 80GB HBM3 at
+# 700 W), and the kernels against the plain route on the card (relative,
+# as chip_smoke.py's PIPE_TOL)
+NEGFC_TRUTH = (16.0, 30.0, 40.0)
+NEGFC_TOL, NEGFC_PLAIN_TOL = 1e-4, 1e-5
+
+
+def _negfc_inputs():
+    import vip_tpu_torch.fm as tfm
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(9)
+    angles = np.linspace(0.0, 60.0, 40)
+    yy, xx = np.mgrid[:13, :13]
+    psf = np.exp(-((yy - 6) ** 2 + (xx - 6) ** 2) / (2 * (4 / 2.355) ** 2))
+    psfn = tfm.normalize_psf(psf, fwhm=4, verbose=False)
+    cube = gaussian_filter(rng.standard_normal((40, 64, 64)), 1.0) * 0.3
+    r, theta, f = NEGFC_TRUTH
+    cube = tfm.cube_inject_companions(cube, psfn, angles, flevel=f,
+                                      rad_dists=[r], theta=theta)
+    return cube, angles, psfn
+
+
+def _near_truth(r, theta, f, tol=(0.5, 2.0, 0.2)):
+    r0, th0, f0 = NEGFC_TRUTH
+    return (abs(r - r0) < tol[0]
+            and abs((theta - th0 + 180) % 360 - 180) < tol[1]
+            and abs(f - f0) < tol[2] * f0)
+
+
+def test_negfc_batched_lnprob_on_the_card(cuda_device, monkeypatch):
+    from vip_tpu_torch.ops.negfc_model import make_batched_lnprob
+
+    cube, angles, psfn = _negfc_inputs()
+    r, theta, f = NEGFC_TRUTH
+    bounds = [(r - 2, r + 2), (theta - 10, theta + 10), (0, 5 * f)]
+    params = np.array([[r, theta, f], [r + 0.4, theta - 1.5, f * 1.2],
+                       [r - 0.6, theta + 2.0, f * 0.7], [r, theta, 0.0],
+                       [r + 0.2, theta, f * 1.05], [r + 3.0, theta, f]])
+    args = (angles, psfn, 1, 8, r, theta, 1.0, 4.0, 0.0, 0.05 ** 2, bounds)
+    ref = make_batched_lnprob(cube, *args)(params).numpy()
+    cube_t = torch.as_tensor(cube, dtype=torch.float32, device=cuda_device)
+    lnprob = make_batched_lnprob(cube_t, *args)
+    before = (median.launches, shear.launches)
+    got = lnprob(params)
+    torch.cuda.synchronize()
+    counts = (median.launches - before[0], shear.launches - before[1])
+    fin = np.isfinite(ref)
+    assert got.is_cuda and got.dtype == torch.float32
+    got = got.cpu().double().numpy()
+    err = np.max(np.abs(got[fin] - ref[fin]) / np.abs(ref[fin]))
+    print(f"NEGFC lnprob on the card: H1 {counts[0]}, H2 {counts[1]}; "
+          f"against the CPU float64 mode {err:.3e}")
+    # one median for the batch, one chunk of 200 frames (3 H2 launches)
+    assert counts == (1, 3)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert fin.sum() == 5 and err <= NEGFC_TOL
+    _plain_route(monkeypatch)
+    plain = lnprob(params).cpu().double().numpy()
+    assert (median.launches, shear.launches) == (before[0] + 1,
+                                                 before[1] + 3)
+    assert np.max(np.abs(got[fin] - plain[fin]) / np.abs(plain[fin])) \
+        <= NEGFC_PLAIN_TOL
+
+
+def _negfc_on_the_card(run):
+    """``run(cube on the card)`` with numpy input going to the card too;
+    its result and the H1, H2 launches it made."""
+    cube, angles, psfn = _negfc_inputs()
+    cube_t = torch.as_tensor(cube, dtype=torch.float32, device="cuda")
+    vip_tpu_torch.set_device("cuda")
+    try:
+        before = (median.launches, shear.launches)
+        out = run(cube_t, angles, psfn)
+        torch.cuda.synchronize()
+        counts = (median.launches - before[0], shear.launches - before[1])
+    finally:
+        vip_tpu_torch.set_device("cpu")
+    return out, counts
+
+
+def test_negfc_firstguess_on_the_card(cuda_device):
+    import vip_tpu_torch.fm as tfm
+
+    r, theta, _ = NEGFC_TRUTH
+    xy = (32 + r * np.cos(np.deg2rad(theta)),
+          32 + r * np.sin(np.deg2rad(theta)))
+    (r0, th0, f0), counts = _negfc_on_the_card(
+        lambda cube, angles, psfn: tfm.firstguess(
+            cube, angles, psfn, [xy], f_range=np.geomspace(4, 400, 12),
+            verbose=False))
+    print(f"NEGFC firstguess on the card: ({r0[0]:.3f}, {th0[0]:.3f}, "
+          f"{f0[0]:.3f}); H1 {counts[0]}, H2 {counts[1]}")
+    assert _near_truth(r0[0], th0[0], f0[0])
+    # one pca_annulus (a derotation: 3 H2 launches, a median: 1 H1) for
+    # the annulus statistics and each χ²
+    assert counts[0] > 13 and counts[1] == 3 * counts[0]
+
+
+def test_negfc_nested_sampling_on_the_card(cuda_device):
+    import vip_tpu_torch.fm as tfm
+
+    r, theta, f = NEGFC_TRUTH
+    res, counts = _negfc_on_the_card(
+        lambda cube, angles, psfn: tfm.nested_negfc_sampling(
+            (r + 0.3, theta + 1.0, f * 1.1), cube, angles, psfn, 4, ncomp=1,
+            npoints=20, dlogz=1.0, w=(2, 4, 0.5 * f),
+            rstate=np.random.RandomState(0), verbose=False))
+    mean = tfm.nested_sampling_results(res, verbose=False)[:, 0]
+    print(f"NEGFC nested sampling on the card: {mean}, {res.niter} "
+          f"iterations; H1 {counts[0]}, H2 {counts[1]}")
+    assert _near_truth(*mean)
+    # two reductions for the annulus statistics, one a likelihood
+    assert counts[0] >= 2 + 20 + res.niter and counts[1] == 3 * counts[0]
+
+
+def test_negfc_speckle_noise_on_the_card(cuda_device):
+    import vip_tpu_torch.fm as tfm
+    import vip_tpu_torch.psfsub as tps
+
+    out, counts = _negfc_on_the_card(
+        lambda cube, angles, psfn: tfm.speckle_noise_uncertainty(
+            cube, NEGFC_TRUTH, np.array([0.0, 120.0, 240.0, 360.0]), angles,
+            tps.pca_annulus, psfn, 4, 1, algo_options=dict(ncomp=1),
+            mu_sigma=None, verbose=False, full_output=True))
+    offsets = out[3]
+    print(f"NEGFC speckle noise on the card: offsets {offsets.tolist()}; "
+          f"H1 {counts[0]}, H2 {counts[1]}")
+    assert offsets.shape == (3, 3)
+    r, theta, f = NEGFC_TRUTH
+    for dr, dth, df in offsets:
+        assert _near_truth(r + dr, theta + dth, f + df)
+    assert counts[0] > 3 and counts[1] == 3 * counts[0]

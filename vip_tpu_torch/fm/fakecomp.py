@@ -10,7 +10,9 @@ moved to the host first; results are numpy arrays. The reductions that
 inject the same cube many times (contrast curves, completeness) inject on
 the card instead, through ``ops.inject.inject_ladder_adi``.
 
-Only the 'vip-fft' shifts are ported; the interpolating imlibs, and
+The stamps shift by 'vip-fft' (VIP's padded shift) or 'ndimage-fourier'
+(scipy's cyclic shift, NEGFC's default, ``ops.fft.cyclic_fourier_shift``),
+either one batch for all frames; the interpolating imlibs, and
 ``normalize_psf``'s Moffat and Airy fits, wait for ROADMAP Queue 1,
 slice 8.
 """
@@ -19,9 +21,10 @@ import numpy as np
 import torch
 from scipy.interpolate import interp1d
 
+from ..config.device import as_tensor
 from ..config.utils_conf import check_array
 from ..ops.apertures import aperture_flux
-from ..ops.fft import fourier_shift_batch
+from ..ops.fft import cyclic_fourier_shift, fourier_shift_batch
 from ..preproc.cosmetics import cube_crop_frames, frame_crop
 from ..preproc.derotation import frame_rotate
 from ..preproc.recentering import cube_shift, frame_shift
@@ -50,11 +53,12 @@ def _centroid_com(data):
     return (d * xx).sum() / total, (d * yy).sum() / total
 
 
-def _inject_batched_subpx(array_out, fc_fr, angle_list, rad, ang, flevel):
+def _inject_batched_subpx(array_out, fc_fr, angle_list, rad, ang, flevel,
+                          imlib_sh):
     """Add the PSF stamps of one companion to every frame of the host cube
     ``array_out`` (vip_tpu fakecomp.py:35): one batched sub-pixel shift
-    of the stamps (pad margin 1), then the integer placement, clipped at
-    the frame edge."""
+    of the stamps ('vip-fft': pad margin 1; 'ndimage-fourier': cyclic),
+    then the integer placement, clipped at the frame edge."""
     sizey, sizex = array_out.shape[-2:]
     size_fc = fc_fr.shape[-1]
     ceny, cenx = frame_center(array_out[0])
@@ -68,7 +72,10 @@ def _inject_batched_subpx(array_out, fc_fr, angle_list, rad, ang, flevel):
     shift_x = rad * np.cos(ang - np.deg2rad(angle_list))
     dsy = shift_y - shift_y.astype(int)
     dsx = shift_x - shift_x.astype(int)
-    shifted = _host(fourier_shift_batch(fc_fr, dsy, dsx, 1))
+    if imlib_sh == "vip-fft":
+        shifted = _host(fourier_shift_batch(fc_fr, dsy, dsx, 1))
+    else:
+        shifted = _host(cyclic_fourier_shift(as_tensor(fc_fr), dsy, dsx))
 
     for fr in range(array_out.shape[0]):
         y0 = sty + int(shift_y[fr])
@@ -141,11 +148,11 @@ def cube_inject_companions(array, psf_template, angle_list, flevel, rad_dists,
                                                        nframes):
             raise TypeError("if not scalar `flevel` must have same length as "
                             "array")
-    if imlib in ("opencv", "skimage", "ndimage-interp", "ndimage-fourier"):
+    if imlib in ("opencv", "skimage", "ndimage-interp"):
         raise NotImplementedError(
             f"cube_inject_companions: imlib {imlib!r} is not ported yet "
-            f"(only 'vip-fft') {_SLICE8}")
-    if imlib != "vip-fft":
+            f"(only 'vip-fft' and 'ndimage-fourier') {_SLICE8}")
+    if imlib not in ("vip-fft", "ndimage-fourier"):
         raise TypeError("Interpolation not recognized.")
 
     rad_dists = np.asarray(rad_dists).reshape(-1)
@@ -205,10 +212,11 @@ def cube_inject_companions(array, psf_template, angle_list, flevel, rad_dists,
                         array_out[fr:fr + 1] = _inject_batched_subpx(
                             array_out[fr:fr + 1], stamp[None],
                             angle_list[fr:fr + 1], rad, ang,
-                            flevel[fr:fr + 1])
+                            flevel[fr:fr + 1], imlib)
                 else:
                     array_out = _inject_batched_subpx(
-                        array_out, fc_fr_rad, angle_list, rad, ang, flevel)
+                        array_out, fc_fr_rad, angle_list, rad, ang, flevel,
+                        imlib)
                 pos_y = rad * np.sin(ang) + ceny
                 pos_x = rad * np.cos(ang) + cenx
                 positions.append((pos_y, pos_x))

@@ -1,5 +1,5 @@
-"""``find_nearest`` (port-owned copy of ``vip_tpu.fm.utils_negfc``; the
-rest of the NEGFC helpers wait for ROADMAP Queue 1, slice 5)."""
+"""``find_nearest`` (port-owned copy of ``vip_tpu.fm.utils_negfc``, the
+whole of that module)."""
 
 import numpy as np
 

@@ -24,7 +24,9 @@ square even canvas, FFT phase ramp, crop) over a batch of frames, each
 with its own shift; ``fourier_shift`` is a batch of one. vip_tpu also had
 a host numpy twin, ``fourier_shift_np``, only so that its TPU would not
 compile one program per canvas size; PyTorch runs eagerly, so the port
-has none.
+has none. ``cyclic_fourier_shift`` is scipy's 'ndimage-fourier' shift
+(``fourier_shift`` of the ``fftn``, no pad: the frame wraps around), the
+shift of NEGFC's PSF stamps, batched over any leading axes.
 """
 
 import math
@@ -35,7 +37,8 @@ from ..config.device import as_tensor
 
 __all__ = ["decompose_rotation", "quad_rot90", "fft_shear", "rotate_fft",
            "rotate_fft_exact_pruned", "rotate_fft_small_plain",
-           "rotate_fft_fast_batch", "fourier_shift", "fourier_shift_batch"]
+           "rotate_fft_fast_batch", "fourier_shift", "fourier_shift_batch",
+           "cyclic_fourier_shift"]
 
 # +1-pixel placement of a rot90'd even frame per quadrant k (the reference
 # rot90s the (N+1)-extended canvas about its center)
@@ -376,3 +379,29 @@ def fourier_shift(array, shift_y, shift_x, npad):
     array = as_tensor(array)
     return fourier_shift_batch(array[None], [float(shift_y)],
                                [float(shift_x)], npad)[0]
+
+
+def cyclic_fourier_shift(frame, dy, dx):
+    """Cyclic (wrap-around) sub-pixel shift of the last two axes of
+    ``frame`` by (dy, dx) pixels: ``ifftn(scipy.ndimage.fourier_shift(
+    fftn(frame), (dy, dx))).real`` (vip_tpu negfc_model.py:32,
+    recentering.py:44-48), with no pad.
+
+    ``dy`` and ``dx`` are scalars or arrays whose shape broadcasts against
+    the leading axes of ``frame``: a (W, n) array of shifts of one (s, s)
+    stamp gives (W, n, s, s) stamps from one batched FFT. The phase is
+    evaluated in float64 and cast to the working complex dtype. Returns a
+    tensor on the frame's device (numpy input goes to the default
+    device)."""
+    frame = as_tensor(frame)
+    ny, nx = frame.shape[-2:]
+    dev = frame.device
+    dy = torch.as_tensor(dy, dtype=torch.float64).to(dev)
+    dx = torch.as_tensor(dx, dtype=torch.float64).to(dev)
+    fy = torch.fft.fftfreq(ny, dtype=torch.float64, device=dev)[:, None]
+    fx = torch.fft.fftfreq(nx, dtype=torch.float64, device=dev)[None, :]
+    angle = (-2 * math.pi) * (dy[..., None, None] * fy
+                              + dx[..., None, None] * fx)
+    phase = torch.polar(torch.ones_like(angle), angle)
+    spec = torch.fft.fft2(frame)
+    return torch.fft.ifft2(spec * phase.to(spec.dtype)).real

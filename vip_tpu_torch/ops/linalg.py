@@ -37,25 +37,26 @@ def svd(A, full_matrices=False):
 
 
 def matrix_scaling_jax(matrix, scaling):
-    """Pixel-wise scaling of a [n, p] matrix (vip_tpu linalg.py:28). The
-    standard deviation is the population one (``correction=0``), as numpy's
-    and jnp's default ``ddof=0``."""
+    """Pixel-wise scaling of a [n, p] matrix, or of each matrix of a
+    [..., n, p] batch (vip_tpu linalg.py:28). The standard deviation is
+    the population one (``correction=0``), as numpy's and jnp's default
+    ``ddof=0``."""
     if scaling is None:
         return matrix
     if scaling == "temp-mean":
-        return matrix - matrix.mean(dim=0)
+        return matrix - matrix.mean(dim=-2, keepdim=True)
     elif scaling == "spat-mean":
-        return matrix - matrix.mean(dim=1, keepdim=True)
+        return matrix - matrix.mean(dim=-1, keepdim=True)
     elif scaling == "temp-standard":
-        centered = matrix - matrix.mean(dim=0)
-        std = matrix.std(dim=0, correction=0)
+        centered = matrix - matrix.mean(dim=-2, keepdim=True)
+        std = matrix.std(dim=-2, keepdim=True, correction=0)
         scaled = centered / torch.where(std == 0, 1.0, std)
-        return scaled - scaled.mean(dim=0)
+        return scaled - scaled.mean(dim=-2, keepdim=True)
     elif scaling == "spat-standard":
-        centered = matrix - matrix.mean(dim=1, keepdim=True)
-        std = matrix.std(dim=1, keepdim=True, correction=0)
+        centered = matrix - matrix.mean(dim=-1, keepdim=True)
+        std = matrix.std(dim=-1, keepdim=True, correction=0)
         scaled = centered / torch.where(std == 0, 1.0, std)
-        return scaled - scaled.mean(dim=1, keepdim=True)
+        return scaled - scaled.mean(dim=-1, keepdim=True)
     raise ValueError("Scaling mode not recognized")
 
 
@@ -97,7 +98,10 @@ def randomized_svd(matrix, ncomp, omega=None, n_oversamples=10, n_iter=2,
 def svd_top(matrix, ncomp, method="lapack", omega=None, full_output=False,
             *, generator=None):
     """Top-``ncomp`` principal components (right singular vectors) of a
-    [n, p] matrix, shape (ncomp, p) (vip_tpu linalg.py:80).
+    [n, p] matrix, shape (ncomp, p) (vip_tpu linalg.py:80), or of each
+    matrix of a [..., n, p] batch, shape (..., ncomp, p): 'lapack' and
+    'eigen' factor the whole batch in one call, 'randsvd' one matrix
+    after another, each with its own draw.
 
     method='lapack'  → SVD of matrixᵀ, through a tall-skinny QR when
                        p > 4n so the SVD only sees the n×n factor.
@@ -111,27 +115,33 @@ def svd_top(matrix, ncomp, method="lapack", omega=None, full_output=False,
     With ``full_output`` returns (U, S, V): U (n, ncomp), S (ncomp,),
     V (ncomp, p), in vip_tpu's orientation.
     """
-    n = matrix.shape[0]
+    n = matrix.shape[-2]
     if method == "lapack":
-        if matrix.shape[1] > 4 * n:
-            Q, R = torch.linalg.qr(matrix.T)
+        if matrix.shape[-1] > 4 * n:
+            Q, R = torch.linalg.qr(matrix.mT)
             Ur, S2, V2 = svd(R)
             U2 = Q @ Ur
         else:
-            U2, S2, V2 = svd(matrix.T)
-        V = U2[:, :ncomp].T
+            U2, S2, V2 = svd(matrix.mT)
+        V = U2[..., :ncomp].mT
         if full_output:
-            return V2[:ncomp].T, S2[:ncomp], V
+            return V2[..., :ncomp, :].mT, S2[..., :ncomp], V
         return V
     elif method == "eigen":
-        C = matrix @ matrix.T
+        C = matrix @ matrix.mT
         e, EV = torch.linalg.eigh(C)
-        S = torch.sqrt(torch.abs(e)).flip(0)
-        V = ((EV.T @ matrix).flip(0) / S[:, None])[:ncomp]
+        S = torch.sqrt(torch.abs(e)).flip(-1)
+        V = ((EV.mT @ matrix).flip(-2) / S[..., :, None])[..., :ncomp, :]
         if full_output:
-            U = (EV / torch.sqrt(torch.abs(e)))[:ncomp]
-            return U, S[:ncomp], V
+            U = (EV / torch.sqrt(torch.abs(e))[..., None, :])[..., :ncomp, :]
+            return U, S[..., :ncomp], V
         return V
+    elif method in ("randsvd", "arpack") and matrix.ndim > 2:
+        outs = [svd_top(m, ncomp, method, omega, full_output,
+                        generator=generator) for m in matrix]
+        if full_output:
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return torch.stack(outs)
     elif method in ("randsvd", "arpack"):
         if omega is None and generator is None:
             # deterministic by default, as vip_tpu's PRNGKey(0)

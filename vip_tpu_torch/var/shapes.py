@@ -16,7 +16,7 @@ from .coords import frame_center
 
 __all__ = ["mask_circle", "get_annulus_segments", "matrix_scaling",
            "prepare_matrix", "reshape_matrix", "resolve_n_segments",
-           "disk_coords", "get_square", "get_circle"]
+           "disk_coords", "get_square", "get_circle", "get_annular_wedge"]
 
 
 def _disk(shape, cy, cx, radius):
@@ -251,3 +251,36 @@ def prepare_matrix(array, scaling=None, mask_center_px=None, mode="fullfr",
 def reshape_matrix(array, y, x):
     """Matrix of vectorized frames → cube (vip_tpu shapes.py:497)."""
     return as_tensor(array).reshape(array.shape[0], y, x)
+
+
+def get_annular_wedge(data, inner_radius, width, wedge=(0, 360), mode="ind"):
+    """Indices, values or mask of the wedge ``wedge`` = (start, end)
+    degrees (counter-clockwise from the positive x-axis, the end may pass
+    360) of the annulus ``inner <= r < inner + width`` (vip_tpu
+    shapes.py:338). ``data`` is a 2-d frame or a shape tuple; mode 'ind'
+    returns host ``(yy, xx)`` index arrays, as ``np.where``; 'val' and
+    'mask' apply the wedge to a frame on its own device."""
+    shape = data if isinstance(data, tuple) else tuple(data.shape)
+    cy, cx = frame_center(shape)
+    yy, xx = np.mgrid[: shape[0], : shape[1]]
+    rad = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2)
+    phirot = np.arctan2(yy - cy, xx - cx) % (2 * np.pi)
+    ring = (rad >= inner_radius) & (rad < inner_radius + width)
+    phi_start = np.deg2rad(wedge[0])
+    phi_end = np.deg2rad(wedge[1])
+    if phi_start < 2 * np.pi and phi_end > 2 * np.pi:
+        mask = ring & (((phirot >= phi_start) & (phirot <= 2 * np.pi))
+                       | ((phirot >= 0) & (phirot < phi_end - 2 * np.pi)))
+    elif phi_start >= 2 * np.pi and phi_end > 2 * np.pi:
+        mask = ring & (phirot >= phi_start - 2 * np.pi) \
+            & (phirot < phi_end - 2 * np.pi)
+    else:
+        mask = ring & (phirot >= phi_start) & (phirot < phi_end)
+
+    if mode == "ind":
+        return np.where(mask)
+    if mode not in ("val", "mask"):
+        raise ValueError(f"mode '{mode}' unknown!")
+    array = as_tensor(data)
+    m = torch.as_tensor(mask, device=array.device)
+    return array[m] if mode == "val" else array * m
