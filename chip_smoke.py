@@ -13,8 +13,9 @@ ncomp 10, fwhm 4, asize 4, 'vip-fft-small') and the companion search
 and ``metrics.detection``), the streamed ``psfsub.pca_incremental`` and
 the injection → contrast curve → completeness path (``metrics``), the
 goldens in float32, slice 4 (NMF, LLSG, LOCI, frame differencing,
-roll subtraction, the greedy loops) and slice 5 (NEGFC: the first guess
-and the MCMC of the planted companion). Phases, one line each:
+roll subtraction, the greedy loops), slice 5 (NEGFC: the first guess
+and the MCMC of the planted companion) and slice 6 (ANDROMEDA, FMMF,
+PACO). Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``vip_tpu_torch/csrc``, one nvcc per
@@ -87,7 +88,16 @@ and the MCMC of the planted companion). Phases, one line each:
     the chain's second half; 8 walkers of the batched likelihood through
     the kernels against the plain route and the host ``lnprob``; a
     half-step of 50 walkers timed; the likelihood of 16
-    walkers at full depth (1000 frames) and at bench.py's NEGFC shape.
+    walkers at full depth (1000 frames) and at bench.py's NEGFC shape;
+17. slice 6, the inverse problems (run before the timings of 14): the
+    goldens' ANDROMEDA (lsq, l1), FMMF (KLIP, LOCI over r 26-34) and
+    FastPACO on the NACO replica through float64 CUDA tensors (held to
+    VIP's golden maps at 1e-5) and in float32 (each map's companions found
+    by ``detection``, FastPACO within 1e-3 of its float64 map); the three
+    at full width (every 10th frame of the cube with the planted
+    companion, its central 256²: each finds the companion, FMMF through
+    H2); FMMF through H2 against the plain route; bench.py's three invprob
+    legs and FMMF's serial and batched forms timed.
 
 ``python3 chip_smoke.py --f2`` instead bisects F2 on the card and the CPU
 (the golden PCA step by step, the card's SVD routines, the four frames
@@ -95,7 +105,8 @@ under gesvd and gesvdj, the lapack PCA at full size under each), and
 ``--svd`` times the dense factorizations the slice-4 and NEGFC paths
 call.
 ``python3 chip_smoke.py --negfc`` runs phase 16 alone (with the build),
-with a torch.profiler table of one half-step.
+with a torch.profiler table of one half-step; ``--invprob`` runs phase 17
+alone, with a torch.profiler table of one FMMF annulus.
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
 SHA-256 digests of the H1, H2 and H3 outputs on the inputs of phases 3-5,
 computed with the port of the checkout at ROOT, which must be this
@@ -205,6 +216,25 @@ NEGFC_FG_TOL, NEGFC_MCMC_TOL = (0.5, 2.0, 0.2), (1.0, 3.0, 0.3)
 # the batched likelihood against the host lnprob, both float32 on the
 # card: vip_tpu's own device-against-host bound (tests/test_fm_negfc.py:83)
 NEGFC_HOST_RTOL = 1e-4
+# Slice 6 (phase 17): the inverse problems. The goldens' configurations
+# (tests/gen_golden.py:169-192) on the NACO replica (61x101², odd frames:
+# every rotation takes the plain route there), in float64 against VIP's
+# maps at FRAME_TOL (tests/test_golden.py:28) and in float32; FMMF over
+# the golden window r 26-34, which holds the injected companion (r 30) and
+# not the planet (r 16.6); NACO's plate scale, L' and the VLT's diameter
+# give ANDROMEDA's oversampling
+INV_GOLDEN_TOL = 1e-5
+INV_WINDOW, INV_BENCH_WINDOW = (26, 34), (26, 30)
+NACO_PLSC, NACO_LBDA, VLT_DIAM = 0.02719, 3.8e-6, 8.2
+# FastPACO's float32 S/N map against its float64 run on the card, relative
+# to max|snr| on the finite pixels
+PACO_F32_TOL = 1e-3
+# Full width: every INV_EVERY-th frame of the cube with the planted
+# companion, its central INV_SIZE² (PACO's statistics hold n·H·W·A
+# values), a 20² Gaussian PSF of FWHM COMP_FWHM (ANDROMEDA needs an even
+# PSF); FMMF over INV_FW_WINDOW around the companion's 60 px
+INV_EVERY, INV_SIZE, INV_FW_WINDOW = 10, 256, (58, 62)
+INV_FMMF_PARAM = {"ncomp": 10, "tolerance": 0.005, "delta_rot": 0.5}
 NMF4 = dict(ncomp=14, handle_neg="subtr_min")
 NMF_ANN4 = dict(ncomp=9, radius_int=20, asize=4, handle_neg="subtr_min")
 LLSG4 = dict(rank=5, thresh=1, max_iter=20, random_seed=10, fwhm=4)
@@ -1585,6 +1615,242 @@ def phase_negfc(pcube, angles_np, src, profile=False):
     return counts, times
 
 
+def _invprob_configs(fwhm):
+    """The goldens' ANDROMEDA and FMMF configurations (tests/gen_golden.py:
+    invprob_configs): {name: (entry point, keywords)}."""
+    oversamp = (NACO_LBDA / VLT_DIAM * 206265 / 2.0) / NACO_PLSC
+    andro = dict(oversampling_fact=oversamp, filtering_fraction=0.25,
+                 min_sep=0.5, annuli_width=1.0, roa=2, nsmooth_snr=18,
+                 iwa=2, owa=None, precision=50, fast=False,
+                 homogeneous_variance=True, ditimg=1.0, ditpsf=None,
+                 tnd=1.0, total=False, multiply_gamma=True, verbose=False)
+    fmmf = dict(fwhm=fwhm, var="FR", nproc=1, min_r=INV_WINDOW[0],
+                max_r=INV_WINDOW[1], param=INV_FMMF_PARAM, crop=5,
+                imlib="vip-fft", verbose=False)
+    return {"andro_adi": ("andromeda", dict(andro, opt_method="lsq")),
+            "androl1_adi": ("andromeda", dict(andro, opt_method="l1")),
+            "fmmf_kl_adi": ("fmmf", dict(fmmf, model="KLIP")),
+            "fmmf_lo_adi": ("fmmf", dict(fmmf, model="LOCI"))}
+
+
+def _host64(t):
+    return t.detach().cpu().double().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t, dtype=np.float64)
+
+
+def _found(snr, fwhm, yx):
+    """Whether the port's ``detection`` finds a source within 3 px of
+    (y, x) on an S/N map (NaN read as 0)."""
+    from vip_tpu_torch.metrics import detection
+
+    ys, xs = detection(np.nan_to_num(_host64(snr)), fwhm=fwhm, mode="lpeaks",
+                       bkg_sigma=5, matched_filter=False, mask=True,
+                       snr_thresh=2, plot=False, verbose=False)
+    return _near(ys, xs, (yx[1], yx[0]))
+
+
+def phase_invprob(pcube, angles_np, profile=False):
+    """Slice 6: ANDROMEDA (lsq, l1), FMMF (KLIP, LOCI) and FastPACO.
+
+    1. The NACO replica through float64 CUDA tensors against the goldens
+       (andro_adi, androl1_adi, fmmf_kl_adi, fmmf_lo_adi) at
+       INV_GOLDEN_TOL, and in float32: each float32 map's error against the
+       golden printed, each map's companions found with the port's
+       ``detection`` (the planet on ANDROMEDA's and PACO's maps, the
+       companions VIP found on the golden FMMF maps), FastPACO's float32
+       S/N within PACO_F32_TOL of its float64 run.
+    2. Full width (every INV_EVERY-th frame of the cube with the planted
+       companion, its central INV_SIZE²): ``andromeda`` (lsq, oversampling
+       2, iwa 2), ``FastPACO`` and ``fmmf`` KLIP over INV_FW_WINDOW, each
+       finding the companion, timed once with its H2 launches.
+    3. FMMF on one full-width annulus through H2 against the plain route.
+    4. bench.py's three invprob legs (bench.py:460-509) in float32, warm
+       median of 3; FMMF's batched form on one annulus of the replica
+       (warm median of 3) and its serial form once.
+    Returns {path: counts} and {name: seconds}."""
+    import vip_tpu_torch.invprob as ip
+    from vip_tpu_torch.var.shapes import get_annulus_segments
+
+    t_phase = time.perf_counter()
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+    meta = np.load(os.path.join(golden, "meta.npz"))
+    cube_np = np.load(os.path.join(golden, "inputs.npz"))["cube"]
+    angles, psfn = meta["angles"], meta["psfn"]
+    fwhm = float(meta["fwhm"])
+    planet = tuple(meta["planet_yx"])
+    configs = _invprob_configs(fwhm)
+    counts, times, maps = {}, {}, {}
+
+    def run(name, fn):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        counts[name] = _counts()
+        _require(counts[name]["H1"] == counts[name]["H3"]
+                 == counts[name]["H4"] == 0, f"{name}: {counts[name]}")
+        return out
+
+    def window_pixels(window):
+        pix = [get_annulus_segments(cube_np[0], r, 1)[0]
+               for r in range(*window)]
+        return (np.concatenate([p[0] for p in pix]),
+                np.concatenate([p[1] for p in pix]))
+
+    win = window_pixels(INV_WINDOW)
+    errs = {}
+    for dt, tag in ((torch.float64, "float64"), (torch.float32, "float32")):
+        cube_t = torch.as_tensor(cube_np, dtype=dt, device=DEVICE)
+        for name, (fn, kw) in configs.items():
+            res = run(f"{name} {tag}", lambda: getattr(ip, fn)(
+                cube=cube_t, angle_list=angles, psf=psfn, **kw))
+            if fn == "andromeda":
+                pair = (res[0], res[2])
+                refs = (f"{name}.npy",
+                        f"{name.replace('_adi', '')}_snr_adi.npy")
+                sel = (slice(None), slice(None))
+            else:
+                pair, refs, sel = res, (f"{name}.npy", f"{name}_snr.npy"), win
+            maps[(name, tag)] = pair
+            errs[(name, tag)] = [float(np.nanmax(np.abs(
+                _host64(m)[sel] - np.load(os.path.join(golden, r))[sel])))
+                for m, r in zip(pair, refs)]
+        maps[("fastpaco", tag)] = run(f"fastpaco {tag}", lambda: ip.FastPACO(
+            cube=cube_t, angles=angles, psf=psfn, fwhm=fwhm,
+            pixscale=1.0).run()[0])
+        del cube_t
+    for name in configs:
+        e64, e32 = errs[(name, "float64")], errs[(name, "float32")]
+        print(f"invprob {name} against VIP's golden (max abs, map and S/N):"
+              f" float64 {e64[0]:.3e}, {e64[1]:.3e} in "
+              f"{times[name + ' float64']:.3f} s; float32 {e32[0]:.3e}, "
+              f"{e32[1]:.3e} in {times[name + ' float32']:.3f} s; launches "
+              f"{counts[name + ' float32']}", flush=True)
+        _require(max(e64) <= INV_GOLDEN_TOL, f"invprob {name}: float64 "
+                 f"{e64} from the golden, over {INV_GOLDEN_TOL}")
+        found = np.load(os.path.join(golden, f"{name}_detect.npy"))
+        expect = [c for c in (planet, tuple(meta["injected_yx"]))
+                  if _near(found[:, 0], found[:, 1], (c[1], c[0]))]
+        if name.startswith("andro"):
+            _require(planet in expect, f"{name}: VIP missed the planet")
+        for c in expect:
+            _require(_found(maps[(name, "float32")][1], fwhm, c),
+                     f"invprob {name} float32: the companion at {c} missed")
+    s64 = _host64(maps[("fastpaco", "float64")])
+    s32 = _host64(maps[("fastpaco", "float32")])
+    fin = np.isfinite(s64)
+    _require(np.array_equal(fin, np.isfinite(s32)), "fastpaco: NaN pixels")
+    paco_err = float(np.abs(s32 - s64)[fin].max() / np.abs(s64[fin]).max())
+    t64, t32 = times["fastpaco float64"], times["fastpaco float32"]
+    print(f"invprob FastPACO on the replica: float64 {t64:.3f} s, float32 "
+          f"{t32:.3f} s; "
+          f"float32 S/N against float64 {paco_err:.3e} of max|snr| "
+          f"{np.abs(s64[fin]).max():.3f} (bound {PACO_F32_TOL:.0e}); "
+          f"launches {counts['fastpaco float32']}", flush=True)
+    _require(paco_err <= PACO_F32_TOL, "fastpaco: float32 against float64")
+    for tag in ("float64", "float32"):
+        _require(_found(maps[("fastpaco", tag)], fwhm, planet),
+                 f"fastpaco {tag}: the planet missed")
+    print(f"invprob: {time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+
+    # full width: the cube with the planted companion, cut
+    c0 = (SIZE - INV_SIZE) // 2
+    cube_fw = pcube[::INV_EVERY, c0:c0 + INV_SIZE, c0:c0 + INV_SIZE] \
+        .contiguous()
+    angs_fw = angles_np[::INV_EVERY].astype(np.float64)
+    comp = (INV_SIZE // 2, INV_SIZE // 2 + COMP_SEP)
+    yy, xx = np.mgrid[:20, :20]
+    sig = COMP_FWHM / (2 * np.sqrt(2 * np.log(2)))
+    psf20 = np.exp(-((yy - 10.0) ** 2 + (xx - 10.0) ** 2) / (2 * sig ** 2))
+    fmmf_fw = dict(fwhm=COMP_FWHM, model="KLIP", var="FR",
+                   param=INV_FMMF_PARAM, crop=5, imlib="vip-fft",
+                   verbose=False)
+    full = {
+        "andromeda full width": lambda: ip.andromeda(
+            cube=cube_fw, angle_list=angs_fw, psf=psf20,
+            oversampling_fact=2, iwa=2, opt_method="lsq", verbose=False)[2],
+        "fastpaco full width": lambda: ip.FastPACO(
+            cube=cube_fw, angles=angs_fw, psf=psf20, fwhm=COMP_FWHM,
+            pixscale=1.0).run()[0],
+        "fmmf full width": lambda: ip.fmmf(
+            cube=cube_fw, angle_list=angs_fw, psf=psf20 / psf20.sum(),
+            min_r=INV_FW_WINDOW[0], max_r=INV_FW_WINDOW[1], **fmmf_fw)[1],
+    }
+    for name, fn in full.items():
+        snr = run(name, fn)
+        hit = _found(snr, COMP_FWHM, comp)
+        print(f"invprob {name} ({cube_fw.shape[0]}x{INV_SIZE}^2): "
+              f"{times[name]:.3f} s, launches {counts[name]}, max S/N "
+              f"{float(np.nanmax(_host64(snr))):.2f}, companion at "
+              f"{comp} found: {hit}", flush=True)
+        _require(hit, f"invprob {name}: the companion at {comp} missed")
+    _require(counts["fmmf full width"]["H2"] > 0, "fmmf: H2 never launched")
+
+    # one full-width annulus through H2 and through the plain route
+    r = int(COMP_SEP)
+    one = dict(fmmf_fw, min_r=r, max_r=r + 1)
+    kernel = ip.fmmf(cube=cube_fw, angle_list=angs_fw, psf=psf20, **one)
+    with _plain_route():
+        plain = ip.fmmf(cube=cube_fw, angle_list=angs_fw, psf=psf20, **one)
+    plain_err = max(e / scale for e, scale in (
+        _rel_err(k, p) for k, p in zip(kernel, plain)))
+    print(f"invprob fmmf r={r} through H2 against the plain route: "
+          f"{plain_err:.3e} of max(|ref|, 1) (bound {PIPE_TOL:.0e})",
+          flush=True)
+    _require(plain_err <= PIPE_TOL, "fmmf disagrees with the plain route")
+
+    # bench.py's invprob legs, and FMMF's two forms on one annulus
+    cube32 = torch.as_tensor(cube_np, dtype=torch.float32, device=DEVICE)
+    legs = {
+        "bench andromeda lsq": lambda: ip.andromeda(
+            cube=cube32, angle_list=angles, psf=psfn,
+            **configs["andro_adi"][1]),
+        "bench fastpaco": lambda: ip.FastPACO(
+            cube=cube32, angles=angles, psf=psfn, fwhm=fwhm,
+            pixscale=1.0).run(),
+        "bench fmmf klip r26-30": lambda: ip.fmmf(
+            cube=cube32, angle_list=angles, psf=psfn,
+            **dict(configs["fmmf_kl_adi"][1], min_r=INV_BENCH_WINDOW[0],
+                   max_r=INV_BENCH_WINDOW[1])),
+    }
+    for name, fn in legs.items():
+        t = _sync_times(fn)
+        times[name] = float(np.median(t))
+        print(f"timing {name} (61x101^2 float32, median [min, max] of 3): "
+              f"{_spread(t)} s", flush=True)
+    # the serial form once (7.8-16.2 s an annulus here, 17-48x the
+    # batched one, on an H100 80GB HBM3 at 700 W: PERF.md), after the
+    # batched form's warm median of 3
+    kw26 = dict(configs["fmmf_kl_adi"][1], min_r=26, max_r=27)
+    with _env("VIP_TPU_FMMF_BATCHED", "1"):
+        t_batched = _sync_times(lambda: ip.fmmf(
+            cube=cube32, angle_list=angles, psf=psfn, **kw26))
+    with _env("VIP_TPU_FMMF_BATCHED", "0"):
+        run("fmmf serial form", lambda: ip.fmmf(
+            cube=cube32, angle_list=angles, psf=psfn, **kw26))
+    t_serial = times["fmmf serial form"]
+    times["fmmf r=26 batched"] = float(np.median(t_batched))
+    print(f"timing fmmf one annulus of the replica (r=26, KLIP): "
+          f"VIP_TPU_FMMF_BATCHED=1 {_spread(t_batched)} s, =0 (once) "
+          f"{t_serial:.4f} s", flush=True)
+    if profile:
+        with _env("VIP_TPU_FMMF_BATCHED", "1"):
+            prof_wall, table = _profile_table(lambda: ip.fmmf(
+                cube=cube_fw, angle_list=angs_fw, psf=psf20, **one), rows=12)
+        print(f"invprob fmmf r={r} full width under the profiler "
+              f"{prof_wall:.4f} s; top ops by device time:\n{table}",
+              flush=True)
+    print(f"invprob cuts: the full-width runs on every {INV_EVERY}th frame "
+          f"({cube_fw.shape[0]} of {N_FRAMES}) and the central {INV_SIZE}^2;"
+          f" the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts, times
+
+
 def _moffat_psf(size=39, fwhm=4.800919383981533, alpha=2.5, peak=1680.0):
     """The NACO replica's raw PSF (tests/naco_replica.py:moffat_psf)."""
     gamma = fwhm / (2.0 * np.sqrt(2.0 ** (1.0 / alpha) - 1.0))
@@ -2055,10 +2321,12 @@ def main():
     phase_f2()
     slice4 = phase_slice4(pcube, angles_np, src)
     negfc_counts, negfc_times = phase_negfc(pcube, angles_np, src)
+    invprob_counts, invprob_times = phase_invprob(pcube, angles_np)
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
     new_paths.update({k: v[0] for k, v in slice4.items()})
     new_paths.update(negfc_counts)
+    new_paths.update(invprob_counts)
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -2205,6 +2473,8 @@ def main():
         f"{k} {v[1]:.4f}" for k, v in slice4.items()), flush=True)
     print("timing NEGFC (s; see the phase 16 lines): " + ", ".join(
         f"{k} {v:.4f}" for k, v in negfc_times.items()), flush=True)
+    print("timing slice 6 (s; see the phase 17 lines): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in invprob_times.items()), flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
@@ -2303,6 +2573,24 @@ def negfc_only():
           flush=True)
 
 
+def invprob_only():
+    """Phase 17 alone (``--invprob``): the build, the cube with the planted
+    companion, slice 6, with a torch.profiler table of one FMMF
+    annulus."""
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    angles_np = np.linspace(0.0, 80.0, N_FRAMES).astype(np.float32)
+    pcube, _ = _plant_companion(cube, angles_np)
+    del cube
+    counts, _ = phase_invprob(pcube, angles_np, profile=True)
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()),
+          flush=True)
+
+
 def kernel_digests(root):
     """SHA-256 (first 16 hex digits) of the outputs of H1 (both propagate
     modes), H2 (512² and 160²) and H3 on the inputs of phases 3-5, with the
@@ -2361,6 +2649,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--negfc":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         negfc_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--invprob":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        invprob_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

@@ -765,3 +765,113 @@ def test_negfc_speckle_noise_on_the_card(cuda_device):
     for dr, dth, df in offsets:
         assert _near_truth(r + dr, theta + dth, f + df)
     assert counts[0] > 3 and counts[1] == 3 * counts[0]
+
+
+# Slice 6, the inverse problems: ANDROMEDA, FMMF and FastPACO on small
+# cubes, float32 on the card against the CPU float64 mode, relative to
+# max|ref|: float32 sums over windows, patches and KLIP bases (measured
+# at most 2.1e-6, 1.1e-6 and 2.2e-6 on an H100 80GB HBM3 at 700 W)
+ANDROMEDA_CARD_TOL = FMMF_CARD_TOL = PACO_CARD_TOL = 1e-5
+
+
+def _companion_cube(n, size, angles, sep, theta, peak, seed, level=0.0):
+    """White noise (plus ``level``) with a Gaussian companion of FWHM 4 at
+    (sep, theta) of the frame centre turning with ``angles``."""
+    rng = np.random.default_rng(seed)
+    cube = rng.standard_normal((n, size, size)) + level
+    yy, xx = np.mgrid[:size, :size]
+    c = size // 2
+    for k, a in enumerate(angles):
+        t = np.deg2rad(theta - a)
+        cube[k] += peak * np.exp(
+            -((yy - c - sep * np.sin(t)) ** 2 + (xx - c - sep * np.cos(t))
+              ** 2) / (2 * (4 / 2.355) ** 2))
+    return cube
+
+
+def _gaussian_stamp(size, fwhm=4.0):
+    yy, xx = np.mgrid[:size, :size]
+    c = size // 2
+    return np.exp(-((yy - c) ** 2 + (xx - c) ** 2) / (2 * (fwhm / 2.355)
+                                                        ** 2))
+
+
+def _card_and_cpu(run, cube):
+    """``run(cube tensor)`` with the cube in float32 on the card and in
+    float64 on the CPU; the card's result and H2 launches, and the CPU's
+    result."""
+    before = shear.launches
+    got = run(torch.as_tensor(cube, dtype=torch.float32, device="cuda"))
+    torch.cuda.synchronize()
+    h2 = shear.launches - before
+    return got, h2, run(torch.as_tensor(cube, dtype=torch.float64))
+
+
+def _rel_to(got, ref):
+    got = got.cpu().double().numpy()
+    ref = ref.numpy()
+    fin = np.isfinite(ref)
+    assert np.array_equal(np.isfinite(got), fin)
+    return np.abs(got[fin] - ref[fin]).max() / np.abs(ref[fin]).max()
+
+
+@pytest.mark.parametrize("opt_method", ["lsq", "l1"])
+def test_invprob_andromeda_on_the_card(cuda_device, opt_method):
+    import vip_tpu_torch.invprob as ip
+
+    angles = np.linspace(-20, 20, 12)
+    cube = _companion_cube(12, 40, angles, 8.5, 70.0, 20.0, seed=42)
+    psf = _gaussian_stamp(8)
+    got, h2, ref = _card_and_cpu(lambda c: ip.andromeda(
+        cube=c, angle_list=angles, psf=psf, oversampling_fact=1.2,
+        filtering_fraction=0.3, nsmooth_snr=8, precision=8,
+        opt_method=opt_method, verbose=False), cube)
+    errs = [_rel_to(g, r) for g, r in zip(got[:6], ref[:6])]
+    print(f"ANDROMEDA {opt_method} on the card against the CPU float64 "
+          f"mode: " + ", ".join(f"{e:.3e}" for e in errs))
+    assert got[0].is_cuda and got[0].dtype == torch.float32 and h2 == 0
+    assert max(errs) <= ANDROMEDA_CARD_TOL
+
+
+@pytest.mark.parametrize("model", ["KLIP", "LOCI"])
+def test_invprob_fmmf_on_the_card(cuda_device, monkeypatch, model):
+    import vip_tpu_torch.invprob as ip
+
+    angles = np.linspace(0, 60, 15)
+    cube = _companion_cube(15, 40, angles, 6.0, 0.0, 10.0, seed=3)
+    psf = _gaussian_stamp(11)
+    psf /= psf.sum()
+    monkeypatch.delenv("VIP_TPU_FMMF_BATCHED", raising=False)
+    got, h2, ref = _card_and_cpu(lambda c: ip.fmmf(
+        cube=c, angle_list=angles, psf=psf, fwhm=4.0, min_r=5, max_r=8,
+        model=model, param={"ncomp": 5, "tolerance": 5e-3,
+                            "delta_rot": 0.25}, crop=5, verbose=False),
+        cube)
+    errs = [_rel_to(g, r) for g, r in zip(got, ref)]
+    print(f"FMMF {model} on the card (batched form): H2 {h2}; against the "
+          f"CPU float64 mode (serial form) {errs[0]:.3e}, {errs[1]:.3e}")
+    # 40² frames: H2 on N = 160; three annuli, each derotating its
+    # residual cube and its model frames (one chunk of pixels) in one
+    # chunk each: 3 launches a chunk
+    assert h2 == 18
+    assert max(errs) <= FMMF_CARD_TOL
+    snr = got[1].cpu().numpy()
+    peak = np.unravel_index(np.argmax(snr), snr.shape)
+    assert np.hypot(peak[0] - 20, peak[1] - 26) <= 3
+
+
+def test_invprob_fastpaco_on_the_card(cuda_device):
+    import vip_tpu_torch.invprob as ip
+
+    angles = np.linspace(0, 50, 8)
+    cube = _companion_cube(8, 24, angles, 7.0, 45.0, 15.0, seed=5,
+                           level=5.0)
+    psf = _gaussian_stamp(9, fwhm=2.355)
+    got, h2, ref = _card_and_cpu(lambda c: ip.FastPACO(
+        cube=c, angles=angles, psf=psf, fwhm=2.0, pixscale=1.0).run(),
+        cube)
+    err = _rel_to(got[0], ref[0])
+    print(f"FastPACO on the card against the CPU float64 mode: S/N {err:.3e}"
+          f", flux {_rel_to(got[1], ref[1]):.3e}")
+    assert got[0].is_cuda and got[0].dtype == torch.float32 and h2 == 0
+    assert err <= PACO_CARD_TOL

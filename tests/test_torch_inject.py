@@ -194,8 +194,14 @@ def test_normalize_psf_vs_vip_tpu():
                                   verbose=False)) <= 1e-8
     assert _err(tfm.collapse_psf_cube(cube, 15, verbose=False),
                 jfm.collapse_psf_cube(cube, 15, verbose=False)) <= 1e-8
-    with pytest.raises(NotImplementedError):
-        tfm.normalize_psf(psf, fwhm=4.0, model="moff", verbose=False)
+    # the Moffat and Airy centring fits (ported with slice 6)
+    for model in ("moff", "airy"):
+        ours = tfm.normalize_psf(psf, fwhm=4.0, model=model, verbose=False,
+                                 full_output=True)
+        theirs = jfm.normalize_psf(psf, fwhm=4.0, model=model,
+                                   verbose=False, full_output=True)
+        assert _err(ours[0], theirs[0]) <= 1e-8
+        assert abs(ours[1] - theirs[1]) <= 1e-8 * abs(theirs[1])
 
 
 def test_generate_copies_draws_from_the_generator(small):

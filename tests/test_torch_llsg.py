@@ -160,10 +160,17 @@ def test_thresholding_vs_vip_tpu(mode):
 
 
 def test_llsg_high_pass_waits_for_slice_8(small):
+    """``high_pass`` (once waiting for slice 8's high-pass filters, ported
+    with slice 6): the decomposition of the median-subtracted,
+    'laplacian-conv' filtered cube, against vip_tpu at TOL."""
     cube, angles = small
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tps.llsg(cube=cube, angle_list=angles, fwhm=4, high_pass=5,
-                 verbose=False)
+    for kernel in (3, 5):
+        args = dict(fwhm=4, rank=5, thresh=1, max_iter=5, random_seed=10,
+                    high_pass=kernel, verbose=False)
+        ref = jps.llsg(cube=cube.copy(), angle_list=angles, **args)
+        got = tps.llsg(cube=cube.copy(), angle_list=angles, **args)
+        assert float(torch.abs(got).max()) > 0
+        assert _err(got, ref) <= TOL
 
 
 def test_golden_llsg(golden_ds):

@@ -11,8 +11,9 @@ vip_tpu, on the CPU at float64.
   ``pca_annulus``, ``pca_annular`` and ``pca``, with and without the
   companion removed first (``f_guess``): 1e-9 of max(|ref|, 1e-3) (the
   annular PCA's per-frame SVDs agree to ~1e-12).
-- what is not ported raises: 4-d cubes (slice 7), the high-pass filter
-  of ``algo_options`` (slice 8).
+- ``get_mu_and_sigma`` with the high-pass filter of ``algo_options``
+  (``hp_filter`` and ``hp_kernel``, three modes): 1e-9 as above.
+- what is not ported raises: 4-d cubes (slice 7).
 """
 
 import numpy as np
@@ -143,9 +144,25 @@ def test_get_mu_and_sigma_wedge(data):
         assert np.allclose(got, ref, rtol=ALGO_TOL, atol=0)
 
 
+@pytest.mark.parametrize("hp", [("median-subt", 5), ("gauss-subt", 3),
+                                ("laplacian-conv", 3)],
+                         ids=lambda hp: hp[0])
+def test_get_mu_and_sigma_high_pass(data, hp):
+    cube, angles, psfn, _ = data
+    opts = {"hp_filter": hp[0], "hp_kernel": hp[1]}
+    ref = jfm.get_mu_and_sigma(cube, angles, 3, 4, 1, FWHM, R, THETA,
+                               f_guess=FLUX, psfn=psfn,
+                               algo_options=dict(opts))
+    got = tfm.get_mu_and_sigma(cube, angles, 3, 4, 1, FWHM, R, THETA,
+                               f_guess=FLUX, psfn=psfn,
+                               algo_options=dict(opts))
+    assert abs(got[0] - ref[0]) <= ALGO_TOL * max(abs(ref[1]), 1e-3)
+    assert abs(got[1] - ref[1]) <= ALGO_TOL * abs(ref[1])
+
+
 def test_what_is_not_ported_raises(data):
     cube, angles, psfn, _ = data
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(TypeError, match="not recognized"):
         tfm.get_mu_and_sigma(cube, angles, 3, 4, 1, FWHM, R, THETA,
                              algo_options={"hp_filter": "median",
                                            "hp_kernel": 3})

@@ -13,7 +13,7 @@ use. Subpackages load lazily.
 __version__ = "0.1.0"
 
 _SUBPACKAGES = ("config", "var", "preproc", "ops", "psfsub", "metrics", "fm",
-                "fits", "greedy")
+                "fits", "greedy", "invprob")
 
 from .config.device import get_device, set_device  # noqa: E402
 

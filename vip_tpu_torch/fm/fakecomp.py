@@ -12,9 +12,8 @@ the card instead, through ``ops.inject.inject_ladder_adi``.
 
 The stamps shift by 'vip-fft' (VIP's padded shift) or 'ndimage-fourier'
 (scipy's cyclic shift, NEGFC's default, ``ops.fft.cyclic_fourier_shift``),
-either one batch for all frames; the interpolating imlibs, and
-``normalize_psf``'s Moffat and Airy fits, wait for ROADMAP Queue 1,
-slice 8.
+either one batch for all frames; the interpolating imlibs wait for
+ROADMAP Queue 1, slice 8.
 """
 
 import numpy as np
@@ -29,7 +28,7 @@ from ..preproc.cosmetics import cube_crop_frames, frame_crop
 from ..preproc.derotation import frame_rotate
 from ..preproc.recentering import cube_shift, frame_shift
 from ..var.coords import dist_matrix, frame_center
-from ..var.fit_2d import _gaussian_fit
+from ..var.fit_2d import _airy_fit, _gaussian_fit, _moffat_fit
 from ..var.shapes import get_annulus_segments, get_circle
 
 __all__ = ["cube_inject_companions", "generate_cube_copies_with_injections",
@@ -355,17 +354,16 @@ def normalize_psf(array, fwhm="fit", size=None, threshold=None,
     """Normalize a PSF frame or cube (vip_tpu fakecomp.py:347): crop to an
     odd size, recentre it to a sub-pixel by 2-d Gaussian fits and FFT
     shifts, and scale the flux in an aperture of diameter ``fwhm`` to 1.
-    Host numpy out; the fits run without pandas. ``model='moff'`` and
-    ``'airy'`` wait for slice 8."""
-    if model in ("moff", "airy"):
-        raise NotImplementedError(
-            f"normalize_psf: model {model!r} is not ported yet (only "
-            f"'gauss') {_SLICE8}")
-    if model != "gauss":
+    ``model`` is the 2-d fit of the centring and of ``fwhm='fit'``:
+    'gauss', 'moff' (Moffat) or 'airy'. Host numpy out; the fits run
+    without pandas."""
+    fits = {"gauss": _gaussian_fit, "moff": _moffat_fit, "airy": _airy_fit}
+    if model not in fits:
         raise ValueError("`Model` not recognized")
+    fit_2d = fits[model]
 
     def centroid(psf):
-        fit = _gaussian_fit(psf, debug=False)
+        fit = fit_2d(psf, debug=False)
         return fit["centroid_y"], fit["centroid_x"]
 
     def psf_norm_2d(psf, fwhm, threshold, mask_core, full_output, verbose):
@@ -404,8 +402,10 @@ def normalize_psf(array, fwhm="fit", size=None, threshold=None,
         return psf_norm_array
 
     def fit_fwhm(frame):
-        fit = _gaussian_fit(frame, debug=debug)
-        return float(np.mean((fit["fwhm_x"], fit["fwhm_y"])))
+        fit = fit_2d(frame, debug=debug)
+        if model == "gauss":
+            return float(np.mean((fit["fwhm_x"], fit["fwhm_y"])))
+        return float(fit["fwhm"])
 
     def odd_size(size, y):
         if size is not None:
@@ -433,7 +433,8 @@ def normalize_psf(array, fwhm="fit", size=None, threshold=None,
         if isinstance(fwhm, str) and fwhm == "fit":
             fwhm = fit_fwhm(array)
             if verbose:
-                print(f"\nMean FWHM: {fwhm:.3f}")
+                print(f"\nMean FWHM: {fwhm:.3f}" if model == "gauss"
+                      else f"FWHM: {fwhm:.3f}")
         return psf_norm_2d(array, fwhm, threshold, mask_core, full_output,
                            verbose)
 

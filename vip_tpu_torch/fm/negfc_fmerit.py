@@ -10,8 +10,10 @@ a radial-gradient transmission the host injector
 on the host and computes the merit there. ``get_mu_and_sigma`` reduces
 the cube (with the companion removed when its flux is given) and takes
 the statistics of an annular wedge. The algos' frames come back to the
-host as float64 numpy. 4-d cubes wait for ROADMAP Queue 1, slice 7, the
-high-pass filter of ``algo_options`` for slice 8.
+host as float64 numpy. The high-pass filter of ``algo_options``
+(``hp_filter``, ``hp_kernel``) filters the cube on its device before the
+reduction (``var.filters.cube_filter_highpass``). 4-d cubes wait for
+ROADMAP Queue 1, slice 7.
 """
 
 import numpy as np
@@ -26,6 +28,7 @@ from ..psfsub.pca_fullfr import pca
 from ..psfsub.pca_local import pca_annular
 from ..psfsub.utils_pca import pca_annulus
 from ..var.coords import frame_center
+from ..var.filters import cube_filter_highpass
 from ..var.shapes import disk_coords, get_annular_wedge, get_annulus_segments
 from .fakecomp import (_extend_transmission, _host, cube_inject_companions,
                        cube_planet_free)
@@ -324,10 +327,11 @@ def get_mu_and_sigma(cube, angs, ncomp, annulus_width, aperture_radius, fwhm,
 
     hp = _pull(hp_filter=None, hp_kernel=None)
     if hp["hp_filter"] is not None:
-        raise NotImplementedError(
-            "get_mu_and_sigma: algo_options 'hp_filter' needs "
-            "var.filters.cube_filter_highpass, not ported yet (ROADMAP.md, "
-            "Queue 1, slice 8)")
+        mode = hp["hp_filter"]
+        size_kw = ("median_size" if "median" in mode
+                   else "fwhm_size" if "gauss" in mode else "kernel_size")
+        array = cube_filter_highpass(array, mode=mode,
+                                     **{size_kw: hp["hp_kernel"]})
 
     # the inverse-angle reduction (speckle-noise realization with the
     # companion removed) is needed whenever a planet was subtracted

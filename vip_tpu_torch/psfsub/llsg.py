@@ -8,10 +8,10 @@ sparse term, carry the rest forward. The host keeps the control loop and
 the random draws: ``np.random.RandomState(random_seed)`` as in vip_tpu, so
 the draws are the same numbers; the QR and the SVDs run on the device.
 The sparse term is derotated by ``cube_derotate`` (H2 on a float32 card
-cube) and collapsed by ``cube_collapse`` (H1 for the median).
-
-``high_pass`` needs ``var.filters.cube_filter_highpass``, which is not
-ported yet: anything but None raises (ROADMAP.md Queue 1, slice 8).
+cube) and collapsed by ``cube_collapse`` (H1 for the median). With
+``high_pass`` the decomposition runs on the cube high-pass filtered as in
+vip_tpu: a 19-px median subtracted, then the 'laplacian-conv' kernel of
+that size (``var.filters.cube_filter_highpass``).
 """
 
 from dataclasses import dataclass
@@ -27,6 +27,7 @@ from ..config.device import as_tensor
 from ..config.utils_param import resolve_algo_params
 from ..preproc.derotation import cube_derotate
 from ..preproc.subsampling import cube_collapse
+from ..var.filters import cube_filter_highpass
 from ..var.shapes import get_annulus_segments, resolve_n_segments
 from .nmf_fullfr import median_all
 from .pca_fullfr import _value
@@ -94,10 +95,13 @@ def llsg(*all_args: List, **all_kwargs: dict):
         if p.low_rank_ref:
             raise ValueError("Low_rank_ref only works with SVD "
                              "low_rank_mode")
+    cube_init = cube
     if p.high_pass is not None:
-        raise NotImplementedError(
-            "llsg(high_pass=...) needs var.filters.cube_filter_highpass, "
-            "which is not ported yet (ROADMAP.md Queue 1, slice 8)")
+        cube_init = cube_filter_highpass(cube, "median-subt", median_size=19,
+                                         verbose=False)
+        cube_init = cube_filter_highpass(cube_init, "laplacian-conv",
+                                         kernel_size=p.high_pass,
+                                         verbose=False)
 
     start_time = time_ini() if p.verbose else None
     n, y, x = cube.shape
@@ -116,7 +120,7 @@ def llsg(*all_args: List, **all_kwargs: dict):
     n_terms = 3 if p.full_output else 1
     terms = torch.zeros((n_terms, n_rots, n, y * x), dtype=cube.dtype,
                         device=cube.device)
-    flat = cube.reshape(n, -1)
+    flat = cube_init.reshape(n, -1)
     opts = dict(thresh_mode=str(_value(p.thresh_mode)),
                 auto_rank_mode=str(_value(p.auto_rank_mode)))
     if p.verbose:

@@ -1,15 +1,16 @@
-"""2-d Gaussian model and fit (port of the part of ``vip_tpu.var.fit_2d``
-that ``metrics.detection`` uses).
+"""2-d Gaussian, Moffat and Airy models and fits (port of
+``vip_tpu.var.fit_2d``).
 
-Host numpy and scipy, as in vip_tpu: the model matches astropy's
-Gaussian2D, the fit is Levenberg-Marquardt through
-``scipy.optimize.least_squares`` with vip_tpu's initialization
-(center-of-mass centroid, peak-to-peak amplitude). Moffat, Airy and the
-double Gaussian wait for ROADMAP Queue 1, slice 8.
+Host numpy and scipy, as in vip_tpu: the models match astropy's
+Gaussian2D, Moffat2D and AiryDisk2D, the fits are Levenberg-Marquardt
+through ``scipy.optimize.least_squares`` with vip_tpu's initialization
+(center-of-mass centroid, peak-to-peak amplitude). The double Gaussian
+and ``create_synth_psf`` wait for ROADMAP Queue 1, slice 8.
 """
 
 import numpy as np
 from scipy.optimize import least_squares
+from scipy.special import j1
 
 from ..config.utils_conf import check_array
 from .coords import frame_center
@@ -18,8 +19,9 @@ from .shapes import get_square
 GAUSSIAN_FWHM_TO_SIGMA = 1.0 / (2.0 * np.sqrt(2.0 * np.log(2.0)))
 GAUSSIAN_SIGMA_TO_FWHM = 2.0 * np.sqrt(2.0 * np.log(2.0))
 
-__all__ = ["fit_2dgaussian", "gaussian_2d", "GAUSSIAN_FWHM_TO_SIGMA",
-           "GAUSSIAN_SIGMA_TO_FWHM"]
+__all__ = ["fit_2dgaussian", "fit_2dmoffat", "fit_2dairydisk",
+           "gaussian_2d", "moffat_2d", "airydisk_2d",
+           "GAUSSIAN_FWHM_TO_SIGMA", "GAUSSIAN_SIGMA_TO_FWHM"]
 
 
 def gaussian_2d(x, y, amplitude, x_mean, y_mean, x_stddev, y_stddev, theta):
@@ -35,6 +37,24 @@ def gaussian_2d(x, y, amplitude, x_mean, y_mean, x_stddev, y_stddev, theta):
     xd = x - x_mean
     yd = y - y_mean
     return amplitude * np.exp(-(a * xd ** 2 + b * xd * yd + c * yd ** 2))
+
+
+def moffat_2d(x, y, amplitude, x_0, y_0, gamma, alpha):
+    """astropy Moffat2D (vip_tpu fit_2d.py:43)."""
+    rr_gg = ((x - x_0) ** 2 + (y - y_0) ** 2) / gamma ** 2
+    return amplitude * (1 + rr_gg) ** (-alpha)
+
+
+def airydisk_2d(x, y, amplitude, x_0, y_0, radius):
+    """astropy AiryDisk2D, its first zero at ``radius`` (vip_tpu
+    fit_2d.py:49)."""
+    rz = 1.2196698912665045  # first zero of j1(pi x)/x, over pi
+    r = np.hypot(x - x_0, y - y_0) / (radius / rz)
+    out = np.ones_like(r)
+    mask = r > 0
+    rt = np.pi * r[mask]
+    out[mask] = (2.0 * j1(rt) / rt) ** 2
+    return amplitude * out
 
 
 def _centroid_com(data):
@@ -108,22 +128,29 @@ def _prepare_subimage(array, crop, cent, cropsize, bpm):
     return psf_subimage, bpm_subimage, suby, subx
 
 
-def _gaussian_fit(array, crop=False, cent=None, cropsize=15, fwhmx=4,
-                  fwhmy=4, theta=0, threshold=False, sigfactor=6, bpm=None,
-                  debug=True):
-    """The 2-d Gaussian fit of :func:`fit_2dgaussian` as a dict of its
-    table's columns (floats), without pandas."""
+def _fit_data(array, crop, cent, cropsize, threshold, sigfactor, bpm):
+    """The sub-image of a fit, its good pixels' coordinates and values,
+    the initial amplitude and centroid, and the sub-image's corner."""
     check_array(array, dim=2, msg="array")
     psf_subimage, bpm_subimage, suby, subx = _prepare_subimage(
         array, crop, cent, cropsize, bpm)
     if threshold:
         psf_subimage = _threshold_noise(psf_subimage, sigfactor)
-
     good = ~bpm_subimage
     init_amplitude = np.ptp(psf_subimage[good])
     xcom, ycom = _centroid_com(psf_subimage)
     y, x = np.indices(psf_subimage.shape)
-    xg, yg, data = x[good], y[good], psf_subimage[good]
+    return (x[good], y[good], psf_subimage[good], init_amplitude, xcom, ycom,
+            suby, subx)
+
+
+def _gaussian_fit(array, crop=False, cent=None, cropsize=15, fwhmx=4,
+                  fwhmy=4, theta=0, threshold=False, sigfactor=6, bpm=None,
+                  debug=True):
+    """The 2-d Gaussian fit of :func:`fit_2dgaussian` as a dict of its
+    table's columns (floats), without pandas."""
+    xg, yg, data, init_amplitude, xcom, ycom, suby, subx = _fit_data(
+        array, crop, cent, cropsize, threshold, sigfactor, bpm)
     p0 = np.array([init_amplitude, xcom, ycom,
                    fwhmx * GAUSSIAN_FWHM_TO_SIGMA,
                    fwhmy * GAUSSIAN_FWHM_TO_SIGMA, theta])
@@ -164,6 +191,92 @@ def fit_2dgaussian(array, crop=False, cent=None, cropsize=15, fwhmx=4,
     then), else the (y, x) centroid."""
     fit = _gaussian_fit(array, crop, cent, cropsize, fwhmx, fwhmy, theta,
                         threshold, sigfactor, bpm, debug)
+    if full_output:
+        import pandas as pd
+
+        return pd.DataFrame(fit, index=[0], dtype=np.float64)
+    return fit["centroid_y"], fit["centroid_x"]
+
+
+def _moffat_fit(array, crop=False, cent=None, cropsize=15, fwhm=4,
+                threshold=False, sigfactor=6, bpm=None, debug=True):
+    """The 2-d Moffat fit of :func:`fit_2dmoffat` as a dict of its table's
+    columns (floats), without pandas."""
+    xg, yg, data, init_amplitude, xcom, ycom, suby, subx = _fit_data(
+        array, crop, cent, cropsize, threshold, sigfactor, bpm)
+    alpha0 = 1.5
+    gamma0 = fwhm / (2.0 * np.sqrt(2 ** (1 / alpha0) - 1))
+    p0 = np.array([init_amplitude, xcom, ycom, gamma0, alpha0])
+
+    def resid(p):
+        return moffat_2d(xg, yg, *p) - data
+
+    p, perr = _lm_fit(resid, p0)
+    amplitude, mean_x, mean_y, gamma, alpha = p
+    mean_y_tot = mean_y + suby
+    mean_x_tot = mean_x + subx
+    fwhm_fit = np.abs(2 * gamma * np.sqrt(2 ** (1 / alpha) - 1))
+    if debug:
+        print("FWHM =", fwhm_fit)
+        print("centroid y =", mean_y_tot)
+        print("centroid x =", mean_x_tot)
+    return {"centroid_y": mean_y_tot, "centroid_x": mean_x_tot,
+            "fwhm": fwhm_fit, "alpha": alpha, "gamma": gamma,
+            "amplitude": amplitude, "centroid_y_err": perr[2],
+            "centroid_x_err": perr[1], "gamma_err": perr[3],
+            "alpha_err": perr[4], "amplitude_err": perr[0]}
+
+
+def _airy_fit(array, crop=False, cent=None, cropsize=15, fwhm=4,
+              threshold=False, sigfactor=6, bpm=None, debug=True):
+    """The 2-d Airy fit of :func:`fit_2dairydisk` as a dict of its table's
+    columns (floats), without pandas."""
+    xg, yg, data, init_amplitude, xcom, ycom, suby, subx = _fit_data(
+        array, crop, cent, cropsize, threshold, sigfactor, bpm)
+    diam_1st_zero = (fwhm * 2.44) / 1.028
+    p0 = np.array([init_amplitude, xcom, ycom, diam_1st_zero / 2.0])
+
+    def resid(p):
+        return airydisk_2d(xg, yg, *p) - data
+
+    p, perr = _lm_fit(resid, p0)
+    amplitude, mean_x, mean_y, radius = p
+    mean_y_tot = mean_y + suby
+    mean_x_tot = mean_x + subx
+    fwhm_fit = radius * 1.028 / 1.22
+    if debug:
+        print("FWHM =", fwhm_fit)
+        print("centroid y =", mean_y_tot)
+        print("centroid x =", mean_x_tot)
+    return {"centroid_y": mean_y_tot, "centroid_x": mean_x_tot,
+            "fwhm": fwhm_fit, "radius": radius, "amplitude": amplitude,
+            "centroid_y_err": perr[2], "centroid_x_err": perr[1],
+            "radius_err": perr[3], "amplitude_err": perr[0]}
+
+
+def fit_2dmoffat(array, crop=False, cent=None, cropsize=15, fwhm=4,
+                 threshold=False, sigfactor=6, bpm=None, full_output=True,
+                 debug=True):
+    """Fit a 2-d Moffat to a frame (vip_tpu fit_2d.py:227). Returns a
+    one-row pandas table with ``full_output`` (pandas is imported only
+    then), else the (y, x) centroid."""
+    fit = _moffat_fit(array, crop, cent, cropsize, fwhm, threshold,
+                      sigfactor, bpm, debug)
+    if full_output:
+        import pandas as pd
+
+        return pd.DataFrame(fit, index=[0], dtype=np.float64)
+    return fit["centroid_y"], fit["centroid_x"]
+
+
+def fit_2dairydisk(array, crop=False, cent=None, cropsize=15, fwhm=4,
+                   threshold=False, sigfactor=6, bpm=None, full_output=True,
+                   debug=True):
+    """Fit a 2-d Airy disk to a frame (vip_tpu fit_2d.py:274). Returns a
+    one-row pandas table with ``full_output`` (pandas is imported only
+    then), else the (y, x) centroid."""
+    fit = _airy_fit(array, crop, cent, cropsize, fwhm, threshold, sigfactor,
+                    bpm, debug)
     if full_output:
         import pandas as pd
 
