@@ -14,8 +14,8 @@ and ``metrics.detection``), the streamed ``psfsub.pca_incremental`` and
 the injection → contrast curve → completeness path (``metrics``), the
 goldens in float32, slice 4 (NMF, LLSG, LOCI, frame differencing,
 roll subtraction, the greedy loops), slice 5 (NEGFC: the first guess
-and the MCMC of the planted companion) and slice 6 (ANDROMEDA, FMMF,
-PACO). Phases, one line each:
+and the MCMC of the planted companion), slice 6 (ANDROMEDA, FMMF,
+PACO) and slice 7 (the 4-d IFS paths). Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``vip_tpu_torch/csrc``, one nvcc per
@@ -97,7 +97,20 @@ PACO). Phases, one line each:
     at full width (every 10th frame of the cube with the planted
     companion, its central 256²: each finds the companion, FMMF through
     H2); FMMF through H2 against the plain route; bench.py's three invprob
-    legs and FMMF's serial and batched forms timed.
+    legs and FMMF's serial and batched forms timed;
+18. slice 7, the 4-d IFS paths (run before the timings of 14), on a
+    synthetic SPHERE-IFS sequence (39 channels of 0.95-1.35 µm, 100 even
+    288² frames over 40°, a halo and speckles scaling with λ, one
+    companion of a flat spectrum at 40 px): ``pca`` single pass (ncomp
+    10), double pass (2, 10), per-channel ADI and an ncomp grid with
+    ``scale_list``; ``pca_annular`` (1, 2); ``median_sub`` fullfr and
+    annular; ``xloci`` double; a contrast curve of the single pass;
+    ``FastPACO`` with ``rescaling_factor=2`` on the NACO replica;
+    NEGFC's ``firstguess``. Each through the kernels with its H1/H2
+    launches against the plain route on the card within 1e-5 of
+    max(|ref|, 1); the PCA passes timed warm (median of 3); the single
+    and double pass and the 4-d ``median_sub`` find the companion within
+    3 px (the cuts are printed).
 
 ``python3 chip_smoke.py --f2`` instead bisects F2 on the card and the CPU
 (the golden PCA step by step, the card's SVD routines, the four frames
@@ -106,7 +119,11 @@ under gesvd and gesvdj, the lapack PCA at full size under each), and
 call.
 ``python3 chip_smoke.py --negfc`` runs phase 16 alone (with the build),
 with a torch.profiler table of one half-step; ``--invprob`` runs phase 17
-alone, with a torch.profiler table of one FMMF annulus.
+alone, with a torch.profiler table of one FMMF annulus; ``--ifs`` runs
+phase 18 alone, with torch.profiler tables of one single-pass and one
+double-pass ``pca`` call.
+``--seed N`` (with any of the above) makes phase 18's sequence from seed
+N (default 0).
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
 SHA-256 digests of the H1, H2 and H3 outputs on the inputs of phases 3-5,
 computed with the port of the checkout at ROOT, which must be this
@@ -235,6 +252,47 @@ PACO_F32_TOL = 1e-3
 # PSF); FMMF over INV_FW_WINDOW around the companion's 60 px
 INV_EVERY, INV_SIZE, INV_FW_WINDOW = 10, 256, (58, 62)
 INV_FMMF_PARAM = {"ncomp": 10, "tolerance": 0.005, "delta_rot": 0.5}
+# Slice 7 (phase 18): one synthetic SPHERE-IFS sequence (YJ band,
+# 0.95-1.35 µm in IFS_Z channels, scale_list = λmax/λ up to 1.42; the
+# channel count of VIP's sphere_v471tau fixture, tests/test_pca_4d.py:135)
+# of IFS_N even IFS_SIZE² frames (about SPHERE-IFS's reduced field; the
+# derotation's canvas 4·288 = 9·128 is one H2 takes, where 290's 1162 is
+# not, and 290² frames take the plain route), made
+# from IFS_SEED with numpy: a halo and two speckle patterns that scale
+# radially with λ (the second breathing through the sequence), white
+# noise, parallactic angles over IFS_ROT degrees, and one companion of a
+# flat spectrum at IFS_SEP px planted with ``fm.cube_inject_companions``
+IFS_Z, IFS_N, IFS_SIZE, IFS_ROT, IFS_SEED = 39, 100, 288, 40.0, 0
+IFS_SEP, IFS_FWHM, IFS_FLUX = 40.0, 4.0, 60.0
+IFS_NCOMP, IFS_DOUBLE, IFS_GRID = 10, (2, 10), (5, 15, 5)
+# the cuts of phase 18 (each printed): annular PCA on the central
+# IFS_ANN_CROP² of every IFS_ANN_EVERY-th frame in annuli of IFS_ANN_ASIZE
+# px (its SDI stage is one QR and one gesvd a frame, annulus and channel,
+# ~8 ms a gesvd of a 38-row factor: 41.7 s for the 10,920 of every 5th
+# frame of the central 120² in 4-px annuli, 11.5 s for the 1365 of every
+# 20th in 8-px annuli, on an H100 80GB HBM3 at 700 W, PERF.md), LOCI on
+# the central IFS_LOCI_CROP² of
+# every IFS_LOCI_EVERY-th frame (an eigh a frame, segment and channel),
+# the contrast curve on the central IFS_CC_CROP² of every IFS_CC_EVERY-th
+# (each of its ~36 rungs injected into the 4-d cube on the host: 52.7 s
+# at every 5th frame of 288²) and NEGFC on every IFS_NEGFC_EVERY-th
+# frame (each χ² one gesvd a channel)
+IFS_ANN_CROP, IFS_ANN_EVERY, IFS_ANN_ASIZE = 80, 20, 8
+IFS_LOCI_CROP, IFS_LOCI_EVERY = 120, 20
+IFS_CC_EVERY, IFS_CC_CROP, IFS_NEGFC_EVERY = 10, 160, 5
+# the 4-d contrast columns against the plain route: the throughput to
+# IFS_CC_TOL (it lies in [0, 1]), the sensitivity relative to IFS_CC_TOL
+# where the throughput is at least CC_THR_MIN. Both are ratios of
+# aperture sums over frames that differ by ~1.4e-6 of max(|ref|, 1), and
+# the sensitivity divides by the throughput: on an H100 80GB HBM3 at
+# 700 W 1.6e-4 apart at throughputs from 0.05 (phase 12's 3-d curve, at
+# higher throughputs, holds 1e-4), 1.6e-2 where the single SDI pass
+# removes the companion (a throughput near 0)
+IFS_CC_TOL, CC_THR_MIN = 1e-3, 0.05
+IFS_PXSCALE, IFS_STARPHOT = 0.00746, 1e5      # SPHERE-IFS's 7.46 mas/px
+IFS_PROFILE_EVERY = 10
+# FastPACO's rescaling on every IFS_PACO_EVERY-th frame of the replica
+IFS_PACO_EVERY = 2
 NMF4 = dict(ncomp=14, handle_neg="subtr_min")
 NMF_ANN4 = dict(ncomp=9, radius_int=20, asize=4, handle_neg="subtr_min")
 LLSG4 = dict(rank=5, thresh=1, max_iter=20, random_seed=10, fwhm=4)
@@ -1851,6 +1909,341 @@ def phase_invprob(pcube, angles_np, profile=False):
     return counts, times
 
 
+def _ifs_cube(seed=None):
+    """The synthetic IFS sequence of phase 18 as a float32 tensor on the
+    card, with its angles, scale_list, normalized PSF cube and the
+    companion's derotated (x, y)."""
+    from scipy.ndimage import gaussian_filter
+
+    from vip_tpu_torch.fm import cube_inject_companions, normalize_psf
+    from vip_tpu_torch.preproc.rescaling import frame_rescaling
+
+    rng = np.random.default_rng(IFS_SEED if seed is None else seed)
+    z, n, size = IFS_Z, IFS_N, IFS_SIZE
+    wl = np.linspace(0.95, 1.35, z)
+    scal = wl[-1] / wl
+    c = size // 2
+    yy, xx = np.mgrid[:size, :size]
+    halo = 80.0 * np.exp(-((yy - c) ** 2 + (xx - c) ** 2) / (2 * 24.0 ** 2))
+    speck = [gaussian_filter(rng.standard_normal((size, size)), 2.0) * 20
+             for _ in range(2)]
+    breath = np.linspace(-1.0, 1.0, n, dtype=np.float32)[:, None, None]
+    cube = np.empty((z, n, size, size), dtype=np.float32)
+    for ch in range(z):
+        # speckles and halo closer to the star at shorter λ
+        a, b, h = (frame_rescaling(torch.as_tensor(f, device=DEVICE),
+                                   scale=1 / scal[ch]).cpu().numpy()
+                   for f in (speck[0], speck[1], halo))
+        # white noise of unit variance (uniform: numpy draws it at a
+        # fraction of the cost of normal deviates, 3.2e8 of them here)
+        cube[ch] = (h + a)[None] + breath * (0.3 * b)[None] + (
+            rng.random((n, size, size), dtype=np.float32) - 0.5) * 12 ** 0.5
+    angles = np.linspace(0.0, IFS_ROT, n)
+    q = np.arange(15) - 7
+    psf = np.stack([np.exp(-(q[:, None] ** 2 + q[None, :] ** 2)
+                           / (2 * (IFS_FWHM / scal[ch] / 2.355) ** 2))
+                    for ch in range(z)])
+    psfn = normalize_psf(psf, fwhm=list(IFS_FWHM / scal), verbose=False)
+    t_inject = time.perf_counter()
+    cube = cube_inject_companions(cube, psfn, angles, flevel=IFS_FLUX,
+                                  rad_dists=[IFS_SEP], theta=0.0,
+                                  verbose=False)
+    cube_t = torch.as_tensor(cube, dtype=torch.float32, device=DEVICE)
+    print(f"ifs cube: the companion injected and the cube on the card in "
+          f"{time.perf_counter() - t_inject:.1f} s", flush=True)
+    return cube_t, angles, scal, psfn, (c + IFS_SEP, float(c))
+
+
+def phase_ifs(profile=False):
+    """Slice 7, the 4-d IFS paths, on the synthetic sequence of
+    ``_ifs_cube``: ``pca`` single pass (ncomp 10, crop_ifs), double pass
+    (ncomp (2, 10)), per-channel ADI and an ncomp grid with scale_list;
+    ``pca_annular`` (ncomp (1, 2)); ``median_sub`` fullfr and annular;
+    ``xloci`` (double); a contrast curve of the single pass;
+    ``FastPACO`` with ``rescaling_factor=2`` on the NACO replica; NEGFC's
+    ``firstguess`` (one flux for all channels). Each runs through the
+    kernels with its H1/H2 launches and through the plain route on the
+    card, within PIPE_TOL of max(|ref|, 1); the PCA passes are timed warm
+    (median of 3), the rest once; the single pass, the double pass and
+    the 4-d median_sub find the companion within 3 px. With ``profile``
+    also torch.profiler tables of one single-pass and one double-pass
+    call. Returns {path: counts} and {name: seconds}."""
+    import vip_tpu_torch.fm as tfm
+    import vip_tpu_torch.invprob as ip
+    import vip_tpu_torch.psfsub as tps
+    from vip_tpu_torch.metrics.contrcurve import _contrast_curve
+
+    t_phase = time.perf_counter()
+    cube, angles, scal, psfn, src = _ifs_cube()
+    t_make = time.perf_counter() - t_phase
+    print(f"ifs cube {tuple(cube.shape)} float32 "
+          f"({cube.numel() * 4 / 1e9:.2f} GB on the card), scale_list "
+          f"{scal.min():.3f}..{scal.max():.3f}, companion at (x, y) {src}: "
+          f"made in {t_make:.1f} s", flush=True)
+    counts, times, errs = {}, {}, {}
+    yx = (src[1], src[0])
+
+    def c2(every=1, crop=None):
+        sub = cube[:, ::every]
+        if crop is not None:
+            c0 = (IFS_SIZE - crop) // 2
+            sub = sub[..., c0:c0 + crop, c0:c0 + crop]
+        return sub.contiguous(), angles[::every]
+
+    def check(name, fn, reps=0, tol=PIPE_TOL, found=False):
+        """``fn`` through the kernels (counted, timed), then ``reps``
+        more warm timed calls, then the plain route; the outputs (an
+        array or tensor, a tuple of them, or a float) held within
+        ``tol`` of max(|ref|, 1)."""
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts[name] = _counts()
+        _require(counts[name]["H3"] == counts[name]["H4"] == 0,
+                 f"{name}: {counts[name]}")
+        runs = [_timed(fn) for _ in range(reps)] if reps else [first]
+        times[name] = float(np.median(runs))
+        with _plain_route():
+            ref = fn()
+        outs = list(got) if isinstance(got, tuple) else [got]
+        refs = list(ref) if isinstance(ref, tuple) else [ref]
+        worst = 0.0
+        for g, r in zip(outs, refs):
+            e, scale = _rel_err(torch.as_tensor(g).cpu(),
+                                torch.as_tensor(r).cpu())
+            worst = max(worst, e / scale)
+        errs[name] = worst
+        hit = None
+        if found:
+            hit = _found(outs[0], IFS_FWHM, yx)
+        print(f"ifs {name}: {times[name]:.4f} s ("
+              + (f"warm median of {reps}: {_spread(runs)}" if reps else
+                 "once") + f"), launches {counts[name]}, against the plain "
+              f"route {worst:.3e} of max(|ref|, 1) (bound {tol:.0e})"
+              + ("" if hit is None else f", companion found: {hit}"),
+              flush=True)
+        _require(worst <= tol, f"ifs {name} disagrees with the plain route")
+        if found:
+            _require(hit, f"ifs {name}: the companion at {yx} missed")
+        return got
+
+    single = dict(scale_list=scal, ncomp=IFS_NCOMP, adimsdi="single",
+                  crop_ifs=True, verbose=False)
+    double = dict(scale_list=scal, ncomp=IFS_DOUBLE, adimsdi="double",
+                  verbose=False)
+    check("pca single pass", lambda: tps.pca(cube, angles, **single),
+          reps=3, found=True)
+    _require(counts["pca single pass"]["H2"] > 0, "single pass: no H2")
+    check("pca double pass", lambda: tps.pca(cube, angles, **double),
+          reps=3, found=True)
+    check("pca per-channel ADI", lambda: tps.pca(
+        cube, angles, ncomp=IFS_NCOMP, verbose=False), reps=3)
+    check("pca grid single pass", lambda: tps.pca(
+        cube, angles, scale_list=scal, ncomp=IFS_GRID, adimsdi="single",
+        verbose=False))
+    ann_cube, ann_angles = c2(IFS_ANN_EVERY, IFS_ANN_CROP)
+    check("pca_annular sdi+adi", lambda: tps.pca_annular(
+        ann_cube, ann_angles, scale_list=scal, ncomp=(1, 2), fwhm=IFS_FWHM,
+        asize=IFS_ANN_ASIZE, radius_int=4, delta_sep=0.1, verbose=False))
+    check("median_sub fullfr", lambda: tps.median_sub(
+        cube, angles, scale_list=scal, fwhm=IFS_FWHM, mode="fullfr",
+        verbose=False), found=True)
+    _require(counts["median_sub fullfr"]["H1"] == 4,
+             f"median_sub fullfr: {counts['median_sub fullfr']}, want 4 H1 "
+             "(the channel medians of all frames, the channel collapse, the "
+             "temporal median, the final collapse)")
+    check("median_sub annular", lambda: tps.median_sub(
+        cube, angles, scale_list=scal, fwhm=IFS_FWHM, mode="annular",
+        radius_int=4, asize=4, delta_sep=0.1, nframes=None, verbose=False))
+    loci_cube, loci_angles = c2(IFS_LOCI_EVERY, IFS_LOCI_CROP)
+    check("xloci double", lambda: tps.xloci(
+        loci_cube, loci_angles, scale_list=scal, adimsdi="double",
+        fwhm=IFS_FWHM, asize=8, radius_int=4, delta_sep=0.1, delta_rot=0.3,
+        verbose=False))
+    cc_cube, cc_angles = c2(IFS_CC_EVERY, IFS_CC_CROP)
+    cc_host, cc_cols = cc_cube.cpu().numpy(), []
+
+    def contrast():
+        """The 4-d contrast curve: its reduced frames out, its columns
+        kept aside."""
+        cols, fc_all, nofc, _ = _contrast_curve(
+            cc_host, cc_angles, psfn, IFS_FWHM, IFS_PXSCALE, IFS_STARPHOT,
+            tps.pca, nbranch=1, fc_rad_sep=3, plot=False, verbose=False,
+            scale_list=scal, ncomp=IFS_NCOMP, adimsdi="single")
+        cc_cols.append(cols)
+        return fc_all, nofc
+
+    check("contrast curve", contrast)
+    thr = cc_cols[0]["throughput"]
+    ok = cc_cols[-1]["throughput"] >= CC_THR_MIN
+    got_s, ref_s = (c["sensitivity_student"][ok]
+                    for c in (cc_cols[0], cc_cols[-1]))
+    worst = max(_rel_err(torch.as_tensor(thr),
+                         torch.as_tensor(cc_cols[-1]["throughput"]))[0],
+                float(np.max(np.abs(got_s - ref_s) / np.abs(ref_s))))
+    print(f"ifs contrast curve ({cc_host.shape[1]}x{IFS_CC_CROP}^2, "
+          f"{len(thr)} radii): throughput {thr.min():.4f}..{thr.max():.4f}, "
+          f"student sensitivity {cc_cols[0]['sensitivity_student'].min():.3e}"
+          f"..{cc_cols[0]['sensitivity_student'].max():.3e} ("
+          f"{int(np.sum(thr <= 0))} radii at or below zero throughput); "
+          f"columns against the plain route {worst:.3e} (bound "
+          f"{IFS_CC_TOL:.0e}; the sensitivity at the {int(ok.sum())} radii "
+          f"of throughput >= {CC_THR_MIN})", flush=True)
+    _require(worst <= IFS_CC_TOL, "ifs contrast curve columns disagree")
+    # the column is the throughputs' spline (vip_tpu's), which may dip a
+    # hair below 0 where the SDI pass removes the companion whole
+    _require(np.all(np.isfinite(thr)) and 0 < thr.max() <= 1,
+             "contrast curve: no throughput in (0, 1]")
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+    meta = np.load(os.path.join(golden, "meta.npz"))
+    rep = torch.as_tensor(np.load(os.path.join(golden, "inputs.npz"))["cube"],
+                          dtype=torch.float32, device=DEVICE)
+    rep = rep[::IFS_PACO_EVERY].contiguous()
+    rep_angles = meta["angles"][::IFS_PACO_EVERY]
+    snr = check("FastPACO rescaling 2", lambda: ip.FastPACO(
+        cube=rep, angles=rep_angles, psf=meta["psfn"],
+        fwhm=float(meta["fwhm"]), pixscale=1.0, rescaling_factor=2.0).run())
+    print(f"ifs FastPACO rescaling 2 on every {IFS_PACO_EVERY}th frame of "
+          f"the replica ({rep.shape[0]}x{rep.shape[-1]}^2): S/N map "
+          f"{tuple(snr[0].shape)}", flush=True)
+
+    ng_cube, ng_angles = c2(IFS_NEGFC_EVERY)
+    xy = (src[0], src[1])
+    fg = dict(ncomp=IFS_NCOMP, fwhm=IFS_FWHM, annulus_width=4,
+              aperture_radius=1, bin_spec=True,
+              f_range=np.geomspace(IFS_FLUX / 4, IFS_FLUX * 4, 9),
+              simplex_options={"xatol": 1e-2, "fatol": 1e-2, "maxiter": 30,
+                               "maxfev": 40}, verbose=False)
+    _reset_counts()
+    t0 = time.perf_counter()
+    r0, th0, f0 = tfm.firstguess(ng_cube, ng_angles, psfn, xy, **fg)
+    torch.cuda.synchronize()
+    times["negfc firstguess"] = time.perf_counter() - t0
+    counts["negfc firstguess"] = _counts()
+    fit = (float(r0[0]), float(th0[0]), float(f0[0]))
+    print(f"ifs negfc firstguess (bin_spec, {ng_cube.shape[1]} frames): "
+          f"{times['negfc firstguess']:.3f} s, launches "
+          f"{counts['negfc firstguess']}; fit (r, theta, f) "
+          f"({fit[0]:.3f}, {fit[1]:.3f}, {fit[2]:.3f}) against the truth "
+          f"({IFS_SEP}, 0, {IFS_FLUX})", flush=True)
+    _require(abs(fit[0] - IFS_SEP) < 1.0
+             and abs((fit[1] + 180) % 360 - 180) < 2.0
+             and abs(fit[2] - IFS_FLUX) < 0.3 * IFS_FLUX,
+             f"negfc firstguess {fit} far from the truth")
+    check("negfc chisquare", lambda: tfm.chisquare(
+        fit, ng_cube, ng_angles, psfn, IFS_FWHM, 4, 1, fit[:2], IFS_NCOMP,
+        bin_spec=True))
+
+    if profile:
+        _ifs_stages(cube, angles, scal)
+        # torch.profiler on every IFS_PROFILE_EVERY-th frame: cuSOLVER's
+        # gesvd of the full single pass's 3900² factor launches too many
+        # small kernels for the profiler's table within the time limit
+        sub, sub_angles = c2(IFS_PROFILE_EVERY)
+        for name, kw in (("single pass", single), ("double pass", double)):
+            wall, table = _profile_table(
+                lambda: tps.pca(sub, sub_angles, **kw), rows=15)
+            print(f"ifs pca {name} on every {IFS_PROFILE_EVERY}th frame "
+                  f"({tuple(sub.shape)}) under the profiler {wall:.4f} s; "
+                  f"top ops by device time:\n{table}", flush=True)
+    print(f"ifs cuts: pca_annular on the central {IFS_ANN_CROP}^2 of every "
+          f"{IFS_ANN_EVERY}th frame in {IFS_ANN_ASIZE}-px annuli, xloci on "
+          f"the central {IFS_LOCI_CROP}^2 of every {IFS_LOCI_EVERY}th, the "
+          f"contrast curve on the central {IFS_CC_CROP}^2 of every "
+          f"{IFS_CC_EVERY}th, FastPACO on every {IFS_PACO_EVERY}th of the "
+          f"replica and NEGFC on every "
+          f"{IFS_NEGFC_EVERY}th frame; "
+          f"the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts, times
+
+
+def _ifs_stages(cube, angles, scal):
+    """The single and the double pass of phase 18 step by step at full
+    depth, each step synchronized and timed once warm: where their time
+    goes, without the profiler."""
+    from vip_tpu_torch.ops.linalg import svd
+    from vip_tpu_torch.preproc.cosmetics import cube_crop_frames
+    from vip_tpu_torch.preproc.derotation import cube_derotate
+    from vip_tpu_torch.preproc.rescaling import _scwave
+    from vip_tpu_torch.preproc.subsampling import cube_collapse
+
+    z, n, y, x = cube.shape
+
+    def run(steps):
+        out, times = None, {}
+        for _ in range(2):               # the second pass is the warm one
+            out = None
+            for name, fn in steps:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(out)
+                torch.cuda.synchronize()
+                times[name] = time.perf_counter() - t0
+        return times
+
+    def project(m, qr, k):
+        Q, R = qr
+        Ur = svd(R)[0]
+        V = (Q @ Ur)[..., :k].mT
+        return m - (m @ V.mT) @ V
+
+    st = {}
+    single = run([
+        ("rescale (39 batched zooms)", lambda _: cube_crop_frames(
+            _scwave(cube, scal, collapse=None)[0], y, verbose=False)
+         .transpose(0, 1).reshape(z * n, y * x)),
+        ("QR of the (y*x, z*n) matrix", lambda m: (
+            m, torch.linalg.qr(m.mT))),
+        ("gesvd of R and project", lambda a: project(a[0], a[1],
+                                                     IFS_NCOMP)),
+        ("rescale back, channel mean", lambda r: _scwave(
+            r.reshape(n, z, y, x).transpose(0, 1), scal, inverse=True,
+            y_in=y, x_in=x, collapse="mean", keep_cube=False)[1]),
+        ("derotate (H2)", lambda f: cube_derotate(f, angles)),
+        ("median (H1)", lambda d: cube_collapse(d, mode="median")),
+    ])
+    st["single"] = single
+    Y = _scwave(cube[:, :1], scal, collapse=None)[0].shape[-1]  # padded
+    double = run([
+        ("rescale (39 batched zooms)", lambda _: _scwave(
+            cube, scal, collapse=None)[0]),
+        ("QR of the 100 (Y*X, z) matrices", lambda r: (
+            r.transpose(0, 1).reshape(n, z, -1),
+            torch.linalg.qr(r.transpose(0, 1).reshape(n, z, -1).mT))),
+        ("100 gesvd of R and project", lambda a: project(
+            a[0], a[1], IFS_DOUBLE[0])),
+        ("rescale back, channel mean", lambda r: _scwave(
+            r.reshape(n, z, Y, Y).transpose(0, 1), scal, inverse=True,
+            y_in=y, x_in=x, collapse="mean", keep_cube=False)[1]),
+        ("ADI PCA (100, y*x)", lambda f: project(
+            f.reshape(n, -1), torch.linalg.qr(f.reshape(n, -1).mT),
+            IFS_DOUBLE[1]).reshape(n, y, x)),
+        ("derotate (H2)", lambda f: cube_derotate(f, angles)),
+        ("median (H1)", lambda d: cube_collapse(d, mode="median")),
+    ])
+    st["double"] = double
+    for name, times in st.items():
+        total = sum(times.values())
+        print(f"ifs pca {name} pass by step (warm, synchronized, "
+              f"{total:.4f} s in all): " + ", ".join(
+                  f"{k} {v:.4f} s ({100 * v / total:.0f}%)"
+                  for k, v in times.items()), flush=True)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def _moffat_psf(size=39, fwhm=4.800919383981533, alpha=2.5, peak=1680.0):
     """The NACO replica's raw PSF (tests/naco_replica.py:moffat_psf)."""
     gamma = fwhm / (2.0 * np.sqrt(2.0 ** (1.0 / alpha) - 1.0))
@@ -2322,11 +2715,13 @@ def main():
     slice4 = phase_slice4(pcube, angles_np, src)
     negfc_counts, negfc_times = phase_negfc(pcube, angles_np, src)
     invprob_counts, invprob_times = phase_invprob(pcube, angles_np)
+    ifs_counts, ifs_times = phase_ifs()
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
     new_paths.update({k: v[0] for k, v in slice4.items()})
     new_paths.update(negfc_counts)
     new_paths.update(invprob_counts)
+    new_paths.update({f"ifs {k}": v for k, v in ifs_counts.items()})
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -2475,6 +2870,8 @@ def main():
         f"{k} {v:.4f}" for k, v in negfc_times.items()), flush=True)
     print("timing slice 6 (s; see the phase 17 lines): " + ", ".join(
         f"{k} {v:.4f}" for k, v in invprob_times.items()), flush=True)
+    print("timing slice 7 (s; see the phase 18 lines): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ifs_times.items()), flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
@@ -2591,6 +2988,16 @@ def invprob_only():
           flush=True)
 
 
+def ifs_only():
+    """Phase 18 alone (``--ifs``): the build and slice 7, with
+    torch.profiler tables of one single-pass and one double-pass call."""
+    phase_device()
+    phase_build()
+    counts, _ = phase_ifs(profile=True)
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()),
+          flush=True)
+
+
 def kernel_digests(root):
     """SHA-256 (first 16 hex digits) of the outputs of H1 (both propagate
     modes), H2 (512² and 160²) and H3 on the inputs of phases 3-5, with the
@@ -2634,6 +3041,11 @@ def kernel_digests(root):
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device")
+    if "--seed" in sys.argv:
+        # the seed of phase 18's synthetic IFS sequence
+        i = sys.argv.index("--seed")
+        IFS_SEED = int(sys.argv[i + 1])
+        del sys.argv[i:i + 2]
     if len(sys.argv) == 2 and sys.argv[1] == "--svd":
         print("svd costs (ms, CUDA events): " + "; ".join(
             f"{k} {v:.3f}" for k, v in svd_costs().items()), flush=True)
@@ -2653,6 +3065,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--invprob":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         invprob_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--ifs":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        ifs_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

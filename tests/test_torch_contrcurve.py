@@ -110,10 +110,16 @@ def test_contrast_curve_without_student_and_4d_raises(data):
     assert list(ours) == list(theirs.columns)
     assert _err(ours["sensitivity_gaussian"],
                 theirs["sensitivity_gaussian"]) <= 1e-6
-    with pytest.raises(NotImplementedError):
-        tm.contrast_curve(cube[None], angles, psf[None], 4.0, 0.1, 1e4,
-                          tps.pca, plot=False, verbose=False)
-    with pytest.raises(NotImplementedError):
+    # a 4-d cube (slice 7) meets vip_tpu: one channel, the 4-d algo
+    # reducing it channel by channel (tests/test_torch_ifs_more.py holds
+    # the IFS cases)
+    ours4 = _contrast_curve(cube[None], angles, psf[None], 4.0, 0.1, 1e4,
+                            tps.pca, **kw)[0]
+    theirs4 = jm.contrast_curve(cube[None], angles, psf[None], 4.0, 0.1,
+                                1e4, jps.pca, **kw)
+    assert _err(ours4["sensitivity_gaussian"],
+                theirs4["sensitivity_gaussian"]) <= 1e-6
+    with pytest.raises(NotImplementedError, match="slice 11"):
         tm.throughput(cube, angles, psf, 4.0, tps.pca, pattern_mesh=object(),
                       verbose=False)
 

@@ -875,3 +875,185 @@ def test_invprob_fastpaco_on_the_card(cuda_device):
           f", flux {_rel_to(got[1], ref[1]):.3e}")
     assert got[0].is_cuda and got[0].dtype == torch.float32 and h2 == 0
     assert err <= PACO_CARD_TOL
+
+
+# Slice 7, the 4-d IFS paths: tests/test_pca_4d.py's ifs_cube (4 channels
+# x 8 frames x 40², speckles scaled with λ). Each entry point in float64
+# on the card against the CPU float64 mode (the same float32 zoom canvas,
+# float64 FFTs and SVDs in cuSOLVER and LAPACK: 1e-8 of max(|ref|, 1)),
+# and in float32 (1e-4 of max(|ref|, 1)) with its H1 and H2 launches:
+# every channel collapse of a whole cube is one H1 launch, (z, n, y, x)
+# viewed as (z, n·y, x).
+IFS_F64_TOL, IFS_F32_TOL = 1e-8, 1e-4
+# PACO's maps after the resampling invert every cell's shrunk covariance
+# (an LU in cuSOLVER and in LAPACK), which amplifies the last digits:
+# measured 4.5e-8 of max|snr| in float64 on an H100 80GB HBM3 at 700 W;
+# the resampled cube itself is held to IFS_F64_TOL
+PACO_F64_TOL = 1e-6
+
+
+def _ifs_inputs():
+    from scipy.ndimage import gaussian_filter
+
+    from vip_tpu_torch.preproc.rescaling import frame_rescaling
+
+    rng = np.random.default_rng(9)
+    z, n, size = 4, 8, 40
+    wl = np.linspace(1.0, 1.3, z)
+    scal = wl[-1] / wl
+    speck = gaussian_filter(rng.standard_normal((size, size)), 2.0) * 5
+    cube = np.empty((z, n, size, size))
+    for ch in range(z):
+        sp = frame_rescaling(torch.as_tensor(speck, device="cpu"),
+                             scale=1 / scal[ch]).numpy()
+        for fr in range(n):
+            cube[ch, fr] = sp + gaussian_filter(
+                rng.standard_normal((size, size)), 1.0) * 0.3
+    return cube, np.linspace(0, 40, n), scal
+
+
+def _ifs_cases():
+    """(name, run(cube, angles, scal), (H1, H2) in float32)."""
+    import vip_tpu_torch.psfsub as tps
+    from vip_tpu_torch.preproc.rescaling import cube_rescaling_wavelengths
+
+    loci = dict(fwhm=4, asize=8, radius_int=4, delta_sep=0.1, delta_rot=0.3,
+                n_segments=1, verbose=False)
+    return [
+        # the channel collapse of all frames, then the temporal median
+        ("pca single", lambda c, a, s: tps.pca(
+            c, a, scale_list=s, ncomp=2, adimsdi="single",
+            collapse_ifs="median", full_output=True, verbose=False), (2, 3)),
+        ("pca double", lambda c, a, s: tps.pca(
+            c, a, scale_list=s, ncomp=(2, 2), adimsdi="double",
+            collapse_ifs="median", full_output=True, verbose=False), (2, 3)),
+        # each channel's ADI (a median and one chunk), then their median
+        ("pca per-channel", lambda c, a, s: tps.pca(
+            c, a, ncomp=2, collapse_ifs="median", verbose=False), (5, 12)),
+        # three truncations, each rescaled back (a median) and reduced
+        ("pca grid", lambda c, a, s: tps.pca(
+            c, a, scale_list=s, ncomp=(1, 3), adimsdi="single",
+            verbose=False), (6, 9)),
+        ("pca_annular sdi", lambda c, a, s: tps.pca_annular(
+            c, a, scale_list=s, ncomp=(1, 2), fwhm=4, radius_int=6, asize=6,
+            delta_sep=0.1, delta_rot=0.3, full_output=True, verbose=False),
+         (1, 3)),
+        # the channel medians of all frames, their collapse, the temporal
+        # median and the final collapse: four launches for the cube
+        ("median_sub fullfr", lambda c, a, s: tps.median_sub(
+            c, a, scale_list=s, fwhm=4, full_output=True, verbose=False),
+         (4, 3)),
+        # three annuli: a median of the channel libraries and one of the
+        # frame libraries each, beside the channel and final collapses
+        ("median_sub annular", lambda c, a, s: tps.median_sub(
+            c, a, scale_list=s, fwhm=4, mode="annular", radius_int=6,
+            asize=4, delta_sep=0.1, delta_rot=0.3, nframes=None,
+            full_output=True, verbose=False), (8, 3)),
+        ("xloci double", lambda c, a, s: tps.xloci(
+            c, a, scale_list=s, adimsdi="double", full_output=True, **loci),
+         (2, 3)),
+        # all channels at once: one chunk of the 32 residual frames, one
+        # median of every channel's frames, then the channels' median
+        ("pca_annulus", lambda c, a, s: tps.pca_annulus(
+            c, a, 2, 6, 12, collapse_ifs="median"), (2, 3)),
+        ("rescaling", lambda c, a, s: cube_rescaling_wavelengths(
+            c[:, 0], s), (1, 0)),
+        ("paco rescaling", _paco_rescaled, (0, 0)),
+    ]
+
+
+def _paco_rescaled(c, a, s):
+    """FastPACO with ``rescaling_factor=2`` on the first channel: its
+    resampled cube, then its S/N and flux maps."""
+    import vip_tpu_torch.invprob as ip
+
+    paco = ip.FastPACO(cube=c[0], angles=a,
+                       psf=_gaussian_stamp(9, fwhm=2.355), fwhm=2.0,
+                       pixscale=1.0, rescaling_factor=2.0)
+    snr, flux = paco.run()
+    return paco.cube, snr, flux
+
+
+def _as_list(out):
+    """The tensors of a result (a tensor or a tuple)."""
+    out = list(out) if isinstance(out, (tuple, list)) else [out]
+    return [o for o in out if isinstance(o, torch.Tensor)]
+
+
+@pytest.mark.parametrize("case", range(11))
+def test_ifs_entry_points_on_the_card(cuda_device, case):
+    name, run, (n_h1, n_h2) = _ifs_cases()[case]
+    cube, angles, scal = _ifs_inputs()
+    ref = _as_list(run(torch.as_tensor(cube), angles, scal))
+    vip_tpu_torch.set_device("cuda")
+    try:
+        got64 = _as_list(run(torch.as_tensor(cube, device="cuda"), angles,
+                             scal))
+        before = (median.launches, shear.launches)
+        got32 = _as_list(run(torch.as_tensor(cube, dtype=torch.float32,
+                                             device="cuda"), angles, scal))
+        torch.cuda.synchronize()
+        counts = (median.launches - before[0], shear.launches - before[1])
+    finally:
+        vip_tpu_torch.set_device("cpu")
+
+    def rel(got, want):
+        g, w = got.cpu().double().numpy(), want.double().numpy()
+        fin = np.isfinite(w)
+        assert np.array_equal(np.isfinite(g), fin)
+        return np.abs(g[fin] - w[fin]).max() / max(np.abs(w[fin]).max(),
+                                                   1.0)
+
+    e64s = [rel(g, r) for g, r in zip(got64, ref)]
+    e64 = max(e64s)
+    e32 = max(rel(g, r) for g, r in zip(got32, ref))
+    print(f"{name} on the card: float64 {e64:.3e}, float32 {e32:.3e} "
+          f"against the CPU float64 mode; float32 launches H1 {counts[0]}, "
+          f"H2 {counts[1]}")
+    assert got32[0].is_cuda and got32[0].dtype == torch.float32
+    assert got64[0].is_cuda and got64[0].dtype == torch.float64
+    if name == "paco rescaling":
+        assert e64s[0] <= IFS_F64_TOL and max(e64s[1:]) <= PACO_F64_TOL
+    else:
+        assert e64 <= IFS_F64_TOL, name
+    assert e32 <= IFS_F32_TOL, name
+    assert counts == (n_h1, n_h2), name
+
+
+def test_ifs_negfc_lnprob_on_the_card(cuda_device):
+    """The 4-d NEGFC likelihood: two channels of the NEGFC cube, one flux
+    a channel, the channels' medians collapsed by one more median."""
+    import vip_tpu_torch.fm as tfm
+    from vip_tpu_torch.ops.negfc_model import make_batched_lnprob
+
+    cube, angles, psfn = _negfc_inputs()
+    cube4 = np.stack([cube, 0.8 * cube])
+    psf4 = np.stack([psfn, psfn])
+    r, theta, f = NEGFC_TRUTH
+    bounds = [(r - 2, r + 2), (theta - 10, theta + 10), (0, 5 * f),
+              (0, 5 * f)]
+    params = np.array([[r, theta, f, 0.8 * f], [r + 0.4, theta - 1.5, f,
+                                                 f * 0.7],
+                       [r - 0.6, theta + 2.0, f * 0.7, f]])
+    args = (angles, psf4, 1, 8, r, theta, 1.0, 4.0, 0.0, 0.05 ** 2, bounds)
+    kw = dict(collapse_ifs="median")
+    ref = make_batched_lnprob(cube4, *args, **kw)(params).numpy()
+    lnprob = make_batched_lnprob(
+        torch.as_tensor(cube4, dtype=torch.float32, device=cuda_device),
+        *args, **kw)
+    before = (median.launches, shear.launches)
+    got = lnprob(params).cpu().double().numpy()
+    torch.cuda.synchronize()
+    counts = (median.launches - before[0], shear.launches - before[1])
+    err = np.max(np.abs(got - ref) / np.abs(ref))
+    print(f"4-d NEGFC lnprob on the card: H1 {counts[0]}, H2 {counts[1]}; "
+          f"against the CPU float64 mode {err:.3e}")
+    # a median and one chunk (3 H2) a channel, then the channels' median
+    assert counts == (3, 6)
+    assert err <= NEGFC_TOL
+    chi = tfm.chisquare(tuple(params[0]), torch.as_tensor(
+        cube4, dtype=torch.float32, device=cuda_device), angles, psf4, 4.0,
+        8, 1, (r, theta), 1)
+    chi_ref = tfm.chisquare(tuple(params[0]), cube4, angles, psf4, 4.0, 8,
+                            1, (r, theta), 1)
+    assert abs(chi - chi_ref) <= NEGFC_TOL * abs(chi_ref)

@@ -9,7 +9,8 @@ loci_adi golden (slow lane, as vip_tpu's, tests/test_golden.py:96).
   segment on the correlated frames of ``make_adi_cube``), so its case
   takes white-noise frames, whose Grams are well conditioned.
 - The pairwise distances against ``scipy.spatial.distance.cdist``.
-- A 4-d cube raises (slice 7).
+- A 4-d cube (slice 7) meets vip_tpu (tests/test_torch_ifs_more.py
+  holds the rest of the 4-d paths).
 """
 
 import numpy as np
@@ -84,10 +85,16 @@ def test_pairwise_distances_vs_scipy(metric):
 
 
 def test_xloci_4d_waits_for_slice_7():
+    """Slice 7 ported the 4-d cube: 'skipadi' (channel by channel) and
+    'double' against vip_tpu."""
     cube, angles = make_adi_cube(n=8, size=25)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tps.xloci(cube=np.stack([cube, cube]), angle_list=angles,
-                  scale_list=np.ones(2), verbose=False)
+    cube4 = np.stack([cube, cube[::-1].copy(), cube])
+    for adimsdi in ("skipadi", "double"):
+        kw = dict(cube=cube4, angle_list=angles,
+                  scale_list=np.array([1.3, 1.15, 1.0]), adimsdi=adimsdi,
+                  asize=5, radius_int=3, delta_sep=0.1, delta_rot=0.3,
+                  n_segments=1, verbose=False)
+        assert _err(tps.xloci(**kw), jps.xloci(**kw)) <= TOL
 
 
 @pytest.mark.slow

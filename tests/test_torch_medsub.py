@@ -140,10 +140,15 @@ def test_median_sub_params_from_numpy(small):
 
 
 def test_median_sub_4d_raises(small):
+    """Slice 7 ported the 4-d cube: two channels at scales 1.2 and 1
+    against vip_tpu (tests/test_torch_ifs_more.py holds the rest)."""
     cube, angles, _ = small
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tps.median_sub(np.stack([cube, cube]), angles,
-                       scale_list=np.ones(2), verbose=False)
+    cube4 = np.stack([cube, cube[::-1].copy()])
+    for mode in ("fullfr", "annular"):
+        kw = dict(scale_list=np.array([1.2, 1.0]), mode=mode, delta_sep=0.1,
+                  radius_int=4, nframes=None, verbose=False)
+        assert _err(tps.median_sub(cube4.copy(), angles, **kw),
+                    jps.median_sub(cube4.copy(), angles, **kw)) <= TOL
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ vip_tpu, on the CPU at float64.
   annular PCA's per-frame SVDs agree to ~1e-12).
 - ``get_mu_and_sigma`` with the high-pass filter of ``algo_options``
   (``hp_filter`` and ``hp_kernel``, three modes): 1e-9 as above.
-- what is not ported raises: 4-d cubes (slice 7).
+- an unknown high-pass mode raises; 4-d cubes (slice 7) meet vip_tpu
+  (tests/test_torch_ifs_more.py holds the rest).
 """
 
 import numpy as np
@@ -167,8 +168,10 @@ def test_what_is_not_ported_raises(data):
                              algo_options={"hp_filter": "median",
                                            "hp_kernel": 3})
     cube4 = np.stack([cube, cube])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tfm.chisquare((R, THETA, FLUX), cube4, angles, np.stack([psfn] * 2),
-                      FWHM, 4, 1, (R, THETA), 3)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tfm.get_mu_and_sigma(cube4, angles, 3, 4, 1, FWHM, R, THETA)
+    args = ((R, THETA, FLUX, FLUX), cube4, angles, np.stack([psfn] * 2),
+            FWHM, 4, 1, (R, THETA), 3)
+    ref = jfm.chisquare(*args)
+    assert abs(tfm.chisquare(*args) - ref) <= TOL * abs(ref)
+    args = (cube4, angles, 3, 4, 1, FWHM, R, THETA)
+    assert np.allclose(tfm.get_mu_and_sigma(*args),
+                       jfm.get_mu_and_sigma(*args), rtol=TOL, atol=0)

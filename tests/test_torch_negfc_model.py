@@ -199,11 +199,15 @@ def test_fractional_r_guess_follows_the_host_lnprob(data):
 
 
 def test_batched_lnprob_4d_raises(data):
+    """Slice 7 ported the 4-d cube: two channels, one flux shared, against
+    vip_tpu (tests/test_torch_ifs_more.py holds the other branches)."""
     cube, angles, psfn, _ = data
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tmodel.make_batched_lnprob(np.stack([cube, cube]), angles,
-                                   np.stack([psfn, psfn]), 3, 4, R, THETA,
-                                   1.0, FWHM, 0.0, 1.0, BOUNDS)
+    args = (np.stack([cube, 0.9 * cube]), angles, np.stack([psfn, psfn]), 3,
+            4, R, THETA, 1.0, FWHM, 0.001, 0.05 ** 2, BOUNDS)
+    ref = np.asarray(jmodel.make_batched_lnprob(*args)(
+        jnp.asarray(PARAMS[:3])))
+    got = tmodel.make_batched_lnprob(*args)(PARAMS[:3]).numpy()
+    assert np.max(np.abs(got - ref) / np.abs(ref)) <= TOL
 
 
 def test_run_stretch_mcmc_replays_vip_tpu(data):

@@ -103,14 +103,22 @@ def test_pca_source_xy_delta_rot_vs_vip_tpu(small):
 
 
 def test_pca_paths_still_to_port_raise(small):
-    cube, angles, _ = small
-    for kw in (dict(smooth=2),
-               dict(mask_rdi=np.ones((32, 32))),
-               dict(scale_list=np.ones(24))):
-        with pytest.raises(NotImplementedError):
-            tps.pca(cube, angles, verbose=False, **kw)
-    with pytest.raises(NotImplementedError):
-        tps.pca(cube[None], angles, verbose=False)
+    """``smooth`` still raises (slice 8). The paths slice 7 ported meet
+    vip_tpu: ``mask_rdi`` with a reference cube, a 4-d cube reduced
+    channel by channel, and ``scale_list`` on a 3-d cube raising the same
+    ValueError."""
+    cube, angles, ref_cube = small
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        tps.pca(cube, angles, verbose=False, smooth=2)
+    kw = dict(mask_rdi=np.ones((32, 32)), cube_ref=ref_cube, ncomp=2,
+              verbose=False)
+    assert _err(tps.pca(cube.copy(), angles, **kw),
+                jps.pca(cube.copy(), angles, **kw)) <= TOL
+    for pca in (tps.pca, jps.pca):
+        with pytest.raises(ValueError, match="4D"):
+            pca(cube, angles, scale_list=np.ones(24), verbose=False)
+    assert _err(tps.pca(cube[None], angles, verbose=False),
+                jps.pca(cube[None], angles, verbose=False)) <= TOL
 
 
 def test_params_from_numpy_round_trip(small):

@@ -143,11 +143,17 @@ def test_do_pca_patch_vs_vip_tpu(host_cube):
 
 
 def test_pca_annular_4d_waits(host_cube):
+    """Slice 7 ported the 4-d cubes: two channels reduced one by one and
+    their frames averaged, as vip_tpu; a ``scale_list`` beside a 3-d cube
+    is ignored by both."""
     cube, angles, _ = host_cube
-    with pytest.raises(NotImplementedError):
-        tps.pca_annular(np.stack([cube, cube]), angles, verbose=False)
-    with pytest.raises(NotImplementedError):
-        tps.pca_annular(cube, angles, scale_list=np.ones(2), verbose=False)
+    cube4 = np.stack([cube, cube[::-1].copy()])
+    kw = dict(ncomp=2, asize=6, verbose=False)
+    assert _err(tps.pca_annular(cube4, angles, **kw),
+                jps.pca_annular(cube4, angles, **kw)) <= TOL
+    assert _err(tps.pca_annular(cube, angles, scale_list=np.ones(2), **kw),
+                jps.pca_annular(cube, angles, scale_list=np.ones(2),
+                                **kw)) <= TOL
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Hand-over from vip_tpu-style numpy inputs to the port's tensors.
 
-- :func:`params_from_numpy` turns a vip_tpu ``PCA_Params`` or
-  ``MEDIAN_SUB_Params`` (or any object with the same fields) into the
-  port's class of the same name: numpy arrays become tensors, enums map by
-  value onto the port's enums of the same name, and strings and scalars
-  pass through.
+- :func:`params_from_numpy` turns a vip_tpu ``PCA_Params``,
+  ``PCA_ANNULAR_Params``, ``MEDIAN_SUB_Params`` or ``XLOCI_Params`` (or
+  any object with the same fields; 4-d cubes and ``scale_list``
+  included) into the port's class of the same name: numpy arrays become
+  tensors, enums map by value onto the port's enums of the same name, and
+  strings, tuples and scalars pass through.
 - :func:`draws_from_numpy` turns a random draw made elsewhere (such as
   vip_tpu's randsvd sketch, ``jax.random.normal`` at vip_tpu
   ops/linalg.py:65) into the ``omega`` argument of
@@ -35,19 +36,23 @@ def _convert(value, device, dtype):
 
 
 def params_from_numpy(params, device=None, dtype=None):
-    """The port's ``MEDIAN_SUB_Params`` for an object of a class of that
-    name, else the port's ``PCA_Params``, with the fields of ``params``.
+    """The port's ``PCA_ANNULAR_Params``, ``MEDIAN_SUB_Params`` or
+    ``XLOCI_Params`` for an object of a class of that name, else the
+    port's ``PCA_Params``, with the fields of ``params``.
 
     Numpy arrays go to ``device`` (default: the device of
     ``vip_tpu_torch.set_device``) in ``dtype`` (default: the device
     policy's working dtype); fields the port's class has and ``params``
     lacks keep their defaults.
     """
+    from .psfsub.loci import XLOCI_Params
     from .psfsub.medsub import MEDIAN_SUB_Params
     from .psfsub.pca_fullfr import PCA_Params
+    from .psfsub.pca_local import PCA_ANNULAR_Params
 
-    cls = MEDIAN_SUB_Params if type(params).__name__ == "MEDIAN_SUB_Params" \
-        else PCA_Params
+    classes = {c.__name__: c for c in (PCA_ANNULAR_Params, MEDIAN_SUB_Params,
+                                       XLOCI_Params)}
+    cls = classes.get(type(params).__name__, PCA_Params)
     kwargs = {}
     for field in dataclasses.fields(cls):
         if hasattr(params, field.name):

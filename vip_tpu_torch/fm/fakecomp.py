@@ -231,7 +231,12 @@ def cube_inject_companions(array, psf_template, angle_list, flevel, rad_dists,
             transmission, verbose, copy_array)
     else:
         nframes_wav = array.shape[0]
-        array_out = _host(array).copy()
+        # vip_tpu copies a 4-d cube whatever ``copy_array`` says
+        # (fakecomp.py:230); the port honours it, as on 3-d cubes: a
+        # contrast curve injects each rung of its pattern in place
+        array_out = _host(array)
+        if copy_array and array_out is array:
+            array_out = array_out.copy()
         if np.isscalar(flevel):
             flevel_all = np.ones([nframes_wav, nframes]) * flevel
         elif np.asarray(flevel).ndim == 1:

@@ -12,8 +12,15 @@ the cube (with the companion removed when its flux is given) and takes
 the statistics of an annular wedge. The algos' frames come back to the
 host as float64 numpy. The high-pass filter of ``algo_options``
 (``hp_filter``, ``hp_kernel``) filters the cube on its device before the
-reduction (``var.filters.cube_filter_highpass``). 4-d cubes wait for
-ROADMAP Queue 1, slice 7.
+reduction (``var.filters.cube_filter_highpass``).
+
+A 4-d (channels, frames, y, x) cube takes one flux a channel, or one for
+all with ``bin_spec``; the companion is removed channel by channel with
+each channel's PSF, and the algo reduces the 4-d cube (``pca_annulus``
+collapses the channels with ``collapse_ifs``, 'absmean' by default).
+In ``get_mu_and_sigma`` the multi-flux companion sits at (r_guess,
+theta_guess) in every channel; vip_tpu puts r_guess in its theta there
+(negfc_fmerit.py:275; ROADMAP.md Queue 3).
 """
 
 import numpy as np
@@ -36,13 +43,9 @@ from .fakecomp import (_extend_transmission, _host, cube_inject_companions,
 __all__ = ["chisquare", "get_values_optimize", "get_mu_and_sigma", "hessian"]
 
 
-def _only_3d(cube, what):
-    if cube.ndim == 4:
-        raise NotImplementedError(
-            f"{what}: 4-d cubes are not ported yet (ROADMAP.md, Queue 1, "
-            "slice 7)")
-    if cube.ndim != 3:
-        raise ValueError("`cube` must be a 3D numpy array")
+def _check_cube(cube):
+    if cube.ndim not in (3, 4):
+        raise ValueError("`cube` must be a 3D or 4D numpy array")
 
 
 def _shift_imlibs(imlib):
@@ -60,12 +63,28 @@ def _shift_imlibs(imlib):
 def _inject_negative(cube, psfn, angs, r, theta, flux, imlib_sh,
                      interpolation, transmission, radial_gradient):
     """The cube with the companion (r, theta) of ``flux`` (a scalar or one
-    value a frame) subtracted. The 'ndimage-fourier' injection runs on the
-    cube's device; the others (a radial-gradient transmission, the
-    interpolating imlibs, which raise until slice 8) take the host
-    injector."""
-    if imlib_sh == "ndimage-fourier" and not (transmission is not None
-                                              and radial_gradient):
+    value a frame; for a 4-d cube also one a channel, or a (channels,
+    frames) array) subtracted. The 'ndimage-fourier' injection runs on the
+    cube's device, channel by channel for a 4-d cube without a
+    transmission; the others (a transmission of a 4-d cube, a
+    radial-gradient transmission, the interpolating imlibs, which raise
+    until slice 8) take the host injector."""
+    if cube.ndim == 4 and imlib_sh == "ndimage-fourier" \
+            and transmission is None:
+        psf = _host(psfn)
+        # the host injector's reading of a 4-d flux: a scalar for all, a
+        # vector one a channel (its first entries), an array one a
+        # (channel, frame)
+        nch, n = cube.shape[:2]
+        fl = np.asarray(flux, float)
+        if fl.ndim == 1:
+            fl = np.tile(fl[:, None], (1, n))[:nch]
+        fl = np.broadcast_to(fl, (nch, n))
+        return torch.stack([_inject_negfc(cube[ch], psf[ch], angs, r, theta,
+                                          fl[ch])
+                            for ch in range(cube.shape[0])])
+    if imlib_sh == "ndimage-fourier" and cube.ndim == 3 and not (
+            transmission is not None and radial_gradient):
         psf = _host(psfn)
         if transmission is not None:
             table = _extend_transmission(np.asarray(transmission, float),
@@ -90,19 +109,28 @@ def chisquare(modelParameters, cube, angs, psfs_norm, fwhm, annulus_width,
     """Reduced χ² of the residuals after the negative injection of the
     companion (r, theta, flux) (vip_tpu negfc_fmerit.py:24; same
     parameters): merit 'sum', 'stddev' or 'hessian' with ``mu_sigma``
-    None, else the Gaussian χ² of (mu, sigma)."""
-    _only_3d(cube, "chisquare")
-    if force_rPA:
+    None, else the Gaussian χ² of (mu, sigma). A 4-d cube takes (r,
+    theta, f_1..f_z), or (r, theta, f) with ``bin_spec``."""
+    _check_cube(cube)
+    if cube.ndim == 3 or bin_spec:
+        if force_rPA:
+            r, theta = initialState
+            flux_tmp = modelParameters[0]
+        else:
+            r, theta, flux_tmp = modelParameters
+    elif force_rPA:
         r, theta = initialState
-        flux_tmp = modelParameters[0]
+        flux_tmp = np.array(modelParameters)
     else:
-        r, theta, flux_tmp = modelParameters
+        r, theta = modelParameters[0], modelParameters[1]
+        flux_tmp = np.array(modelParameters[2:])
     imlib_sh, imlib_rot = _shift_imlibs(imlib)
 
     norm_weights = None
     flux = flux_tmp
     if weights is not None:
-        flux = flux_tmp * np.asarray(weights)
+        flux = flux_tmp * np.asarray(weights) if np.isscalar(flux_tmp) \
+            else np.outer(flux_tmp, weights)
         norm_weights = weights / np.sum(weights)
     cube_negfc = _inject_negative(as_tensor(cube), psfs_norm, _host(angs),
                                   r, theta, flux, imlib_sh, interpolation,
@@ -186,7 +214,7 @@ def get_values_optimize(cube, angs, ncomp, annulus_width, aperture_radius,
     reduction of ``cube``, run on the cube's device (vip_tpu
     negfc_fmerit.py:134; same parameters); with ``full_output`` also the
     reduced frame."""
-    _only_3d(cube, "get_values_optimize")
+    _check_cube(cube)
     ceny_fr, cenx_fr = frame_center(cube)
     posy = r_guess * np.sin(np.deg2rad(theta_guess)) + ceny_fr
     posx = r_guess * np.cos(np.deg2rad(theta_guess)) + cenx_fr
@@ -286,8 +314,11 @@ def get_mu_and_sigma(cube, angs, ncomp, annulus_width, aperture_radius, fwhm,
     wedge at the companion's radius, excluding the companion (vip_tpu
     negfc_fmerit.py:247; same parameters). With ``f_guess`` and ``psfn``
     the companion is removed first and the wedge is the full annulus of
-    the reduction plus that of the reduction with the angles negated."""
-    _only_3d(cube, "get_mu_and_sigma")
+    the reduction plus that of the reduction with the angles negated. A
+    4-d cube takes one flux a channel, the companion at (r_guess,
+    theta_guess) in each (vip_tpu puts r_guess in theta,
+    negfc_fmerit.py:275)."""
+    _check_cube(cube)
     angs = _host(angs)
     centy_fr, cenx_fr = frame_center(cube)
     halfw = max(aperture_radius * fwhm, annulus_width / 2)
@@ -304,10 +335,11 @@ def get_mu_and_sigma(cube, angs, ncomp, annulus_width, aperture_radius, fwhm,
         elif len(f_guess) == 1:
             planet_parameter = (r_guess, theta_guess, f_guess[0])
         else:
-            # the multi-flux (4-d) branch: vip_tpu puts r_guess in theta
-            # here (ROADMAP.md Queue 3); 4-d cubes raised above
+            # the multi-flux (4-d) branch, at theta_guess (vip_tpu puts
+            # r_guess there: ROADMAP.md Queue 3)
             planet_parameter = np.array([[r_guess] * len(f_guess),
-                                         [r_guess] * len(f_guess), f_guess])
+                                         [theta_guess] * len(f_guess),
+                                         f_guess])
         array = cube_planet_free(planet_parameter, cube, angs, psfn,
                                  imlib=imlib, interpolation=interpolation)
     else:

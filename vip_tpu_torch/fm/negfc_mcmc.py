@@ -14,9 +14,10 @@ Random draws: the initial ball is numpy's ``default_rng(rng_seed)``, as
 vip_tpu's; the stretch moves come from the keyword-only ``draws``
 callable (``ops.negfc_model``'s convention), or else from a
 ``torch.Generator`` seeded with ``rng_seed`` (vip_tpu draws them from
-jax's threefry, which the port does not have). ``walker_mesh`` waits for
-ROADMAP Queue 1, slice 11, 4-d cubes for slice 7; matplotlib is imported
-only to draw.
+jax's threefry, which the port does not have). A 4-d cube samples (r,
+theta, f_1, ..., f_z) with the batched model's channel loop.
+``walker_mesh`` waits for ROADMAP Queue 1, slice 11; matplotlib is
+imported only to draw.
 """
 
 import datetime
@@ -29,7 +30,7 @@ from ..config.device import as_tensor
 from ..ops.negfc_model import _draws_of, _stretch_sweep, make_batched_lnprob
 from ..psfsub.svd import MODE_TO_METHOD
 from ..psfsub.utils_pca import pca_annulus
-from .negfc_fmerit import (_inject_negative, _only_3d, _shift_imlibs,
+from .negfc_fmerit import (_check_cube, _inject_negative, _shift_imlibs,
                            get_mu_and_sigma, get_values_optimize)
 from .fakecomp import _host
 from .utils_mcmc import autocorr_test, gelman_rubin
@@ -59,16 +60,19 @@ def lnlike(param, cube, angs, psf_norm, fwhm, annulus_width, ncomp,
     negfc_mcmc.py:43; same parameters): the negative companion injected
     and the cube reduced on the cube's device, the aperture values'
     Gaussian (``mu_sigma`` a tuple) or 'sum'/'stddev' merit on the host.
-    With ``debug`` also the injected cube (a tensor)."""
-    _only_3d(cube, "lnlike")
+    With ``debug`` also the injected cube (a tensor). A 4-d cube takes one
+    flux a channel, or one for all."""
+    _check_cube(cube)
     imlib_sh, imlib_rot = _shift_imlibs(imlib)
     if force_rPA:
         r0, theta0 = initial_state[0], initial_state[1]
-        flux = param[0]
+        flux = np.array(param) if len(param) > 1 else param[0]
     else:
-        r0, theta0, flux = param[0], param[1], param[2]
+        r0, theta0 = param[0], param[1]
+        flux = np.array(param[2:]) if len(param) > 3 else param[2]
     if weights is not None:
-        flux = flux * np.asarray(weights)
+        flux = flux * np.asarray(weights) if np.isscalar(flux) \
+            else np.outer(flux, weights)
 
     cube_negfc = _inject_negative(as_tensor(cube), psf_norm, _host(angs),
                                   r0, theta0, flux, imlib_sh, interpolation,
@@ -151,8 +155,9 @@ def mcmc_negfc_sampling(cube, angs, psfn, initial_state, algo=pca_annulus,
     (u_z, partners, u_accept)`` (``ops.negfc_model``); None draws them
     from a ``torch.Generator`` seeded with ``rng_seed``. ``walker_mesh``
     (vip_tpu's sharding of the walkers over devices) raises until slice
-    11."""
-    _only_3d(cube, "mcmc_negfc_sampling")
+    11. A 4-d cube takes a (channels, y, x) ``psfn`` and
+    ``initial_state`` (r, theta, f_1, ..., f_z)."""
+    _check_cube(cube)
     if walker_mesh is not None:
         raise NotImplementedError(
             "mcmc_negfc_sampling: walker_mesh is not ported yet (fm/sharded"
@@ -244,7 +249,7 @@ def mcmc_negfc_sampling(cube, angs, psfn, initial_state, algo=pca_annulus,
         and not radial_gradient
         and (isinstance(mu_sigma, tuple) or fmerit in ("sum", "stddev"))
         and opt["imlib"] in ("vip-fft", "ndimage-fourier")
-        and np.ndim(psfn) == 2
+        and np.ndim(psfn) == (2 if cube.ndim == 3 else 3)
     )
     walker_pool = None
     if use_device:

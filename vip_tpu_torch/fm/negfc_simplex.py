@@ -4,7 +4,9 @@
 Both steps run on the host (numpy, scipy's ``minimize``) and call
 ``chisquare``, whose injection and reduction run on the cube's device:
 pass the cube as a CUDA tensor to keep it on the card between the calls.
-4-d cubes wait for ROADMAP Queue 1, slice 7.
+A 4-d cube has one flux a channel (the grid searched channel by channel,
+the others at 0, and all fluxes in the simplex), or one for all with
+``bin_spec``.
 """
 
 import numpy as np
@@ -13,7 +15,7 @@ from scipy.optimize import minimize
 from ..config import sep, time_ini, timing
 from ..psfsub.utils_pca import pca_annulus
 from ..var.coords import frame_center
-from .negfc_fmerit import _only_3d, chisquare, get_mu_and_sigma
+from .negfc_fmerit import _check_cube, chisquare, get_mu_and_sigma
 
 __all__ = ["firstguess", "firstguess_from_coord", "firstguess_simplex"]
 
@@ -33,8 +35,10 @@ def firstguess_from_coord(planet, center, cube, angs, psfn, fwhm,
     the flux of least χ² on the grid ``f_range`` (default 30 values from
     0.1 to 1e4, geometric), the search stopping after the fourth rise of
     χ² (vip_tpu negfc_simplex.py:19; same parameters). With
-    ``full_output`` also the grid and its χ² curve."""
-    _only_3d(cube, "firstguess_from_coord")
+    ``full_output`` also the grid and its χ² curve. A 4-d cube without
+    ``bin_spec`` searches each channel's flux with the others at 0 and
+    returns (r, theta, f_1, ..., f_z), with the list of the curves."""
+    _check_cube(cube)
     planet = np.asarray(planet, dtype=float)
     center = np.asarray(center, dtype=float)
     xy = planet - center
@@ -43,29 +47,46 @@ def firstguess_from_coord(planet, center, cube, angs, psfn, fwhm,
     f_range = np.geomspace(1e-1, 1e4, 30) if f_range is None \
         else np.asarray(f_range)
 
-    chi2r = []
-    if verbose:
-        print("Step | flux    | chi2r")
-    counter = 0
-    for j, f_guess in enumerate(f_range):
-        chi2r.append(chisquare((r0, theta0, f_guess), cube, angs, psfn,
-                               fwhm, annulus_width, aperture_radius,
-                               (r0, theta0), ncomp, cube_ref, svd_mode,
-                               scaling, fmerit, collapse, algo, delta_rot,
-                               imlib, interpolation, algo_options,
-                               transmission, radial_gradient, mu_sigma,
-                               weights, False, ndet, bin_spec, debug))
-        if chi2r[j] > chi2r[j - 1]:
-            counter += 1
-        if counter == 4:
-            break
+    def grid_search(ch):
+        chi2r = []
         if verbose:
-            print(f"{j + 1}/{f_range.shape[0]}   {f_guess:.3f}   "
-                  f"{chi2r[j]:.3f}")
-    chi2r = np.array(chi2r)
-    res = (r0, theta0, f_range[chi2r.argmin()])
-    if plot:
-        _plot_chi2r(f_range, chi2r, save)
+            print("Step | flux    | chi2r")
+        counter = 0
+        for j, f_guess in enumerate(f_range):
+            if ch is None:
+                params = (r0, theta0, f_guess)
+            else:
+                fluxes = [0] * cube.shape[0]
+                fluxes[ch] = f_guess
+                params = tuple([r0, theta0] + fluxes)
+            chi2r.append(chisquare(params, cube, angs, psfn, fwhm,
+                                   annulus_width, aperture_radius,
+                                   (r0, theta0), ncomp, cube_ref, svd_mode,
+                                   scaling, fmerit, collapse, algo,
+                                   delta_rot, imlib, interpolation,
+                                   algo_options, transmission,
+                                   radial_gradient, mu_sigma, weights,
+                                   False, ndet, bin_spec, debug))
+            if chi2r[j] > chi2r[j - 1]:
+                counter += 1
+            if counter == 4:
+                break
+            if verbose:
+                print(f"{j + 1}/{f_range.shape[0]}   {f_guess:.3f}   "
+                      f"{chi2r[j]:.3f}")
+        return np.array(chi2r)
+
+    if cube.ndim == 3 or bin_spec:
+        chi2r = grid_search(None)
+        res = (r0, theta0, f_range[chi2r.argmin()])
+        if plot:
+            _plot_chi2r(f_range, chi2r, save)
+    else:
+        chi2r = [grid_search(ch) for ch in range(cube.shape[0])]
+        res = tuple([r0, theta0] + [f_range[c.argmin()] for c in chi2r])
+        if plot:
+            for c in chi2r:
+                _plot_chi2r(f_range, c, save)
     if full_output:
         return res, f_range, chi2r
     return res
@@ -137,8 +158,9 @@ def firstguess(cube, angs, psfn, planets_xy_coord, ncomp=1, fwhm=4,
     ``planets_xy_coord``: the flux grid, then the simplex (vip_tpu
     negfc_simplex.py:163; same parameters). With ``mu_sigma`` True the
     merit is the χ² of the annulus statistics of ``get_mu_and_sigma``.
-    Returns the (n_planet,) arrays r_0, theta_0, f_0."""
-    _only_3d(cube, "firstguess")
+    Returns the (n_planet,) arrays r_0, theta_0, f_0 (f_0 (n_planet,
+    channels) for a 4-d cube without ``bin_spec``)."""
+    _check_cube(cube)
     if verbose:
         start_time = time_ini()
 
@@ -147,7 +169,14 @@ def firstguess(cube, angs, psfn, planets_xy_coord, ncomp=1, fwhm=4,
     center_xy_coord = np.array(frame_center(cube))
     r_0 = np.zeros(n_planet)
     theta_0 = np.zeros_like(r_0)
-    f_0 = np.zeros_like(r_0)
+    one_flux = cube.ndim == 3 or bin_spec
+    if one_flux:
+        f_0 = np.zeros_like(r_0)
+    else:
+        if psfn.ndim < 3:
+            raise TypeError("The normalized PSF should be 3D for a 4D input "
+                            "cube")
+        f_0 = np.zeros([n_planet, cube.shape[0]])
 
     if weights is not None:
         if not len(weights) == cube.shape[-3]:
@@ -182,7 +211,7 @@ def firstguess(cube, angs, psfn, planets_xy_coord, ncomp=1, fwhm=4,
                 weights=norm_weights, algo_options=algo_options,
                 bin_spec=bin_spec)
 
-        r_pre, theta_pre, f_pre = firstguess_from_coord(
+        res_init = firstguess_from_coord(
             planets_xy_coord[i_planet], center_xy_coord, cube, angs, psfn,
             fwhm, annulus_width, aperture_radius, ncomp, f_range=f_range,
             cube_ref=cube_ref, svd_mode=svd_mode, scaling=scaling,
@@ -192,11 +221,12 @@ def firstguess(cube, angs, psfn, planets_xy_coord, ncomp=1, fwhm=4,
             radial_gradient=radial_gradient, mu_sigma=mu_sigma_i,
             weights=weights, ndet=ndet, bin_spec=bin_spec, plot=plot,
             verbose=verbose, save=save)
+        r_pre, theta_pre, f_pre = res_init[0], res_init[1], res_init[2:]
         if verbose:
             print(f"Planet {i_planet}: preliminary position guess: "
                   f"(r, theta)=({r_pre:.1f}, {theta_pre:.1f})")
             print(f"Planet {i_planet}: preliminary flux guess: "
-                  f"{f_pre:.2f}")
+                  + ", ".join(f"{fz:.2f}" for fz in f_pre))
 
         if simplex or force_rPA:
             if verbose:
@@ -206,7 +236,7 @@ def firstguess(cube, angs, psfn, planets_xy_coord, ncomp=1, fwhm=4,
                 simplex_options = {"xatol": 1e-6, "fatol": 1e-6,
                                    "maxiter": 800, "maxfev": 2000}
             res = firstguess_simplex(
-                (r_pre, theta_pre, f_pre), cube, angs, psfn, ncomp, fwhm,
+                res_init, cube, angs, psfn, ncomp, fwhm,
                 annulus_width, aperture_radius, cube_ref=cube_ref,
                 svd_mode=svd_mode, scaling=scaling, fmerit=fmerit,
                 imlib=imlib, interpolation=interpolation, collapse=collapse,
@@ -217,9 +247,10 @@ def firstguess(cube, angs, psfn, planets_xy_coord, ncomp=1, fwhm=4,
                 verbose=False)
             if force_rPA:
                 r_0[i_planet], theta_0[i_planet] = r_pre, theta_pre
-                f_0[i_planet] = res.x[0]
+                f_0[i_planet] = res.x[0] if one_flux else res.x[:]
             else:
-                r_0[i_planet], theta_0[i_planet], f_0[i_planet] = res.x
+                r_0[i_planet], theta_0[i_planet] = res.x[0], res.x[1]
+                f_0[i_planet] = res.x[2] if one_flux else res.x[2:]
             if verbose:
                 print(f"Planet {i_planet}: Success: {res.success}, nit: "
                       f"{res.nit}, nfev: {res.nfev}, chi2r: {res.fun}")
@@ -229,7 +260,7 @@ def firstguess(cube, angs, psfn, planets_xy_coord, ncomp=1, fwhm=4,
                 print(f"Planet {i_planet}: Simplex Nelder-Mead minimization "
                       "skipped.")
             r_0[i_planet], theta_0[i_planet] = r_pre, theta_pre
-            f_0[i_planet] = f_pre
+            f_0[i_planet] = f_pre[0] if one_flux else f_pre
 
     if verbose:
         print("\n", sep, "\nDONE !\n", sep)

@@ -10,7 +10,7 @@ import numpy as np
 from ..config.utils_conf import iterable, pool_map
 from ..psfsub.utils_pca import pca_annulus
 from .fakecomp import cube_inject_companions, cube_planet_free
-from .negfc_fmerit import _only_3d, get_mu_and_sigma
+from .negfc_fmerit import _check_cube, get_mu_and_sigma
 from .negfc_mcmc import confidence
 from .negfc_simplex import firstguess_simplex
 
@@ -28,9 +28,10 @@ def speckle_noise_uncertainty(cube, p_true, angle_range, derot_angles, algo,
                               verbose=True, full_output=True, plot=False,
                               sigma_trim=None):
     """Speckle-noise uncertainty by injection and refit at the azimuths
-    ``angle_range`` (vip_tpu negfc_speckle_noise.py:20; same parameters).
-    4-d cubes wait for ROADMAP Queue 1, slice 7."""
-    _only_3d(cube, "speckle_noise_uncertainty")
+    ``angle_range`` (vip_tpu negfc_speckle_noise.py:20; same parameters):
+    ``p_true`` (r, theta, f), or (r, theta, f_1, ..., f_z) for a 4-d
+    cube."""
+    _check_cube(cube)
     if verbose:
         print("")
         print("#######################################################")

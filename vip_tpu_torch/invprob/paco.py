@@ -12,8 +12,11 @@ inverse covariances, means and patches with the a/b contractions of
 [FLA18] eqs. 15-16, in chunks of pixels under the same budget. The
 tracks' geometry is host float64 numpy, as vip_tpu computes it.
 FullPACO computes the statistics of the cells its tracks visit only.
-Resampling the cube (``rescaling_factor`` other than 1) waits for
-``preproc.rescaling`` (ROADMAP.md Queue 1, slice 7).
+A ``rescaling_factor`` other than 1 resamples the cube (one batched FFT
+zoom of all frames, ``preproc.rescaling.cube_px_resampling``) and the
+PSF before the run, and keeps the resampled cube, as the docstring of
+vip_tpu's ``rescale_cube_and_psf`` says (vip_tpu discards it,
+paco.py:142; ROADMAP.md Queue 3).
 """
 
 import sys
@@ -144,16 +147,29 @@ class PACO:
     def rescale_cube_and_psf(self, imlib="vip-fft",
                              interpolation="lanczos4", keep_center=True):
         """Resample the cube and the PSF by the rescaling factor (vip_tpu
-        paco.py:134). A factor of 1 does nothing; any other needs
-        ``preproc.rescaling``, which is not ported yet."""
+        paco.py:134), and scale the pixel scale, the FWHM and the patch
+        geometry with them. A factor of 1 does nothing. The resampled cube
+        replaces the cube (vip_tpu computes it and drops it)."""
+        from ..preproc.rescaling import cube_px_resampling, frame_px_resampling
+
         if self.rescaling_factor == 1:
             if self.verbose:
                 print("Scale is 1, no scaling applied.")
             return
-        raise NotImplementedError(
-            "PACO: rescaling_factor != 1 needs cube_px_resampling and "
-            "frame_px_resampling (preproc.rescaling), not ported yet "
-            "(ROADMAP.md Queue 1, slice 7)")
+        self.set_cube(cube_px_resampling(
+            self.cube, self.rescaling_factor, imlib=imlib,
+            interpolation=interpolation, keep_center=keep_center,
+            verbose=False))
+        self.pixscale = self.pixscale / self.rescaling_factor
+        self.fwhm = int(self.fwhm * self.rescaling_factor)
+        if self.psf is not None:
+            self.psf = _host(frame_px_resampling(
+                self.psf, self.rescaling_factor, imlib=imlib,
+                interpolation=interpolation, keep_center=keep_center,
+                verbose=False))
+        mask = create_boolean_circular_mask(self.psf.shape, self.fwhm)
+        self.patch_area_pixels = self.psf[mask].shape[0]
+        self.patch_width = 2 * int(self.fwhm) + 3
 
     def psf_model_function(self, mean, model: Callable, params: dict):
         """Deprecated analytic-PSF hook (vip_tpu paco.py:157)."""

@@ -16,9 +16,15 @@ Other algos run once per pattern on host cubes.
 Photometry runs batched on the device (``ops.apertures``); the frames it
 measures and the curves are host numpy. ``_contrast_curve`` computes the
 columns of the contrast curve as a dict of numpy arrays, without pandas;
-``contrast_curve`` wraps them in vip_tpu's ``DataFrame``. 4-d (IFS)
-cubes wait for ROADMAP Queue 1, slice 7, and ``pattern_mesh`` (several
-devices) for slice 11.
+``contrast_curve`` wraps them in vip_tpu's ``DataFrame``.
+
+A 4-d (IFS) cube, with a 3-d PSF (one frame a channel), follows
+vip_tpu's 4-d branch: each pattern's companions are injected on the host
+by ``fm.cube_inject_companions`` (4-d), the azimuth stepping with the
+radius, and each injected cube is reduced by the 4-d algo (the port's
+``pca`` with ``scale_list``, or any other); the injected flux is the
+mean over the channels of each channel's aperture. ``pattern_mesh``
+(several devices) waits for ROADMAP Queue 1, slice 11.
 """
 
 from enum import Enum
@@ -45,13 +51,6 @@ __all__ = ["contrast_curve", "throughput", "noise_per_annulus",
 
 def _value(v):
     return v.value if isinstance(v, Enum) else v
-
-
-def _not_4d(ndim, what):
-    if ndim == 4:
-        raise NotImplementedError(
-            f"{what}: 4-d (IFS) cubes are not ported yet (ROADMAP.md, Queue "
-            "1, slice 7)")
 
 
 def _no_mesh(pattern_mesh):
@@ -309,18 +308,27 @@ def throughput(cube, angle_list, psf_template, fwhm, algo, nbranch=1,
     parangles = np.asarray(_host(angle_list))
     imlib = _value(algo_dict.get("imlib", "vip-fft"))
     interpolation = algo_dict.get("interpolation", "lanczos4")
+    nproc = algo_dict.get("nproc", 1)
     if array.ndim not in (3, 4):
         raise TypeError("The input array is not a 3d or 4d cube")
-    _not_4d(array.ndim, "throughput")
-    if array.shape[0] != parangles.shape[0]:
-        raise TypeError("Input parallactic angles vector has wrong length")
-    if psf_template.ndim != 2:
-        raise TypeError("Template PSF is not a frame or 2d array")
-    maxfcsep = int((array.shape[1] / 2.0) / fwhm) - 1
-    if fc_rad_sep < 3 or fc_rad_sep > maxfcsep:
-        raise ValueError("Too large separation between companions in the "
-                         f"radial patterns. Should lie between 3 and "
-                         f"{maxfcsep}")
+    is4d = array.ndim == 4
+    if not is4d:
+        if array.shape[0] != parangles.shape[0]:
+            raise TypeError("Input parallactic angles vector has wrong "
+                            "length")
+        if psf_template.ndim != 2:
+            raise TypeError("Template PSF is not a frame or 2d array")
+        maxfcsep = int((array.shape[1] / 2.0) / fwhm) - 1
+        if fc_rad_sep < 3 or fc_rad_sep > maxfcsep:
+            raise ValueError("Too large separation between companions in "
+                             "the radial patterns. Should lie between 3 and"
+                             f" {maxfcsep}")
+    else:
+        if array.shape[1] != parangles.shape[0]:
+            raise TypeError("Input parallactic angles vector has wrong "
+                            "length")
+        if psf_template.ndim != 3:
+            raise TypeError("Template PSF is not a frame, 3d array")
     if psf_template.shape[1] % 2 == 0:
         raise ValueError("Only odd-sized PSF is accepted")
     if not hasattr(algo, "__call__"):
@@ -386,6 +394,8 @@ def throughput(cube, angle_list, psf_template, fwhm, algo, nbranch=1,
     new_psf_size = int(round(3 * fwhm_med))
     if new_psf_size % 2 == 0:
         new_psf_size += 1
+    if is4d and isinstance(fwhm, (int, float)):
+        fwhm = [fwhm] * array.shape[0]
     psf_template = normalize_psf(psf_template, fwhm=fwhm, verbose=verbose,
                                  size=min(new_psf_size,
                                           psf_template.shape[-1]))
@@ -398,25 +408,35 @@ def throughput(cube, angle_list, psf_template, fwhm, algo, nbranch=1,
                                      algo_dict) is not None)
     thruput_arr = np.zeros((nbranch, noise.shape[0]))
     frame_fc_all = np.zeros((nbranch * fc_rad_sep, y, x))
-    fc_map_all = np.zeros((nbranch * fc_rad_sep, y, x))
-    cy, cx = frame_center(array[0])
+    chans = (array.shape[0],) if is4d else ()
+    fc_map_all = np.zeros((nbranch * fc_rad_sep,) + chans + (y, x))
+    cy, cx = frame_center((y, x))
 
     def build_pattern(br, irad):
         """The companion ladder of one (branch, radial pattern): (cube or
-        ladder spec, fc_map, fcy, fcx) (vip_tpu contrcurve.py:519)."""
+        ladder spec, fc_map, fcy, fcx) (vip_tpu contrcurve.py:519). 3-d
+        keeps one azimuth a branch; 4-d steps the azimuth with the radius,
+        and its injection ignores the branch offset that its photometry
+        keeps (vip_tpu's, and VIP's contrcurve.py:976-1007)."""
         radvec = vector_radd[irad::fc_rad_sep]
+        if is4d:
+            thetavec = list(range(int(theta), int(theta) + 360,
+                                  360 // len(radvec)))
+        else:
+            thetavec = [theta] * len(radvec)
         cube_fc = None if lazy else _host(array).copy()
-        fc_map = np.ones((y, x)) * 1e-6
+        fc_map = np.ones_like(fc_map_all[0]) * 1e-6
         fcy, fcx, fluxes = [], [], []
         for i, rad in enumerate(radvec):
             flux = fc_snr * noise_noscal[irad + i * fc_rad_sep]
             if not lazy:
                 cube_fc = cube_inject_companions(
                     cube_fc, psf_template, parangles, flux, rad_dists=[rad],
-                    theta=br * angle_branch + theta, imlib=imlib,
-                    interpolation=interpolation, copy_array=False,
-                    verbose=False)
-            ang = np.deg2rad(br * angle_branch + theta)
+                    theta=thetavec[i] if is4d
+                    else br * angle_branch + thetavec[i], nproc=nproc,
+                    imlib=imlib, interpolation=interpolation,
+                    copy_array=False, verbose=False)
+            ang = np.deg2rad(br * angle_branch + thetavec[i])
             yi = cy + rad * np.sin(ang)
             xi = cx + rad * np.cos(ang)
             fc_map = frame_inject_companion(fc_map, psf_template, yi, xi,
@@ -459,8 +479,16 @@ def throughput(cube, angle_list, psf_template, fwhm, algo, nbranch=1,
     recovered = aperture_flux_images(
         np.stack([frames_fc[k] - frame_nofc for k in range(len(patterns))]),
         fcys, fcxs, fwhm_med / 2)
-    injected = aperture_flux_images(np.stack([b[1] for b in built]), fcys,
-                                    fcxs, fwhm_med / 2)
+    if is4d:
+        per_ch = [aperture_flux_images(
+            np.stack([b[1][ch] for b in built]), fcys, fcxs, fwhm[ch] / 2)
+            for ch in range(array.shape[0])]
+        injected = [np.mean([_host(per_ch[ch][k])
+                             for ch in range(array.shape[0])], axis=0)
+                    for k in range(len(patterns))]
+    else:
+        injected = aperture_flux_images(np.stack([b[1] for b in built]),
+                                        fcys, fcxs, fwhm_med / 2)
     for k, (br, irad) in enumerate(patterns):
         ratio = _host(recovered[k]) / _host(injected[k])
         thruput_arr[br, irad::fc_rad_sep] = np.where(ratio < 0, 0, ratio)
@@ -490,12 +518,13 @@ def _contrast_curve(cube, angle_list, psf_template, fwhm, pxscale, starphot,
     _no_mesh(pattern_mesh)
     if cube.ndim != 3 and cube.ndim != 4:
         raise TypeError("The input array is not a 3d or 4d cube")
-    _not_4d(cube.ndim, "contrast_curve")
     angle_list = np.asarray(_host(angle_list))
-    if cube.shape[0] != angle_list.shape[0]:
+    if cube.shape[cube.ndim - 3] != angle_list.shape[0]:
         raise TypeError("Input parallactic angles vector has wrong length")
-    if psf_template.ndim != 2:
+    if cube.ndim == 3 and psf_template.ndim != 2:
         raise TypeError("Template PSF is not a frame (for ADI case)")
+    if cube.ndim == 4 and psf_template.ndim != 3:
+        raise TypeError("Template PSF is not a cube (for ADI+IFS case)")
     if transmission is not None:
         transmission = np.asarray(transmission, dtype=float)
         if len(transmission) != 2 and len(transmission) != cube.shape[0] + 1:

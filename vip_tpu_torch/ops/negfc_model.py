@@ -33,6 +33,12 @@ walkers directly on tensors, on the cube's device:
    which is the per-pixel median of the full frames read at the aperture;
 8. the log-likelihood of each walker.
 
+A 4-d (channels, frames, y, x) cube runs steps 1-7 channel by channel,
+each with its own PSF, library basis and transmission, a scalar flux
+shared by the channels or one flux a channel, and the channels' aperture
+values collapse with ``collapse_ifs`` before the likelihood (vip_tpu's
+``is4d`` branch).
+
 ``run_stretch_mcmc`` is the affine-invariant stretch move around such a
 batch. Its random draws come from a ``torch.Generator`` or from a
 callable ``draws(step, half, ns0, n1) -> (u_z, partners, u_accept)``,
@@ -56,7 +62,6 @@ from .shear import rotate_exact
 __all__ = ["make_negfc_lnprob", "make_batched_lnprob", "cyclic_fourier_shift",
            "run_stretch_mcmc"]
 
-_SLICE7 = "(ROADMAP.md, Queue 1, slice 7)"
 #: Working set of the walkers of one pass (bytes): the budget of
 #: ``preproc.derotation._auto_chunk``
 _WORKING_SET = 8 << 30
@@ -153,20 +158,25 @@ def make_negfc_lnprob(cube, angs, psfn, ncomp, annulus_width, r_guess,
     radial coronagraph ``transmission``, a ``cube_ref`` library (its
     principal components static), the four ``scaling`` modes, the
     collapses 'median', 'mean' and 'sum', and the (mu, sigma) and
-    'sum'/'stddev' merits. 4-d cubes wait for slice 7."""
+    'sum'/'stddev' merits. A 4-d cube takes a (channels, y, x) ``psfn``,
+    params (r, theta, f) or (r, theta, f_1..f_z), and ``collapse_ifs``
+    'mean', 'median', 'sum' or 'absmean' over the channels."""
     cube = as_tensor(cube)
-    if cube.ndim == 4:
-        raise NotImplementedError(
-            f"make_negfc_lnprob: 4-d cubes are not ported yet {_SLICE7}")
-    if cube.ndim != 3:
-        raise TypeError("`cube` must be a 3d array")
+    if cube.ndim not in (3, 4):
+        raise TypeError("`cube` must be a 3d or 4d array")
+    is4d = cube.ndim == 4
     if collapse not in ("median", "mean", "sum"):
         raise ValueError("collapse not supported in device model")
+    if is4d and collapse_ifs not in ("mean", "median", "sum", "absmean"):
+        raise ValueError("collapse_ifs not supported in device model")
     if not mu_sigma_is_tuple and fmerit not in ("sum", "stddev"):
         raise ValueError("fmerit choice not recognized.")
-    n, ny, nx = cube.shape
+    nch = cube.shape[0] if is4d else 1
+    n, ny, nx = cube.shape[-3:]
     dev, dt = cube.device, cube.dtype
     psfn = as_tensor(psfn, dev, dt)
+    if not is4d:
+        psfn = psfn[None]
     angs = np.asarray(angs.cpu() if isinstance(angs, torch.Tensor) else angs,
                       dtype=float)
 
@@ -195,7 +205,7 @@ def make_negfc_lnprob(cube, angs, psfn, ncomp, annulus_width, r_guess,
     p = ann_flat.numel()
     col_map = torch.full((ny * nx,), -1, dtype=torch.long, device=dev)
     col_map[ann_flat] = torch.arange(p, device=dev)
-    base = cube.reshape(n, ny * nx)[:, ann_flat]
+    base = cube.reshape(nch, n, ny * nx)[:, :, ann_flat]
     sty, stx = _stamp_origin(ny, nx, psfn.shape[-1])
     size_fc = psfn.shape[-1]
 
@@ -203,19 +213,33 @@ def make_negfc_lnprob(cube, angs, psfn, ncomp, annulus_width, r_guess,
     hi = np.array([b[1] for b in bounds], float)
     ncomp = int(ncomp)
     w_fr = None if weights is None else np.asarray(weights, float)
+    tabs = None
     if transmission is not None:
-        # the table the injector pads (vip_tpu negfc_model.py:78)
+        # the tables the injector pads, one a channel (vip_tpu
+        # negfc_model.py:78, :161-168)
         from ..fm.fakecomp import _extend_transmission
 
         transmission = np.asarray(transmission, dtype=float)
-        t_rad, t_val = _extend_transmission(
-            np.array([transmission[0], transmission[1]]), nx)
+        tabs = [_extend_transmission(np.array(
+            [transmission[0], transmission[1 if transmission.shape[0] == 2
+                                           else ch + 1]]), nx)
+            for ch in range(nch)]
     V_static = None
     if cube_ref is not None:
-        ref = as_tensor(cube_ref, dev, dt)
-        V_static = svd_top(matrix_scaling_jax(
-            ref.reshape(ref.shape[0], -1)[:, ann_flat], scaling), ncomp,
-            method=svd_method)
+        if not is4d:
+            refs = [cube_ref]
+        elif isinstance(cube_ref, (list, tuple)):
+            refs = list(cube_ref)
+        elif cube_ref.ndim == 3:
+            refs = [cube_ref] * nch
+        else:
+            refs = [cube_ref[ch] for ch in range(nch)]
+        V_static = []
+        for rc in refs:
+            ref = as_tensor(rc, dev, dt)
+            V_static.append(svd_top(matrix_scaling_jax(
+                ref.reshape(ref.shape[0], -1)[:, ann_flat], scaling), ncomp,
+                method=svd_method))
     neg_angs = torch.as_tensor(-angs, dtype=dt, device=dev)
     # walkers a pass: each holds its (n, p) matrix, the SVD's factor of the
     # same size, the scaled copy and the residuals
@@ -225,10 +249,21 @@ def make_negfc_lnprob(cube, angs, psfn, ncomp, annulus_width, r_guess,
     sigma2_spe = torch.as_tensor(sigma2_spe, dtype=dt, device=dev)
 
     def values(r, theta, f):
-        """Aperture values of the collapsed residual frames, (Wv, n_ap)."""
+        """Aperture values of the collapsed residual frames, (Wv, n_ap),
+        for (Wv,) radii and angles and (Wv, nch) fluxes."""
+        per_ch = [channel_values(ch, r, theta, f[:, ch])
+                  for ch in range(nch)]
+        if not is4d:
+            return per_ch[0]
+        stack = torch.stack(per_ch)
+        if collapse_ifs == "absmean":
+            return stack.abs().mean(dim=0)
+        return subsampling.collapse_jax(stack, collapse_ifs)
+
+    def channel_values(ch, r, theta, f):
         Wv = len(r)
-        if transmission is not None:
-            f = f * np.interp(r, t_rad, t_val)
+        if tabs is not None:
+            f = f * np.interp(r, tabs[ch][0], tabs[ch][1])
         flux = f[:, None] * (w_fr[None, :] if w_fr is not None
                              else np.ones((1, n)))
         int_y, int_x, dsy, dsx = _shift_parts(r, theta, angs)
@@ -239,12 +274,12 @@ def make_negfc_lnprob(cube, angs, psfn, ncomp, annulus_width, r_guess,
         geo = torch.as_tensor(np.stack([y0, x0, dsy, dsx, flux]),
                               dtype=torch.float64).to(dev)
         geo = geo.reshape(5, Wv * n)
-        stamps = cyclic_fourier_shift(psfn, geo[2], geo[3])
-        data = base.repeat(Wv, 1)
+        stamps = cyclic_fourier_shift(psfn[ch], geo[2], geo[3])
+        data = base[ch].repeat(Wv, 1)
         _place(data, col_map, stamps, geo[0].long(), geo[1].long(),
                geo[4].to(dt), ny, nx)
         data = matrix_scaling_jax(data.view(Wv, n, p), scaling)
-        V = V_static if V_static is not None \
+        V = V_static[ch] if V_static is not None \
             else svd_top(data, ncomp, method=svd_method)
         residuals = (data - (data @ V.mT) @ V).reshape(Wv * n, p)
         del data
@@ -282,9 +317,12 @@ def make_negfc_lnprob(cube, angs, psfn, ncomp, annulus_width, r_guess,
         if force_rPA:
             r = np.full(len(inb), float(r_guess))
             theta = np.full(len(inb), float(theta_guess))
-            f = pv[:, 0]
+            f = pv
         else:
-            r, theta, f = pv[:, 0], pv[:, 1], pv[:, 2]
+            r, theta, f = pv[:, 0], pv[:, 1], pv[:, 2:]
+        # one flux shared by the channels, or one a channel
+        f = np.broadcast_to(f[:, :1], (len(inb), nch)) if f.shape[1] == 1 \
+            else f[:, :nch]
         v = torch.cat([values(r[i:i + walker_chunk],
                               theta[i:i + walker_chunk],
                               f[i:i + walker_chunk])

@@ -1,5 +1,5 @@
 """LOCI, the locally optimized combination of images (port of
-``vip_tpu.psfsub.loci``, the 3-d ADI path).
+``vip_tpu.psfsub.loci``).
 
 Annuli and segments as in VIP, walked in VIP's reversed order on the
 host. For each segment the frame-to-frame distances are computed on the
@@ -12,8 +12,15 @@ device (``ops.lsq_solvers.loci_segment_residuals``: 'lstsq', 'nnls' or
 float32 card cube) and collapsed by ``cube_collapse`` (H1 for the
 median).
 
-The 4-d (ADI+mSDI) paths need ``preproc.rescaling``: a 4-d cube raises
-(ROADMAP.md Queue 1, slice 7).
+A 4-d (channels, frames, y, x) cube takes vip_tpu's 4-d paths:
+``adimsdi='skipadi'`` reduces each channel in the ADI fashion and
+collapses the channel frames; otherwise every temporal frame first gets
+a least-squares subtraction in the spectral dimension (the channels of
+all frames rescaled in one batched zoom a channel; each frame's segment
+solved on the device, its channel libraries from ``_find_indices_sdi``
+and the distance filter), the residual channels rescaled back and
+collapsed for all frames at once, then 'single' derotates and collapses
+and 'double' runs the ADI LOCI stage on them.
 """
 
 from dataclasses import dataclass
@@ -95,18 +102,17 @@ class XLOCI_Params:
 
 
 def xloci(*all_args: List, **all_kwargs: dict):
-    """LOCI PSF subtraction of a 3-d ADI cube (vip_tpu loci.py:71).
-    Returns the final frame, or with ``full_output`` (cube_res, cube_der,
-    frame), as tensors on the cube's device."""
+    """LOCI PSF subtraction of a 3-d ADI cube or a 4-d ADI+mSDI cube
+    (vip_tpu loci.py:71). Returns the final frame, or with
+    ``full_output`` (cube_res, cube_der, frame) — (cube_res, frame) for
+    'skipadi' — as tensors on the cube's device."""
     algo_params, rot_options = resolve_algo_params(
         XLOCI_Params, all_args, all_kwargs)
     p = algo_params
     cube = as_tensor(p.cube)
     start_time = time_ini() if p.verbose else None
     if cube.ndim == 4:
-        raise NotImplementedError(
-            "xloci: 4-d (ADI+mSDI) cubes need preproc.rescaling, which is "
-            "not ported yet (ROADMAP.md Queue 1, slice 7)")
+        return _xloci_4d(cube, p, rot_options)
     res = _leastsq_adi(
         cube, check_pa_vector(p.angle_list), fwhm=p.fwhm,
         metric=str(_value(p.metric)), dist_threshold=p.dist_threshold,
@@ -218,3 +224,148 @@ def _library_masks(mat_dists_ann, dist_threshold, hint):
         raise RuntimeError("No frames left in the reference set. Try "
                            + hint + ".")
     return masks
+
+
+def _xloci_4d(cube, p, rot_options):
+    """4-d LOCI (vip_tpu loci.py:103): per-channel ADI for 'skipadi',
+    else the SDI least squares of every frame and 'single' (derotate and
+    collapse) or 'double' (the ADI LOCI stage)."""
+    from ..preproc.rescaling import _host_vec
+
+    z, n, y_in, x_in = cube.shape
+    fwhm = int(np.round(np.mean(p.fwhm)))
+    adimsdi = str(_value(p.adimsdi))
+    metric = str(_value(p.metric))
+    solver = str(_value(p.solver))
+    collapse = _value(p.collapse)
+    angle_list = check_pa_vector(p.angle_list)
+    adi = dict(fwhm=fwhm, metric=metric, dist_threshold=p.dist_threshold,
+               delta_rot=p.delta_rot, radius_int=p.radius_int,
+               asize=p.asize, n_segments=p.n_segments, nproc=p.nproc,
+               solver=solver, tol=p.tol, optim_scale_fact=p.optim_scale_fact,
+               imlib=_value(p.imlib), interpolation=_value(p.interpolation),
+               collapse=collapse, verbose=False)
+
+    if adimsdi == "skipadi":
+        cube_res = torch.stack([
+            _leastsq_adi(cube[ch], angle_list, full_output=False, **adi,
+                         **rot_options) for ch in range(z)])
+        frame = cube_collapse(cube_res, collapse)
+        if p.full_output:
+            return cube_res, frame
+        return frame
+
+    if p.scale_list is None:
+        raise ValueError("Scaling factors vector must be provided")
+    scale_list = _host_vec(p.scale_list)
+    if scale_list.ndim > 1:
+        raise ValueError("Scaling factors vector is not 1d")
+    if not scale_list.shape[0] == z:
+        raise ValueError("Scaling factors vector has wrong length")
+    cube_out = _leastsq_sdi_fr(
+        cube, None, scale_list, p.radius_int, fwhm, p.asize, p.n_segments,
+        p.delta_sep, p.tol, p.optim_scale_fact, metric, p.dist_threshold,
+        solver, p.imlib, p.interpolation, collapse)
+    if adimsdi == "single":
+        cube_der = cube_derotate(cube_out, angle_list, imlib=_value(p.imlib),
+                                 interpolation=_value(p.interpolation),
+                                 nproc=p.nproc, **rot_options)
+        frame = cube_collapse(cube_der, mode=collapse)
+    else:
+        res = _leastsq_adi(cube_out, angle_list, full_output=p.full_output,
+                           **adi, **rot_options)
+        if p.full_output:
+            cube_out, cube_der, frame = res
+        else:
+            frame = res
+    if p.full_output:
+        return cube_out, cube_der, frame
+    return frame
+
+
+def _leastsq_sdi_fr(cube, fr, scal, radius_int, fwhm, asize, n_segments,
+                    delta_sep, tol, optim_scale_fact, metric, dist_threshold,
+                    solver, imlib, interpolation, collapse):
+    """SDI least squares of the temporal frames ``fr`` (indices, or None
+    for all) of a (z, n, y, x) cube (vip_tpu loci.py:186, one frame
+    there). Returns (len(fr), y, x): the residual channels rescaled back
+    and collapsed."""
+    from ..preproc.rescaling import _scwave, check_scal_vector
+
+    cube = as_tensor(cube)
+    if fr is not None:
+        cube = cube[:, fr]
+    z, N, y_in, x_in = cube.shape
+    scale_list = check_scal_vector(scal)
+    imlib = _value(imlib)
+    interpolation = _value(interpolation)
+    multispec = _scwave(cube, scale_list, imlib=imlib,
+                        interpolation=interpolation, collapse=None)[0]
+    Y, X = multispec.shape[-2:]
+    fwhm = int(np.round(np.mean(fwhm)))
+    annulus_width = int(np.ceil(asize))
+    n_annuli = int(np.floor((y_in / 2 - radius_int) / annulus_width))
+    n_segments = resolve_n_segments(n_segments, n_annuli, annulus_width)
+    if isinstance(delta_sep, tuple):
+        delta_sep_vec = np.linspace(delta_sep[0], delta_sep[1], n_annuli)
+    else:
+        delta_sep_vec = [delta_sep] * n_annuli
+
+    flat = multispec.reshape(z, N, Y * X)
+    res = torch.zeros_like(flat)
+    for ann in range(n_annuli):
+        if ann == n_annuli - 1:
+            inner_radius = radius_int + (ann * annulus_width - 1)
+        else:
+            inner_radius = radius_int + ann * annulus_width
+        ann_center = inner_radius + (annulus_width / 2)
+        indices = get_annulus_segments((Y, X), inner_radius, annulus_width,
+                                       n_segments[ann])
+        ind_opt = get_annulus_segments((Y, X), inner_radius, annulus_width,
+                                       n_segments[ann],
+                                       optim_scale_fact=optim_scale_fact)
+        for seg in range(n_segments[ann]):
+            yy, xx = indices[seg]
+            pix = torch.as_tensor(np.asarray(yy) * X + np.asarray(xx),
+                                  device=flat.device)
+            # vip_tpu's quirk (loci.py:236): the row indices of the
+            # optimisation segment serve as both its y and its x
+            yo = np.asarray(ind_opt[seg][0])
+            pix_o = torch.as_tensor(yo * X + yo, device=flat.device)
+            for f in range(N):
+                res[:, f, pix] = _leastsq_patch_ifs(
+                    flat[:, f, pix], flat[:, f, pix_o], scal, ann_center,
+                    fwhm, delta_sep_vec[ann], metric, dist_threshold,
+                    solver, tol)
+    return _scwave(res.reshape(z, N, Y, X), scale_list, inverse=True,
+                   y_in=y_in, x_in=x_in, imlib=imlib,
+                   interpolation=interpolation, collapse=collapse,
+                   keep_cube=False)[1]
+
+
+def _leastsq_patch_ifs(values, values_opt, scal, ann_center, fwhm,
+                       delta_sep, metric, dist_threshold, solver, tol):
+    """SDI least squares of one segment of one frame (vip_tpu
+    loci.py:236): the (z, p) channel values, each channel's library
+    from the radial-motion filter (``_find_indices_sdi``) and the
+    distance threshold. Returns the (z, p) residuals."""
+    from ..preproc.rescaling import _find_indices_sdi
+
+    n_wls = values.shape[0]
+    if dist_threshold < 100:
+        mat_full = pairwise_distances(values, metric).double().cpu().numpy()
+    else:
+        mat_full = np.ones((n_wls, n_wls))
+    if delta_sep > 0:
+        mat = np.zeros_like(mat_full)
+        for zz in range(n_wls):
+            ind = _find_indices_sdi(scal, ann_center, zz, fwhm, delta_sep)
+            mat[zz][ind] = mat_full[zz][ind]
+    else:
+        mat = mat_full
+    masks = _library_masks(mat, dist_threshold,
+                           "increasing `dist_threshold` or decreasing "
+                           "`delta_sep`")
+    return loci_segment_residuals(
+        values, values_opt, torch.as_tensor(masks, device=values.device),
+        tol, solver=solver)

@@ -9,8 +9,17 @@ PA-selected library (``_find_indices_adi``), gathered into a
 (library, frames, pixels) tensor padded with NaN and reduced by the
 NaN-ignoring median along the library axis (H1 on the card) — never the
 (n, n, p) masked tensor of vip_tpu. The cube is then derotated (the exact
-route of ``ops.shear.rotate_exact``, or fft-small) and collapsed. 4-d
-(ADI+mSDI) cubes wait for ROADMAP Queue 1, slice 7.
+route of ``ops.shear.rotate_exact``, or fft-small) and collapsed.
+
+A 4-d (channels, frames, y, x) cube with ``scale_list`` (ADI+mSDI) first
+gets a median subtraction in the spectral dimension: the channels of all
+frames rescaled in one batched zoom a channel, each channel minus the
+median of its channels ('fullfr') or of its SDI library of channels
+('annular', all libraries of an annulus padded with NaN and reduced in
+one median), rescaled back and collapsed. The channel medians of all
+frames take one median call, (z, n, y, x) viewed as (z, n·y, x): one H1
+launch for the cube, not one a frame. The channel-collapsed frames then
+go through the median ADI stage (unless ``sdi_only``).
 """
 
 from dataclasses import dataclass
@@ -23,7 +32,8 @@ import torch
 from ..config import Collapse, Imlib, Interpolation, time_ini, timing
 from ..config.device import as_tensor
 from ..config.utils_param import resolve_algo_params
-from ..ops.median import nanmedian_axis0, nanmedian_plain, nanmedian_supported
+from ..ops.median import nanmedian_axis0, nanmedian_plain
+from ..preproc import subsampling
 from ..preproc.derotation import (_define_annuli, _find_indices_adi,
                                   cube_derotate)
 from ..preproc.parangles import check_pa_vector
@@ -70,16 +80,19 @@ def _value(v):
 
 def _median0(arr, propagate):
     """Median along axis 0: H1 where its gate holds, the plain version
-    otherwise (CPU, float64, more than 3600 frames)."""
-    if nanmedian_supported(arr, 0):
+    otherwise (CPU, float64, more than 3600 frames). The gate is read
+    from ``preproc.subsampling``, the one place a plain-route check
+    turns it off for every median of the port's collapses."""
+    if subsampling.nanmedian_supported(arr, 0):
         return nanmedian_axis0(arr.contiguous(), propagate=propagate)
     return nanmedian_plain(arr, 0, propagate=propagate)
 
 
 def median_sub(*all_args: List, **all_kwargs: dict):
-    """(Smart) median-ADI / median-RDI of a 3-d cube (vip_tpu
-    medsub.py:69): same parameters (``MEDIAN_SUB_Params``, extra keywords
-    are the derotation's ``rot_options``) and return values — the final
+    """(Smart) median-ADI / median-RDI of a 3-d cube, or ADI+mSDI median
+    subtraction of a 4-d cube (vip_tpu medsub.py:69): same parameters
+    (``MEDIAN_SUB_Params``, extra keywords are the derotation's
+    ``rot_options``) and return values — the final
     frame, or (cube_out, cube_der, frame) with ``full_output`` — as
     tensors on the cube's device."""
     algo_params, rot_options = resolve_algo_params(
@@ -90,16 +103,13 @@ def median_sub(*all_args: List, **all_kwargs: dict):
         rot_options["ker"] = 1
         rot_options["interp_zeros"] = True
 
-    if getattr(p.cube, "ndim", None) == 4:
-        raise NotImplementedError(
-            "median_sub: 4-d (ADI+mSDI) cubes are not ported yet (ROADMAP.md,"
-            " Queue 1, slice 7)")
     array = as_tensor(p.cube)
-    if array.ndim != 3:
+    if array.ndim not in (3, 4):
         raise TypeError("Input array is not a 3d or 4d array")
     array = array.clone()
-    if p.verbose:
-        start_time = time_ini()
+    start_time = time_ini() if p.verbose else None
+    if array.ndim == 4:
+        return _median_sub_4d(array, p, start_time, rot_options)
 
     angle_list = check_pa_vector(p.angle_list)
     n, y, x = array.shape
@@ -247,3 +257,154 @@ def _median_subt_ann_rdi(array, frame_ref, collapse_ref, ann, radius_int,
         scal = torch.nansum(matrix, dim=1) / torch.nansum(matrix_ref)
         return matrix - scal[:, None] * matrix_ref[None, :], yy, xx
     return matrix - matrix_ref[None, :], yy, xx
+
+
+def _median_sub_4d(array, p, start_time, rot_options):
+    """ADI+mSDI median subtraction (vip_tpu medsub.py:192): the spectral
+    median subtraction of every frame (:func:`_median_subt_fr_sdi`, all
+    frames at once), then, unless ``sdi_only``, median-ADI of the
+    channel-collapsed frames."""
+    from ..preproc.rescaling import _host_vec
+
+    z, n, y_in, x_in = array.shape
+    angle_list = check_pa_vector(p.angle_list)
+    if p.scale_list is None:
+        raise ValueError("Scaling factors vector must be provided")
+    scale_list = _host_vec(p.scale_list)
+    if scale_list.ndim > 1:
+        raise ValueError("Scaling factors vector is not 1d")
+    if not scale_list.shape[0] == z:
+        raise ValueError("Scaling factors vector has wrong length")
+    flux_sc_list = p.flux_sc_list
+    if flux_sc_list is not None:
+        flux_sc_list = _host_vec(flux_sc_list)
+        if flux_sc_list.ndim > 1:
+            raise ValueError("Scaling factors vector is not 1d")
+        if not flux_sc_list.shape[0] == z:
+            raise ValueError("Scaling factors vector has wrong length")
+    fwhm = int(np.round(np.mean(p.fwhm)))
+    n_annuli = int((y_in / 2 - p.radius_int) / p.asize)
+    if p.nframes is not None and p.nframes % 2 != 0:
+        raise TypeError("`nframes` argument must be even value")
+    if p.verbose:
+        print(f"{z} spectral channels per IFS frame")
+        print("First median subtraction exploiting spectral variability")
+        if p.mode == "annular":
+            print(f"N annuli = {n_annuli}, mean FWHM = {fwhm:.3f}")
+
+    residuals_cube_channels = _median_subt_fr_sdi(
+        array, None, scale_list, flux_sc_list, n_annuli, fwhm, p.radius_int,
+        p.asize, p.delta_sep, p.nframes, p.imlib, p.interpolation,
+        p.collapse, p.mode)
+    if p.verbose:
+        if start_time is not None:
+            timing(start_time)
+        print(f"{n} ADI frames")
+        print("Median subtraction in the ADI fashion")
+
+    if p.sdi_only:
+        cube_out = residuals_cube_channels
+    elif p.mode == "fullfr":
+        cube_out = residuals_cube_channels - _median0(
+            residuals_cube_channels, propagate=False)
+    elif p.mode == "annular":
+        cube_out = torch.full_like(residuals_cube_channels, torch.nan)
+        for ann in range(n_annuli):
+            mres, yy, xx, _ = _median_subt_ann_adi(
+                residuals_cube_channels, ann, angle_list, n_annuli, fwhm,
+                p.radius_int, p.asize, p.delta_rot, p.nframes)
+            cube_out[:, yy, xx] = mres
+    else:
+        raise RuntimeError("Mode not recognized")
+
+    cube_der = cube_derotate(cube_out, angle_list, imlib=_value(p.imlib),
+                             interpolation=_value(p.interpolation),
+                             nproc=p.nproc, **rot_options)
+    if p.radius_int:
+        cube_der = mask_circle(cube_der, p.radius_int)
+    frame = cube_collapse(cube_der, mode=_value(p.collapse))
+    if p.verbose:
+        print("Done derotating and combining")
+        if start_time is not None:
+            timing(start_time)
+    if p.full_output:
+        return cube_out, cube_der, frame
+    return frame
+
+
+def _median_subt_fr_sdi(array, fr, scal, flux_scal, n_annuli, fwhm,
+                        radius_int, annulus_width, delta_sep, nframes, imlib,
+                        interpolation, collapse, mode):
+    """Spectral median subtraction of the temporal frames ``fr`` (indices,
+    or None for all) of a (z, n, y, x) cube (vip_tpu medsub.py:276, one
+    frame there). Returns the (len(fr), y, x) frames: the residual
+    channels rescaled back and collapsed."""
+    from ..preproc.rescaling import (_find_indices_sdi, _host_vec, _scwave,
+                                     check_scal_vector)
+
+    array = as_tensor(array)
+    if fr is not None:
+        array = array[:, fr]
+    z, N, y_in, x_in = array.shape
+    scale_list = check_scal_vector(scal)
+    imlib = _value(imlib)
+    interpolation = _value(interpolation)
+    multispec = _scwave(array, scale_list, imlib=imlib,
+                        interpolation=interpolation, collapse=None)[0]
+    Y, X = multispec.shape[-2:]
+    flux = None
+    if flux_scal is not None:
+        flux = as_tensor(_host_vec(flux_scal), multispec.device,
+                         multispec.dtype)[:, None, None, None]
+        multispec = multispec * flux
+
+    if mode == "annular":
+        if isinstance(delta_sep, tuple):
+            delta_sep_vec = np.linspace(delta_sep[0], delta_sep[1], n_annuli)
+        else:
+            delta_sep_vec = [delta_sep] * n_annuli
+        flat = multispec.reshape(z, N, Y * X)
+        res = torch.zeros_like(flat)
+        for ann in range(n_annuli):
+            if ann == n_annuli - 1:
+                inner_radius = radius_int + (ann * annulus_width - 1)
+            else:
+                inner_radius = radius_int + ann * annulus_width
+            ann_center = inner_radius + (annulus_width / 2)
+            yy, xx = get_annulus_segments((Y, X), inner_radius,
+                                          annulus_width)[0]
+            pix = torch.as_tensor(np.asarray(yy) * X + np.asarray(xx),
+                                  device=flat.device)
+            matrix = flat[:, :, pix]                        # (z, N, p)
+            libs = [_find_indices_sdi(scal, ann_center, j, fwhm,
+                                      delta_sep_vec[ann], nframes)
+                    for j in range(z)]
+            res[:, :, pix] = _channel_library_medians(matrix, libs)
+        cube_res = res.reshape(z, N, Y, X)
+    elif mode == "fullfr":
+        # the channel medians of all frames: one call over (z, N·Y, X)
+        med = _median0(multispec.reshape(z, N * Y, X), propagate=False)
+        cube_res = multispec - med.reshape(1, N, Y, X)
+    else:
+        raise RuntimeError("Mode not recognized")
+    if flux is not None:
+        cube_res = cube_res / flux
+    return _scwave(cube_res, scale_list, inverse=True, y_in=y_in, x_in=x_in,
+                   imlib=imlib, interpolation=interpolation,
+                   collapse=_value(collapse), keep_cube=False)[1]
+
+
+def _channel_library_medians(matrix, libs):
+    """residual[j] = matrix[j] − nanmedian(matrix[libs[j]], axis=0) for a
+    (z, N, p) ``matrix`` and each channel's host library ``libs[j]``: the
+    libraries padded with NaN to the longest and reduced in one median
+    over (L, z·N, p)."""
+    z, N, npx = matrix.shape
+    L = max(len(lib) for lib in libs)
+    padded = np.full((z, L), z, dtype=np.int64)     # row z is all NaN
+    for j, lib in enumerate(libs):
+        padded[j, :len(lib)] = lib
+    ext = torch.cat([matrix, matrix.new_full((1, N, npx), torch.nan)])
+    idx = torch.as_tensor(padded.T, device=matrix.device)       # (L, z)
+    block = ext[idx].reshape(L, z * N, npx)
+    return matrix - _median0(block, propagate=False).reshape(z, N, npx)

@@ -1,5 +1,5 @@
-"""Full-frame PCA for ADI / RDI / ARDI 3-d cubes (port of
-``vip_tpu.psfsub.pca_fullfr``).
+"""Full-frame PCA for ADI / RDI / ARDI 3-d cubes and ADI+mSDI 4-d cubes
+(port of ``vip_tpu.psfsub.pca_fullfr``).
 
 Same public surface as vip_tpu's ``pca(*args, **kwargs)``: the
 dataclass-params convention, keyword arguments outside ``PCA_Params``
@@ -9,14 +9,23 @@ with ``VIP_EXACT_SHEAR=fused3``) → collapse (CUDA kernel H1) runs on the
 cube's device; results are tensors there. A tuple or list ``ncomp`` is a
 grid (``utils_pca.pca_grid``), a float ``ncomp`` the number of PCs that
 reach that cumulative explained variance ratio (``svd.SVDecomposer``),
-and ``left_eigv`` projects on the left singular vectors.
+and ``left_eigv`` projects on the left singular vectors. ``mask_rdi``
+runs the sky-subtraction PCA of ``preproc.cube_subtract_sky_pca``.
+
+A 4-d (channels, frames, y, x) cube without ``scale_list`` is reduced
+channel by channel and the channel frames collapse (``collapse_ifs``).
+With ``scale_list`` (ADI+mSDI): the single pass rescales every channel
+to align the speckles (one batched FFT zoom a channel over all frames,
+``preproc.rescaling``), runs one PCA of the z·n frames, rescales back,
+collapses the channels, derotates and collapses; the double pass runs
+one spectral PCA a temporal frame, all of them in one batched
+``ops.linalg.svd_top`` call, then the ADI stage.
 
 ``batch`` streams the cube through ``utils_pca.pca_incremental`` (a
 FITS path is read lazily) and returns host numpy results, as vip_tpu.
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md Queue 1,
-"pca paths still to port"): 4-D/SDI cubes and ``scale_list``, ``mask_rdi``
-and ``smooth``.
+Not ported yet: ``smooth`` (raises ``NotImplementedError``; ROADMAP.md
+Queue 1, slice 8).
 """
 
 from dataclasses import dataclass
@@ -30,19 +39,20 @@ from ..config import (Adimsdi, Collapse, Imlib, Interpolation, SvdMode,
                       check_array, check_enough_memory, time_ini, timing)
 from ..config.device import as_tensor
 from ..config.utils_param import resolve_algo_params, setup_parameters
-from ..ops.linalg import project_subtract, svd_top
+from ..ops.linalg import matrix_scaling_jax, project_subtract, svd_top
 from ..preproc.derotation import (_compute_pa_thresh, _find_indices_adi,
                                   cube_derotate)
 from ..preproc.parangles import check_pa_vector
 from ..preproc.subsampling import cube_collapse
+from ..preproc.cosmetics import cube_crop_frames
+from ..preproc.rescaling import _host_vec, _scwave
 from ..var.coords import dist, frame_center
 from ..var.shapes import mask_circle, prepare_matrix
 from .svd import MODE_TO_METHOD, SVDecomposer, svd_wrapper
 
 __all__ = ["pca", "PCA_Params"]
 
-_WAITS = ("is not ported yet (ROADMAP.md, Queue 1: 'pca paths still to "
-          "port')")
+_WAITS = "is not ported yet (ROADMAP.md, Queue 1, slice 8)"
 
 
 @dataclass
@@ -98,7 +108,8 @@ def _value(v):
 
 def pca(*all_args: List, **all_kwargs: dict):
     """Full-frame PCA PSF subtraction of a 3-d ADI cube, with an optional
-    RDI/ARDI reference cube (vip_tpu pca_fullfr.py:79).
+    RDI/ARDI reference cube, or of a 4-d IFS cube (vip_tpu
+    pca_fullfr.py:79).
 
     Returns the final frame, or with ``full_output`` (frame, pcs, recon,
     residuals_cube, residuals_cube_) — (frame, recon_cube, residuals_cube,
@@ -106,7 +117,14 @@ def pca(*all_args: List, **all_kwargs: dict):
     A grid ``ncomp`` returns the frames of the grid (their median with
     ``med_of_npcs``), or with ``source_xy`` the S/N-optimal frame; with
     ``full_output`` (frames, pclist), or (frames, frame, table) with
-    ``source_xy`` (vip_tpu pca_fullfr.py:303-329).
+    ``source_xy`` (vip_tpu pca_fullfr.py:303-329). 4-d cubes return as
+    vip_tpu's (:124-269): with ``scale_list`` the single pass gives the
+    frame or (frame, cube_allfr_residuals, cube_desc_residuals,
+    cube_adi_residuals), its grid what ``pca_grid`` gives, and the double
+    pass the frame or (frame, res_cube_channels,
+    residuals_cube_channels_); without, the channel-collapsed frame, and
+    with ``full_output`` the per-channel results stacked beside the
+    channel frames.
     """
     algo_params, rot_options = resolve_algo_params(
         PCA_Params, all_args, all_kwargs)
@@ -123,22 +141,16 @@ def pca(*all_args: List, **all_kwargs: dict):
                         or p.cube_ref is not None):
         raise NotImplementedError(
             "left_eigv is not compatible with 'mask_rdi' nor 'batch'")
-    for what, waits in (("scale_list (4-d/SDI)", p.scale_list is not None),
-                        ("mask_rdi", p.mask_rdi is not None),
-                        ("smooth", p.smooth is not None)):
-        if waits:
-            raise NotImplementedError(f"pca: {what} {_WAITS}")
+    if p.smooth is not None:
+        raise NotImplementedError(f"pca: smooth {_WAITS}")
+    if p.scale_list is not None:
+        return _pca_adimsdi(p, start_time, rot_options)
     if getattr(p.cube, "ndim", None) == 4:
-        raise NotImplementedError(f"pca: 4-d cubes {_WAITS}")
+        return _pca_4d_channels(p, rot_options)
     if p.batch is not None:
         return _pca_batch(p, start_time, rot_options)
     check_array(p.cube, 3, msg="cube")
-
-    input_bytes = _nbytes(p.cube_ref if p.cube_ref is not None else p.cube)
-    check_enough_memory(
-        input_bytes, 1.0, raise_error=p.check_memory,
-        error_msg=(" Set check_memory=False to override this memory check"),
-        verbose=p.verbose)
+    _check_memory(p)
 
     if p.cube_ref is not None:
         if p.ref_strategy == "ARDI":
@@ -178,6 +190,128 @@ def pca(*all_args: List, **all_kwargs: dict):
     if p.full_output:
         return frame, pcs, recon, residuals_cube, residuals_cube_
     return frame
+
+
+def _check_memory(p):
+    input_bytes = _nbytes(p.cube_ref if p.cube_ref is not None else p.cube)
+    check_enough_memory(
+        input_bytes, 1.0, raise_error=p.check_memory,
+        error_msg=(" Set check_memory=False to override this memory check"),
+        verbose=p.verbose)
+
+
+def _pca_adimsdi(p, start_time, rot_options):
+    """``pca`` of a 4-d cube with ``scale_list``: the single or double
+    ADI+mSDI pass (vip_tpu pca_fullfr.py:124-167)."""
+    if getattr(p.cube, "ndim", None) != 4:
+        raise ValueError("`scale_list` requires a 4D input cube")
+    _check_memory(p)
+    adimsdi = str(_value(p.adimsdi))
+    add_params = {"start_time": start_time, "full_output": p.full_output}
+    if p.cube_ref is not None:
+        if p.cube_ref.ndim != 4:
+            raise TypeError("Ref cube has wrong format for 4d input cube")
+        if "A" in str(p.ref_strategy):
+            add_params["ref_strategy"] = "ARSDI"
+            if adimsdi == "single":
+                cube = as_tensor(p.cube)
+                add_params["cube_ref"] = torch.cat(
+                    (cube, as_tensor(p.cube_ref, cube.device, cube.dtype)),
+                    dim=1)
+        else:
+            add_params["ref_strategy"] = "RSDI"
+    if adimsdi == "double":
+        func_params = setup_parameters(params_obj=p, fkt=_adimsdi_doublepca,
+                                       **add_params)
+        res_cube_channels, residuals_cube_channels_, frame = \
+            _adimsdi_doublepca(**func_params, **rot_options)
+        if p.full_output:
+            return frame, res_cube_channels, residuals_cube_channels_
+        return frame
+    if adimsdi == "single":
+        func_params = setup_parameters(params_obj=p, fkt=_adimsdi_singlepca,
+                                       **add_params)
+        res_pca = _adimsdi_singlepca(**func_params, **rot_options)
+        if np.isscalar(p.ncomp):
+            (cube_allfr_residuals, cube_desc_residuals, cube_adi_residuals,
+             frame) = res_pca
+            if p.full_output:
+                return (frame, cube_allfr_residuals, cube_desc_residuals,
+                        cube_adi_residuals)
+            return frame
+        return res_pca
+    raise ValueError("ADIMSDI value should be 'single' or 'double'.")
+
+
+def _pca_4d_channels(p, rot_options):
+    """``pca`` of a 4-d cube without ``scale_list``: a 3-d ``pca`` of each
+    channel, then the channel frames collapse with ``collapse_ifs``
+    (vip_tpu pca_fullfr.py:170-269)."""
+    _check_memory(p)
+    cube = as_tensor(p.cube)
+    nch = cube.shape[0]
+    collapse_ifs = str(_value(p.collapse_ifs))
+    nc = p.ncomp
+    if isinstance(nc, tuple):
+        nc = list(nc)
+    if not isinstance(nc, list) or len(nc) != nch:
+        ncomp_ch = [nc] * nch
+    else:
+        ncomp_ch = nc
+    grid_case = isinstance(ncomp_ch[0], (tuple, list))
+    fwhm_ch = [p.fwhm] * nch if np.isscalar(p.fwhm) else p.fwhm
+    cube_ref = None if p.cube_ref is None else as_tensor(
+        p.cube_ref, cube.device, cube.dtype)
+
+    chans = []
+    for ch in range(nch):
+        ref_ch = None
+        if cube_ref is not None:
+            if cube_ref[ch].ndim != 3:
+                raise TypeError("Ref cube has wrong format for 4d input cube")
+            if p.ref_strategy == "RDI":
+                ref_ch = cube_ref[ch]
+            elif p.ref_strategy == "ARDI":
+                ref_ch = torch.cat((cube[ch], cube_ref[ch]))
+            else:
+                raise TypeError("ref_strategy argument not recognized. "
+                                "Should be 'RDI' or 'ARDI'")
+        chans.append(pca(
+            cube[ch], p.angle_list, cube_ref=ref_ch, ncomp=ncomp_ch[ch],
+            svd_mode=p.svd_mode, scaling=p.scaling,
+            mask_center_px=p.mask_center_px, source_xy=p.source_xy,
+            delta_rot=p.delta_rot, fwhm=fwhm_ch[ch], imlib=p.imlib,
+            interpolation=p.interpolation, collapse=p.collapse,
+            weights=p.weights, verbose=False, full_output=True,
+            **rot_options))
+    # per-channel results stack; channels whose ncomp differ keep a list
+    # of their PCs (vip_tpu's numpy stack of them raises)
+    parts = [torch.stack(x) if isinstance(x[0], torch.Tensor) and
+             len({tuple(t.shape) for t in x}) == 1 else list(x)
+             for x in zip(*chans)]
+    src = p.source_xy is not None
+    if grid_case and not src:
+        ifs_adi_frames = parts[0]               # (nch, k, y, x)
+        final_residuals_cube = torch.stack([
+            cube_collapse(ifs_adi_frames[:, i], mode=collapse_ifs)
+            for i in range(ifs_adi_frames.shape[1])])
+    else:
+        ifs_adi_frames = parts[1] if grid_case else parts[0]
+        final_residuals_cube = parts[0] if grid_case else None
+        frame = cube_collapse(ifs_adi_frames, mode=collapse_ifs)
+    if final_residuals_cube is not None and p.med_of_npcs:
+        final_residuals_cube = _median_of_frames(final_residuals_cube)
+
+    if p.full_output and not src:
+        if grid_case:
+            return final_residuals_cube, parts[1], ifs_adi_frames
+        return (frame, parts[1], parts[2], parts[3], parts[4],
+                ifs_adi_frames)
+    if p.full_output:
+        if grid_case:
+            return final_residuals_cube, frame, parts[2], ifs_adi_frames
+        return frame, parts[1], parts[2], parts[3], ifs_adi_frames
+    return final_residuals_cube if grid_case and not src else frame
 
 
 def _pca_batch(p, start_time, rot_options):
@@ -222,9 +356,9 @@ def _median_of_frames(frames):
 def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
                  fwhm, scaling, mask_center_px, svd_mode, imlib,
                  interpolation, collapse, verbose, start_time, nproc,
-                 full_output, weights=None, cube_sig=None, left_eigv=False,
-                 min_frames_pca=10, max_frames_pca=None, grid_table=True,
-                 **rot_options):
+                 full_output, weights=None, mask_rdi=None, cube_sig=None,
+                 left_eigv=False, min_frames_pca=10, max_frames_pca=None,
+                 grid_table=True, **rot_options):
     """ADI/RDI full-frame PCA core (vip_tpu pca_fullfr.py:332-445). A grid
     ``ncomp`` goes to ``pca_grid`` (its pandas table only with
     ``grid_table``)."""
@@ -258,7 +392,13 @@ def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
     elif ncomp <= 0:
         raise ValueError("Number of PCs too low. It should be > 0.")
 
-    if source_xy is None:
+    if mask_rdi is not None:
+        from ..preproc.skysubtraction import cube_subtract_sky_pca
+
+        residuals_cube, _, pcs, recon = cube_subtract_sky_pca(
+            cube, cube_ref, mask_rdi, ncomp=ncomp, full_output=True)
+        recon_cube = None
+    elif source_xy is None:
         residuals_cube, reconstructed, V = _project_subtract(
             cube, cube_ref, ncomp, scaling, mask_center_px, svd_mode,
             verbose, True, cube_sig=cube_sig, left_eigv=left_eigv)
@@ -406,3 +546,281 @@ def _project_subtract(cube, cube_ref, ncomp, scaling, mask_center_px,
     if full_output:
         return residuals, reconstructed, V
     return residuals
+
+
+def _collapse_range(ifs_collapse_range, z):
+    if ifs_collapse_range == "all":
+        return 0, z
+    return ifs_collapse_range
+
+
+def _adimsdi_singlepca(cube, cube_ref, angle_list, scale_list, ncomp, fwhm,
+                       source_xy, scaling, mask_center_px, svd_mode, imlib,
+                       imlib2, interpolation, collapse, collapse_ifs,
+                       ifs_collapse_range, verbose, start_time, nproc,
+                       crop_ifs, batch, full_output, weights=None,
+                       left_eigv=False, min_frames_pca=10,
+                       ref_strategy="RSDI", **rot_options):
+    """Single-pass ADI+mSDI PCA (vip_tpu pca_fullfr.py:448): every channel
+    rescaled to align the speckles (one batched zoom a channel over all
+    frames), one PCA of the z·n frames, each frame's channels rescaled
+    back and collapsed (one median over all frames), derotated and
+    collapsed. A grid ``ncomp`` goes to ``pca_grid`` with the 4-d shape.
+    Returns (cube_allfr_residuals (n·z, Y, X), cube_desc_residuals (z, n,
+    y, x), cube_adi_residuals (n, y, x), frame)."""
+    cube = as_tensor(cube)
+    z, n, y_in, x_in = cube.shape
+    angle_list = check_pa_vector(angle_list)
+    if not angle_list.shape[0] == n:
+        raise ValueError("Angle list vector has wrong length. It must equal "
+                         "the number frames in the cube")
+    if scale_list is None:
+        raise ValueError("`scale_list` must be provided")
+    scale_list = _host_vec(scale_list)
+    if not scale_list.shape[0] == z:
+        raise ValueError("`scale_list` has wrong length")
+    imlib2 = _value(imlib2)
+
+    def _rescaled_stack(c4):
+        zz, nn = c4.shape[:2]
+        big = _scwave(c4, scale_list, imlib=imlib2,
+                      interpolation=_value(interpolation), collapse=None)[0]
+        if crop_ifs:
+            big = cube_crop_frames(big, size=y_in, verbose=False)
+        return big.transpose(0, 1).reshape(nn * zz, *big.shape[-2:])
+
+    if verbose:
+        print("Rescaling the spectral channels to align the speckles")
+    big_cube = _rescaled_stack(cube)
+    big_cube_ref = None
+    if cube_ref is not None:
+        big_cube_ref = _rescaled_stack(as_tensor(cube_ref, cube.device,
+                                                 cube.dtype))
+    if verbose:
+        timing(start_time)
+        print(f"{n * z} total frames")
+        print("Performing single-pass PCA")
+
+    if isinstance(ncomp, (tuple, list)):
+        from .utils_pca import _pca_grid
+
+        return _pca_grid(
+            big_cube, angle_list, fwhm, ncomp, source_xy, None, "fullfr", 20,
+            svd_mode, scaling, mask_center_px, "mean", collapse, verbose,
+            full_output, False, True, None, start_time, scale_list, weights,
+            False, True, dict(nproc=nproc, imlib=_value(imlib),
+                              interpolation=_value(interpolation),
+                              **rot_options),
+            ifs_collapse_range=ifs_collapse_range,
+            initial_4dshape=tuple(cube.shape))
+    if not np.isscalar(ncomp):
+        raise TypeError("`ncomp` must be an int, float, tuple or list for "
+                        "single-pass PCA")
+    res_cube = _project_subtract(big_cube, big_cube_ref, ncomp, scaling,
+                                 mask_center_px, svd_mode, verbose, False,
+                                 left_eigv=left_eigv,
+                                 min_frames_pca=min_frames_pca)
+    if verbose:
+        timing(start_time)
+    idx_ini, idx_fin = _collapse_range(ifs_collapse_range, z)
+    res4 = res_cube.reshape(n, z, *res_cube.shape[-2:])[:, idx_ini:idx_fin]
+    cube_desc_residuals, resadi_cube = _scwave(
+        res4.transpose(0, 1), scale_list[idx_ini:idx_fin], inverse=True,
+        y_in=y_in, x_in=x_in, imlib=imlib2,
+        interpolation=_value(interpolation),
+        collapse=_value(collapse_ifs))[:2]
+    if verbose:
+        print("De-rotating and combining residuals")
+        timing(start_time)
+    der_res = cube_derotate(resadi_cube, angle_list, nproc=nproc,
+                            imlib=_value(imlib),
+                            interpolation=_value(interpolation),
+                            **rot_options)
+    if mask_center_px:
+        der_res = mask_circle(der_res, mask_center_px)
+    frame = cube_collapse(der_res, mode=_value(collapse), w=weights)
+    return res_cube, cube_desc_residuals, resadi_cube, frame
+
+
+def _adimsdi_doublepca(cube, cube_ref, angle_list, scale_list, ncomp,
+                       scaling, mask_center_px, svd_mode, imlib, imlib2,
+                       interpolation, collapse, collapse_ifs,
+                       ifs_collapse_range, verbose, start_time, nproc,
+                       weights=None, fwhm=4, source_xy=None, delta_rot=None,
+                       smooth_first_pass=None, min_frames_pca=10,
+                       max_frames_pca=None, mask_rdi=None, cube_sig=None,
+                       left_eigv=False, ref_strategy="RSDI", **rot_options):
+    """Double-pass ADI+mSDI PCA (vip_tpu pca_fullfr.py:558): one spectral
+    PCA a temporal frame (``_adimsdi_doublepca_ifs``, all frames at
+    once), then a PCA in the ADI fashion of the channel-collapsed frames
+    (skipped when its ncomp is None), derotation and collapse. Returns
+    (res_cube_channels, residuals_cube_channels_, frame)."""
+    cube = as_tensor(cube)
+    z, n, y_in, x_in = cube.shape
+    if cube_ref is not None:
+        cube_ref = as_tensor(cube_ref, cube.device, cube.dtype)
+        cube = torch.cat((cube, cube_ref), dim=1)
+        nr = cube_ref.shape[1]
+    else:
+        nr = 0
+    if not isinstance(ncomp, tuple):
+        raise TypeError("`ncomp` must be a tuple when a double pass PCA is "
+                        "performed")
+    ncomp_ifs, ncomp_adi = ncomp
+    angle_list = check_pa_vector(angle_list)
+    if not angle_list.shape[0] == n:
+        raise ValueError("Angle list vector has wrong length. It must equal "
+                         "the number frames in the cube")
+    if scale_list is None:
+        raise ValueError("Scaling factors vector must be provided")
+    scale_list = _host_vec(scale_list)
+    if scale_list.ndim > 1:
+        raise ValueError("Scaling factors vector is not 1d")
+    if not scale_list.shape[0] == cube.shape[0]:
+        raise ValueError("Scaling factors vector has wrong length")
+    if type(scaling) is not tuple:
+        scaling = (scaling, scaling)
+    if verbose:
+        print(f"{z} spectral channels in IFS cube")
+        if ncomp_ifs is None:
+            print("Combining multi-spectral frames (skipping PCA)")
+        else:
+            print("First PCA stage exploiting spectral variability")
+    if ncomp_ifs is not None and ncomp_ifs > z:
+        ncomp_ifs = min(ncomp_ifs, z)
+        print(f"Number of PCs too high (max PCs={z}), using {ncomp_ifs} PCs "
+              "instead")
+
+    res_cube_channels = _adimsdi_doublepca_ifs(
+        cube, None, ncomp_ifs, scale_list, scaling[0], mask_center_px,
+        svd_mode, imlib2, interpolation, collapse_ifs, ifs_collapse_range,
+        fwhm, mask_rdi, left_eigv)
+    if verbose:
+        timing(start_time)
+    if smooth_first_pass is not None:
+        from ..var.filters import cube_filter_lowpass
+
+        res_cube_channels = cube_filter_lowpass(
+            res_cube_channels, mode="gauss", fwhm_size=smooth_first_pass,
+            verbose=False)
+
+    rot = dict(nproc=nproc, imlib=_value(imlib),
+               interpolation=_value(interpolation), **rot_options)
+    if ncomp_adi is None:
+        if verbose:
+            print(f"{n} ADI frames")
+            print("De-rotating and combining frames (skipping PCA)")
+        residuals_cube_channels_ = cube_derotate(res_cube_channels[:n],
+                                                 angle_list, **rot)
+        frame = cube_collapse(residuals_cube_channels_, mode=_value(collapse),
+                              w=weights)
+        return res_cube_channels, residuals_cube_channels_, frame
+
+    if ncomp_adi > n + nr:
+        ncomp_adi = n + nr
+        print(f"Number of PCs too high, using maximum of {n} PCs instead")
+    if verbose:
+        print(f"{n} ADI frames")
+        print("Second PCA stage exploiting rotational variability")
+    if source_xy is None:
+        if "A" in ref_strategy or nr == 0:
+            res_ifs_adi = _project_subtract(
+                res_cube_channels, None, ncomp_adi, scaling[1],
+                mask_center_px, svd_mode, verbose, False, cube_sig=cube_sig,
+                left_eigv=left_eigv)
+        else:
+            res_ifs_adi = _project_subtract(
+                res_cube_channels[:n], res_cube_channels[n:], ncomp_adi,
+                scaling[1], mask_center_px, svd_mode, verbose, False,
+                cube_sig=cube_sig, left_eigv=left_eigv)
+    else:
+        if delta_rot is None or fwhm is None:
+            raise TypeError("Delta_rot or fwhm parameters missing. Needed for"
+                            " PA-based rejection of frames from the library")
+        yc, xc = frame_center(cube[0, 0], False)
+        x1, y1 = source_xy
+        pa_thr = _compute_pa_thresh(dist(yc, xc, y1, x1), fwhm, delta_rot)
+        res_ifs_adi = res_cube_channels.new_zeros((n, y_in, x_in))
+        truncate = max_frames_pca is not None
+        for fr in range(n):
+            ind = _find_indices_adi(angle_list, fr, pa_thr,
+                                    truncate=truncate,
+                                    max_frames=max_frames_pca)
+            res_result = _project_subtract(
+                res_cube_channels[:n],
+                res_cube_channels[n:] if nr else None, ncomp_adi,
+                scaling[1], mask_center_px, svd_mode, verbose, False, ind,
+                fr, cube_sig=cube_sig, left_eigv=left_eigv,
+                min_frames_pca=min_frames_pca)
+            res_ifs_adi[fr] = res_result[-1].reshape(y_in, x_in)
+    if verbose:
+        print("De-rotating and combining residuals")
+    residuals_cube_channels_ = cube_derotate(res_ifs_adi[:n], angle_list,
+                                             **rot)
+    frame = cube_collapse(residuals_cube_channels_, mode=_value(collapse),
+                          w=weights)
+    if verbose:
+        timing(start_time)
+    return res_cube_channels, residuals_cube_channels_, frame
+
+
+def _adimsdi_doublepca_ifs(array, fr, ncomp, scale_list, scaling,
+                           mask_center_px, svd_mode, imlib, interpolation,
+                           collapse, ifs_collapse_range, fwhm, mask_rdi=None,
+                           left_eigv=False):
+    """The spectral PCA of the temporal frames ``fr`` (indices, or None
+    for all) of a (z, n, y, x) cube (vip_tpu pca_fullfr.py:691, one frame
+    there): the channels of all frames rescaled in one batched zoom a
+    channel, the frames' PCAs in one batched ``svd_top`` (int ``ncomp``
+    without ``left_eigv`` or ``mask_rdi``), rescaled back and their
+    channels collapsed at once. Returns (len(fr), y, x)."""
+    array = as_tensor(array)
+    if fr is not None:
+        array = array[:, fr]
+    z, N, y_in, x_in = array.shape
+    idx_ini, idx_fin = _collapse_range(ifs_collapse_range, z)
+    if ncomp is None:
+        sub = array[idx_ini:idx_fin]
+        return cube_collapse(sub.reshape(sub.shape[0], N * y_in, x_in),
+                             mode="median").reshape(N, y_in, x_in)
+    scale_list = _host_vec(scale_list)
+    imlib = _value(imlib)
+    interpolation = _value(interpolation)
+    resc = _scwave(array, scale_list, imlib=imlib,
+                   interpolation=interpolation, collapse=None)[0]
+    Y, X = resc.shape[-2:]
+    resc = resc.transpose(0, 1)                     # (N, z, Y, X)
+    scaling = _value(scaling)
+    mode = str(_value(svd_mode))
+    if mask_rdi is not None:
+        from ..preproc.skysubtraction import cube_subtract_sky_pca
+
+        residuals = torch.empty_like(resc)
+        for f in range(N):
+            for i in range(z):
+                others = [j for j in range(z) if j != i]
+                residuals[f, i] = cube_subtract_sky_pca(
+                    resc[f, i:i + 1], resc[f, others], mask_rdi,
+                    ncomp=ncomp, full_output=False)[0]
+    elif left_eigv or not isinstance(ncomp, (int, np.integer)):
+        residuals = torch.stack([_project_subtract(
+            resc[f], None, ncomp, scaling, mask_center_px, mode, False,
+            False, left_eigv=left_eigv) for f in range(N)])
+    else:
+        method = MODE_TO_METHOD.get(mode)
+        if method is None:
+            raise ValueError("The SVD `mode` is not recognized")
+        arr = mask_circle(resc, mask_center_px) if mask_center_px else resc
+        matrix = matrix_scaling_jax(arr.reshape(N, z, Y * X), scaling)
+        del arr
+        V = svd_top(matrix, int(ncomp), method=method)
+        residuals = (matrix - (matrix @ V.mT) @ V).reshape(N, z, Y, X)
+        del matrix
+    del resc
+    frames = _scwave(residuals[:, idx_ini:idx_fin].transpose(0, 1),
+                     scale_list[idx_ini:idx_fin], inverse=True, y_in=y_in,
+                     x_in=x_in, imlib=imlib, interpolation=interpolation,
+                     collapse=_value(collapse), keep_cube=False)[1]
+    if mask_center_px:
+        frames = mask_circle(frames, mask_center_px)
+    return frames

@@ -17,9 +17,17 @@ Two branches, as in vip_tpu:
   tuple, list grid and "auto" ``ncomp``; RDI ``cube_ref``; ``cube_sig``;
   ``left_eigv``; ``scaling``; ``weights``).
 
-Results are tensors on the cube's device. Not ported yet (raises
-``NotImplementedError``): 4-d cubes and ``scale_list`` (ROADMAP Queue 1,
-slice 7).
+A 4-d (channels, frames, y, x) cube without ``scale_list`` is reduced
+channel by channel and the channel frames collapse (``collapse_ifs``).
+With ``scale_list`` each temporal frame first gets a spectral annular
+PCA (:func:`_pca_sdi_fr`: the channels of all frames rescaled in one
+batched zoom a channel, and for each annulus and segment the PCAs of
+all frames and channels in one batched SVD, since the SDI library
+depends only on the annulus and the channel), then the
+channel-collapsed frames go through the 3-d annular ADI stage (skipped
+when its ``ncomp`` is None).
+
+Results are tensors on the cube's device.
 """
 
 import os
@@ -234,7 +242,9 @@ def pca_annular(*all_args: List, **all_kwargs: dict):
     Returns the final frame, or with ``full_output`` (cube_out, cube_der,
     frame): the residual cube, the derotated residual cube and the frame,
     as tensors on the cube's device (lists of frames and 4-d cubes for a
-    list ``ncomp``).
+    list ``ncomp``). A 4-d cube returns the same triple (vip_tpu
+    pca_local.py:265-377): per channel without ``scale_list``, the SDI and
+    ADI stages with it.
     """
     algo_params, rot_options = resolve_algo_params(
         PCA_ANNULAR_Params, all_args, all_kwargs)
@@ -245,10 +255,10 @@ def pca_annular(*all_args: List, **all_kwargs: dict):
         rot_options["interp_zeros"] = True
 
     ndim = getattr(algo_params.cube, "ndim", None)
-    if ndim == 4 or algo_params.scale_list is not None:
-        raise NotImplementedError(
-            "pca_annular: 4-d cubes and scale_list are not ported yet "
-            "(ROADMAP.md, Queue 1, slice 7)")
+    if ndim == 4 and algo_params.scale_list is None:
+        return _pca_annular_channels(algo_params, rot_options)
+    if ndim == 4:
+        return _pca_annular_sdi(algo_params, rot_options)
     if ndim != 3:
         raise TypeError("Input array is not a 4d or 3d array")
 
@@ -260,6 +270,213 @@ def pca_annular(*all_args: List, **all_kwargs: dict):
     if algo_params.full_output:
         return res
     return res[2] if isinstance(res, tuple) else res
+
+
+def _pca_annular_channels(p, rot_options):
+    """4-d ``pca_annular`` without ``scale_list``: the 3-d annular PCA of
+    each channel, then the channel frames collapse (vip_tpu
+    pca_local.py:265-302)."""
+    cube = as_tensor(p.cube)
+    nch = cube.shape[0]
+    ncomp = p.ncomp
+    if not isinstance(ncomp, list) or len(ncomp) != nch:
+        ncomp = [p.ncomp] * nch
+    fwhm = [p.fwhm] * nch if np.isscalar(p.fwhm) else p.fwhm
+    cube_out, cube_der, frames = [], [], []
+    for ch in range(nch):
+        cube_ref_tmp = None
+        if p.cube_ref is not None:
+            if p.cube_ref[ch].ndim != 3:
+                raise TypeError("Ref cube has wrong format for 4d input cube")
+            cube_ref_tmp = p.cube_ref[ch]
+        add_params = {"cube": cube[ch], "fwhm": fwhm[ch], "ncomp": ncomp[ch],
+                      "full_output": True, "cube_ref": cube_ref_tmp,
+                      "start_time": time_ini(False)}
+        func_params = setup_parameters(params_obj=p, fkt=_pca_adi_rdi,
+                                       **add_params)
+        res = _pca_adi_rdi(**func_params, **rot_options)
+        cube_out.append(res[0])
+        cube_der.append(res[1])
+        frames.append(res[-1])
+    ifs_adi_frames = torch.stack(frames)
+    frame = cube_collapse(ifs_adi_frames, mode=str(_value(p.collapse_ifs))) \
+        if p.collapse_ifs is not None else ifs_adi_frames
+    if p.full_output:
+        return torch.stack(cube_out), torch.stack(cube_der), frame
+    return frame
+
+
+def _pca_annular_sdi(p, rot_options):
+    """4-d ``pca_annular`` with ``scale_list``: the spectral annular PCA
+    of every temporal frame, then the annular ADI stage on the
+    channel-collapsed frames, or, when its ncomp is None, their
+    derotation and collapse (vip_tpu pca_local.py:304-377)."""
+    from ..preproc.rescaling import _host_vec
+
+    cube = as_tensor(p.cube)
+    z, n, y_in, x_in = cube.shape
+    fwhm = int(np.round(np.mean(p.fwhm)))
+    scale_list = _host_vec(p.scale_list)
+    if scale_list.ndim > 1:
+        raise ValueError("Scaling factors vector is not 1d")
+    if not scale_list.shape[0] == z:
+        raise ValueError("Scaling factors vector has wrong length")
+    if not isinstance(p.ncomp, tuple):
+        raise TypeError("`ncomp` must be a tuple of two integers when "
+                        "`cube` is a 4d array")
+    ncomp1, ncomp2 = p.ncomp
+    svd_mode = str(_value(p.svd_mode))
+    collapse_ifs = str(_value(p.collapse_ifs))
+    if p.verbose:
+        print("First PCA subtraction exploiting the spectral variability")
+        print(f"{z} spectral channels per IFS frame")
+
+    def sdi(c4):
+        return _pca_sdi_fr(c4, None, scale_list, p.radius_int, fwhm,
+                           p.asize, p.n_segments, p.delta_sep, ncomp1,
+                           svd_mode, p.tol, p.scaling, p.imlib,
+                           p.interpolation, collapse_ifs,
+                           p.ifs_collapse_range, p.theta_init)
+
+    residuals_cube_channels = sdi(cube)
+    if ncomp2 is None:
+        cube_out = residuals_cube_channels
+        cube_der = cube_derotate(cube_out, check_pa_vector(p.angle_list),
+                                 nproc=p.nproc, imlib=_value(p.imlib),
+                                 interpolation=_value(p.interpolation),
+                                 **rot_options)
+        frame = cube_collapse(cube_der, mode=_value(p.collapse),
+                              w=p.weights)
+    else:
+        ref_channels = None
+        if p.cube_ref is not None:
+            ref_channels = sdi(as_tensor(p.cube_ref, cube.device,
+                                         cube.dtype))
+        add_params = {"cube": residuals_cube_channels, "ncomp": ncomp2,
+                      "cube_ref": ref_channels, "fwhm": fwhm,
+                      "start_time": time_ini(False), "full_output": True}
+        func_params = setup_parameters(params_obj=p, fkt=_pca_adi_rdi,
+                                       **add_params)
+        cube_out, cube_der, frame = _pca_adi_rdi(**func_params,
+                                                 **rot_options)
+    if p.full_output:
+        return cube_out, cube_der, frame
+    return frame
+
+
+def _pca_sdi_fr(array, fr, scal, radius_int, fwhm, asize, n_segments,
+                delta_sep, ncomp, svd_mode, tol, scaling, imlib,
+                interpolation, collapse, ifs_collapse_range, theta_init):
+    """Spectral annular PCA of the temporal frames ``fr`` (indices, or None
+    for all) of a (z, n, y, x) cube (vip_tpu pca_local.py:380, one frame
+    there). The channels' SDI libraries (``_find_indices_sdi``) depend on
+    the annulus and the channel only, so each (annulus, segment) is one
+    batched SVD over the frames and channels (int ``ncomp`` with the
+    'lapack' or 'eigen' method, :func:`_sdi_recon_batched`; channel by
+    channel where ``ncomp`` exceeds a library; 'auto' and the randomized
+    modes frame by frame through ``get_eigenvectors``). Returns
+    (len(fr), y, x): the residual channels rescaled back and
+    collapsed."""
+    from ..preproc.rescaling import (_find_indices_sdi, _scwave,
+                                     check_scal_vector)
+    from ..ops.linalg import matrix_scaling_jax, svd_top
+
+    array = as_tensor(array)
+    if fr is not None:
+        array = array[:, fr]
+    scale_list = check_scal_vector(scal)
+    z, N, y_in, x_in = array.shape
+    imlib = _value(imlib)
+    interpolation = _value(interpolation)
+    scaling = _value(scaling)
+    multispec = _scwave(array, scale_list, imlib=imlib,
+                        interpolation=interpolation, collapse=None)[0]
+    Y, X = multispec.shape[-2:]
+    fwhm = int(np.round(np.mean(fwhm)))
+    n_annuli = int((y_in / 2 - radius_int) / asize)
+    n_segments = resolve_n_segments(n_segments, n_annuli, asize)
+    if isinstance(delta_sep, (tuple, list)):
+        delta_sep_vec = np.linspace(delta_sep[0], delta_sep[1], n_annuli)
+    elif np.isscalar(delta_sep):
+        delta_sep_vec = [delta_sep] * n_annuli
+    else:
+        if len(delta_sep) != n_annuli:
+            raise TypeError("If delta_sep is a list it should have n_annuli "
+                            "elements.")
+        delta_sep_vec = delta_sep
+    method = MODE_TO_METHOD.get(svd_mode)
+    batched = isinstance(ncomp, (int, np.integer)) \
+        and method in ("lapack", "eigen")
+
+    flat = multispec.reshape(z, N, Y * X)
+    res_flat = torch.zeros_like(flat)
+    for ann in range(n_annuli):
+        if ann == n_annuli - 1:
+            inner_radius = radius_int + (ann * asize - 1)
+        else:
+            inner_radius = radius_int + ann * asize
+        ann_center = inner_radius + (asize / 2)
+        indices = get_annulus_segments((Y, X), inner_radius, asize,
+                                       n_segments[ann], theta_init)
+        for seg in range(n_segments[ann]):
+            yy, xx = indices[seg]
+            pix = torch.as_tensor(np.asarray(yy) * X + np.asarray(xx),
+                                  device=flat.device)
+            # (N, z, p): each frame's channels, scaled along the channels
+            matrix = matrix_scaling_jax(flat[:, :, pix].transpose(0, 1),
+                                        scaling)
+            libs = [_find_indices_sdi(scal, ann_center, j, fwhm,
+                                      delta_sep_vec[ann]) for j in range(z)]
+            ks = {min(int(ncomp), len(lib), len(pix)) for lib in libs} \
+                if batched else set()
+            if len(ks) == 1:
+                recon = _sdi_recon_batched(matrix, libs, ks.pop(), method)
+                res_flat[:, :, pix] = (matrix - recon).transpose(0, 1)
+                continue
+            for j in range(z):
+                lib = matrix[:, torch.as_tensor(libs[j], device=flat.device)]
+                curr = matrix[:, j]
+                if batched:
+                    k = min(int(ncomp), min(lib.shape[-2], lib.shape[-1]))
+                    V = svd_top(lib, k, method=method)
+                    recon = torch.einsum("nk,nkp->np",
+                                         torch.einsum("np,nkp->nk", curr, V),
+                                         V)
+                else:
+                    recon = torch.stack([
+                        (curr[f] @ V.T) @ V for f, V in enumerate(
+                            get_eigenvectors(ncomp, lib[f], svd_mode,
+                                             noise_error=tol, debug=False,
+                                             scaling=scaling)
+                            for f in range(N))])
+                res_flat[j, :, pix] = curr - recon
+    idx_ini, idx_fin = (0, z) if ifs_collapse_range == "all" \
+        else ifs_collapse_range
+    return _scwave(res_flat.reshape(z, N, Y, X)[idx_ini:idx_fin],
+                   scale_list[idx_ini:idx_fin], inverse=True, y_in=y_in,
+                   x_in=x_in, imlib=imlib, interpolation=interpolation,
+                   collapse=_value(collapse), keep_cube=False)[1]
+
+
+def _sdi_recon_batched(matrix, libs, k, method):
+    """The rank-``k`` reconstruction of each channel of each frame of a
+    (N, z, p) ``matrix`` from its channel library ``libs[j]``, all N·z
+    libraries in one ``svd_top`` call: each library padded with zero rows
+    to the longest, which leaves its top singular vectors as they are.
+    Returns (N, z, p)."""
+    from ..ops.linalg import svd_top
+
+    N, z, npx = matrix.shape
+    L = max(len(lib) for lib in libs)
+    padded = np.full((z, L), z, dtype=np.int64)     # row z is all zero
+    for j, lib in enumerate(libs):
+        padded[j, :len(lib)] = lib
+    ext = torch.cat([matrix, matrix.new_zeros((N, 1, npx))], dim=1)
+    lib_all = ext[:, torch.as_tensor(padded, device=matrix.device)]
+    V = svd_top(lib_all.reshape(N * z, L, npx), k, method=method)
+    V = V.reshape(N, z, k, npx)
+    return torch.einsum("nzk,nzkp->nzp",
+                        torch.einsum("nzp,nzkp->nzk", matrix, V), V)
 
 
 def _pca_adi_rdi(cube, angle_list, radius_int=0, fwhm=4, asize=2,

@@ -3,8 +3,9 @@
 
 VIP's ten backend modes map onto the three methods of
 ``vip_tpu_torch.ops.linalg.svd_top``, which run on the matrix's device.
-``SVDecomposer`` takes 2-d matrices and 3-d cubes; 4-d cubes wait for
-ROADMAP Queue 1, slice 7.
+``SVDecomposer`` takes 2-d matrices, 3-d cubes, and 4-d cubes with a
+``scale_list`` (the channels rescaled to align the speckles, one batched
+zoom a channel, then the z·n frames decomposed).
 """
 
 import numpy as np
@@ -173,12 +174,29 @@ class SVDecomposer:
             print("`data` is already a 2d array")
             self.matrix = matrix_scaling_jax(as_tensor(self.data),
                                              self.scaling)
-        elif self.data.ndim == 4:
-            raise NotImplementedError(
-                "SVDecomposer: 4-d cubes are not ported yet (ROADMAP.md, "
-                "Queue 1, slice 7)")
         else:
-            result = prepare_matrix(self.data, self.scaling, mode=self.mode,
+            cube_ = self.data
+            if self.data.ndim == 4:
+                from ..preproc.cosmetics import cube_crop_frames
+                from ..preproc.rescaling import _scwave, check_scal_vector
+
+                if self.scale_list is None:
+                    raise ValueError("`scale_list` must be provided when "
+                                     "`data` is a 4D array")
+                data = as_tensor(self.data)
+                z, n_frames, y_in, x_in = data.shape
+                scale_list = check_scal_vector(self.scale_list)
+                if not scale_list.shape[0] == z:
+                    raise ValueError(f"`scale_list` length is "
+                                     f"{scale_list.shape[0]} instead of {z}")
+                if self.verbose:
+                    print("Rescaling the spectral channels to align the "
+                          "speckles")
+                big = _scwave(data, scale_list, collapse=None)[0]
+                big = cube_crop_frames(big, size=y_in, verbose=False)
+                cube_ = big.transpose(0, 1).reshape(z * n_frames, y_in, x_in)
+                self.cube4dto3d_shape = tuple(cube_.shape)
+            result = prepare_matrix(cube_, self.scaling, mode=self.mode,
                                     inner_radius=self.inrad,
                                     outer_radius=self.outrad,
                                     verbose=self.verbose)

@@ -11,8 +11,10 @@ the exact route builds, derotates and collapses one truncation at a time
 (one residual cube in memory, not k); the fft-small route stacks the k
 residual cubes, because its packed CPU rotation pairs frames across the
 stack as vip_tpu does. pandas is imported only when a table is returned,
-matplotlib only when ``plot`` is set. The 4-d (mSDI) paths wait for
-ROADMAP Queue 1, slice 7.
+matplotlib only when ``plot`` is set. With ``scale_list`` and
+``initial_4dshape`` (the single ADI+mSDI pass) each truncation's z·n
+residual frames are rescaled back and their channels collapsed before
+the derotation; ``pca_annulus`` reduces a 4-d cube channel by channel.
 
 ``pca_incremental`` streams a cube (a FITS path, a lazy HDU, an array or
 a tensor) in batches: pass 1 merges each batch into a truncated SVD (the
@@ -126,21 +128,20 @@ def pca_grid(cube, angle_list, fwhm=None, range_pcs=None, source_xy=None,
                      mode, annulus_width, svd_mode, scaling, mask_center_px,
                      fmerit, collapse, verbose, full_output, debug, plot,
                      save_plot, start_time, scale_list, weights,
-                     exclude_negative_lobes, True, rot_options)
+                     exclude_negative_lobes, True, rot_options,
+                     ifs_collapse_range=ifs_collapse_range,
+                     initial_4dshape=initial_4dshape)
 
 
 def _pca_grid(cube, angle_list, fwhm, range_pcs, source_xy, cube_ref, mode,
               annulus_width, svd_mode, scaling, mask_center_px, fmerit,
               collapse, verbose, full_output, debug, plot, save_plot,
               start_time, scale_list, weights, exclude_negative_lobes,
-              table, rot_options):
+              table, rot_options, ifs_collapse_range="all",
+              initial_4dshape=None):
     """``pca_grid`` itself; ``table=False`` skips the pandas table (the
     caller discards it), so that ``pca`` imports pandas only for
     ``full_output``."""
-    if scale_list is not None:
-        raise NotImplementedError(
-            "pca_grid: 4-d cubes with scale_list (mSDI) are not ported yet "
-            "(ROADMAP.md, Queue 1, slice 7)")
     if start_time is None:
         start_time = time_ini(verbose)
     cube = as_tensor(cube)
@@ -205,7 +206,8 @@ def _pca_grid(cube, angle_list, fwhm, range_pcs, source_xy, cube_ref, mode,
     other_rot = {kk: vv for kk, vv in rot_options.items() if kk != "imlib"}
     small = imlib == "vip-fft-small"
     shape = tuple(cube.shape)
-    device_ok = (weights is None and collapse in ("median", "mean", "sum")
+    device_ok = (scale_list is None and weights is None
+                 and collapse in ("median", "mean", "sum")
                  and imlib in ("vip-fft", "vip-fft-small") and not other_rot
                  and bool(torch.isfinite(cube).all())
                  and (not small or (shape[-1] % 2 == 0
@@ -227,6 +229,22 @@ def _pca_grid(cube, angle_list, fwhm, range_pcs, source_xy, cube_ref, mode,
 
         def collapse_fn(der):
             return collapse_jax(der, mode=collapse)
+    elif scale_list is not None and initial_4dshape is not None:
+        from ..preproc.rescaling import _host_vec, _scwave
+
+        z, n_adi, y_in, x_in = initial_4dshape
+        idx_ini, idx_fin = (0, z) if ifs_collapse_range == "all" \
+            else ifs_collapse_range
+        scal = _host_vec(scale_list)[idx_ini:idx_fin]
+
+        def derotate(res, angs):
+            res4 = res.reshape(n_adi, z, *res.shape[-2:])[:, idx_ini:idx_fin]
+            frames = _scwave(res4.transpose(0, 1), scal, inverse=True,
+                             y_in=y_in, x_in=x_in, keep_cube=False)[1]
+            return cube_derotate(frames, angs, **rot_options)
+
+        def collapse_fn(der):
+            return cube_collapse(der, mode=collapse, w=weights)
     else:
         def derotate(res, angs):
             return cube_derotate(res, angs, **rot_options)
@@ -303,18 +321,91 @@ def _plot_grid(pclist, snrlist, fluxlist, opt_npc, save_plot):
 def pca_annulus(cube, angs, ncomp, annulus_width, r_guess, cube_ref=None,
                 svd_mode="lapack", scaling=None, collapse="median",
                 weights=None, collapse_ifs="mean", **rot_options):
-    """PCA of one annulus of a 3-d cube (vip_tpu utils_pca.py:323; the
-    NEGFC forward model): prepare → SVD → project → derotate → collapse,
-    on the cube's device. Returns the collapsed frame, or the derotated
-    (or, without ``angs``, raw) residual cube when ``collapse`` is None.
-    4-d cubes wait for ROADMAP Queue 1, slice 7."""
+    """PCA of one annulus (vip_tpu utils_pca.py:323; the NEGFC forward
+    model): prepare → SVD → project → derotate → collapse, on the cube's
+    device. Returns the collapsed frame, or the derotated (or, without
+    ``angs``, raw) residual cube when ``collapse`` is None. A 4-d cube is
+    reduced channel by channel (``ncomp`` a scalar or one a channel, a
+    3-d ``cube_ref`` shared by all) and the channel frames collapse with
+    ``collapse_ifs``; with one int ``ncomp``, no reference, no weights and
+    angles, all channels at once (:func:`_pca_annulus_channels`)."""
     cube = as_tensor(cube)
-    if cube.ndim == 4:
-        raise NotImplementedError(
-            "pca_annulus: 4-d cubes are not ported yet (ROADMAP.md, Queue 1,"
-            " slice 7)")
-    if cube.ndim != 3:
+    if cube.ndim == 3:
+        return _pca_annulus_3d(cube, angs, ncomp, annulus_width, r_guess,
+                               cube_ref, svd_mode, scaling, collapse, weights,
+                               **rot_options)
+    if cube.ndim != 4:
         raise TypeError("Input cube must be 3d or 4d")
+    nch = cube.shape[0]
+    if cube_ref is not None and cube_ref.ndim == 3:
+        cube_ref = [cube_ref] * nch
+    if np.isscalar(ncomp):
+        ncomp = [ncomp] * nch
+    elif isinstance(ncomp, list) and len(ncomp) != nch:
+        raise TypeError("If ncomp is a list, in the case of a 4d input cube "
+                        "without input scale_list, it should have the same "
+                        "length as the first dimension of the cube.")
+    if collapse is None:
+        raise ValueError("mode not supported. Provide value for collapse")
+    from .svd import MODE_TO_METHOD
+
+    method = MODE_TO_METHOD.get(_value(svd_mode))
+    if (cube_ref is None and weights is None and angs is not None
+            and len(set(ncomp)) == 1
+            and isinstance(ncomp[0], (int, np.integer))
+            and method in ("lapack", "eigen")):
+        ifs_res = _pca_annulus_channels(cube, angs, int(ncomp[0]),
+                                        annulus_width, r_guess, method,
+                                        scaling, _value(collapse),
+                                        **rot_options)
+        return cube_collapse(ifs_res, mode=_value(collapse_ifs))
+    ifs_res = torch.stack([_pca_annulus_3d(
+        cube[ch], angs, ncomp[ch], annulus_width, r_guess,
+        cube_ref[ch] if cube_ref is not None else None, svd_mode, scaling,
+        collapse, weights, **rot_options) for ch in range(nch)])
+    return cube_collapse(ifs_res, mode=_value(collapse_ifs))
+
+
+def _pca_annulus_channels(cube, angs, ncomp, annulus_width, r_guess,
+                          method, scaling, collapse, **rot_options):
+    """``_pca_annulus_3d`` of every channel of a (z, n, y, x) cube at
+    once: the z annulus matrices in one batched ``svd_top``, the z·n
+    residual frames in one ``cube_derotate`` (the angles tiled), and each
+    channel's frames collapsed together (the median in one call over (n,
+    z·y, x)). Returns the (z, y, x) channel frames."""
+    from ..ops.linalg import matrix_scaling_jax, svd_top
+
+    z, n, y, x = cube.shape
+    inrad = int(r_guess - annulus_width / 2.0)
+    outrad = int(r_guess + annulus_width / 2.0)
+    flat, ind = prepare_matrix(cube.reshape(z * n, y, x), None,
+                               mode="annular", verbose=False,
+                               inner_radius=inrad, outer_radius=outrad)
+    data = matrix_scaling_jax(flat.reshape(z, n, -1), scaling)
+    if ncomp > min(n, data.shape[-1]):
+        raise RuntimeError(
+            f"{ncomp} PCs cannot be obtained from a matrix with size "
+            f"[{n},{data.shape[-1]}]. Increase the size of the patches or "
+            "request less PCs")
+    V = svd_top(data, ncomp, method=method)
+    residuals = data - (data @ V.mT) @ V
+    cube_zeros = cube.new_zeros((z * n, y, x))
+    cube_zeros[:, torch.as_tensor(ind[0], device=cube.device),
+               torch.as_tensor(ind[1], device=cube.device)] = \
+        residuals.reshape(z * n, -1)
+    angs = np.asarray(angs.cpu() if isinstance(angs, torch.Tensor) else angs,
+                      dtype=float)
+    der = cube_derotate(cube_zeros, np.tile(angs, z), **rot_options)
+    der = der.reshape(z, n, y, x)
+    if collapse == "median":
+        frames = der.transpose(0, 1).reshape(n, z * y, x)
+        return collapse_jax(frames.contiguous(), mode="median").reshape(
+            z, y, x)
+    return collapse_jax(der, mode=collapse, ax=1)
+
+
+def _pca_annulus_3d(cube, angs, ncomp, annulus_width, r_guess, cube_ref,
+                    svd_mode, scaling, collapse, weights, **rot_options):
     inrad = int(r_guess - annulus_width / 2.0)
     outrad = int(r_guess + annulus_width / 2.0)
     data, ind = prepare_matrix(cube, scaling, mode="annular", verbose=False,
