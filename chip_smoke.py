@@ -15,7 +15,9 @@ the injection → contrast curve → completeness path (``metrics``), the
 goldens in float32, slice 4 (NMF, LLSG, LOCI, frame differencing,
 roll subtraction, the greedy loops), slice 5 (NEGFC: the first guess
 and the MCMC of the planted companion), slice 6 (ANDROMEDA, FMMF,
-PACO) and slice 7 (the 4-d IFS paths). Phases, one line each:
+PACO), slice 7 (the 4-d IFS paths) and slice 8a (the bad-pixel filters,
+stats, subsampling, cosmetics, ``randomized_svd_gpu``, ``pca(smooth=)``).
+Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from ``vip_tpu_torch/csrc``, one nvcc per
@@ -110,7 +112,29 @@ PACO) and slice 7 (the 4-d IFS paths). Phases, one line each:
     launches against the plain route on the card within 1e-5 of
     max(|ref|, 1); the PCA passes timed warm (median of 3); the single
     and double pass and the 4-d ``median_sub`` find the companion within
-    3 px (the cuts are printed).
+    3 px (the cuts are printed);
+19. slice 8a (run before the timings of 14) on the full cube, each step
+    synchronized with its wall time and its H1/H2 launches:
+    ``cube_correct_nan`` of the whole cube with ~0.1% NaN pixels (single
+    pixels and 3x3-5x5 clumps made on the card from a seeded
+    ``torch.Generator``), its route bit-equal to its dense plain version
+    with the same sweep counts, 3 frames within 1 ulp of the host loop;
+    ``clip_array`` with 5-px neighbourhoods, with and without the MAD,
+    the same indices as its host route; ``cube_subsample`` ('mean',
+    'median' in one H1 launch, 'trimmean', with ``parallactic``) every 10
+    frames and ``cube_subsample_trimmean``, bit-equal to the plain route;
+    ``cube_filter_iuwt`` of 100 frames; ``frame_deconvolution`` (30
+    iterations, a 21² PSF) against host scipy in float64;
+    ``cube_distance`` with every distance; ``randomized_svd_gpu`` of the
+    1000x262144 matrix (the cube plus a decaying rank-10 structure)
+    against ``ops.linalg.svd``; ``pca(ncomp=10, smooth=2)`` against
+    ``pca`` then ``frame_filter_lowpass``, the companion found within
+    3 px; ``approx_stellar_position`` of a 39-channel star cube.
+
+Phase 13 also runs the F2 configuration pca_incr_adi in float64 on the
+card against the CPU's float64 frame (ROADMAP Q3-3), and phase 15
+``greedy.ipca`` in float64 on the card against its two float32 runs
+(Q3-2).
 
 ``python3 chip_smoke.py --f2`` instead bisects F2 on the card and the CPU
 (the golden PCA step by step, the card's SVD routines, the four frames
@@ -122,6 +146,8 @@ with a torch.profiler table of one half-step; ``--invprob`` runs phase 17
 alone, with a torch.profiler table of one FMMF annulus; ``--ifs`` runs
 phase 18 alone, with torch.profiler tables of one single-pass and one
 double-pass ``pca`` call.
+``--slice8a`` runs phase 19 alone, with torch.profiler tables of
+``cube_correct_nan`` and ``randomized_svd_gpu``.
 ``--seed N`` (with any of the above) makes phase 18's sequence from seed
 N (default 0).
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
@@ -293,6 +319,28 @@ IFS_PXSCALE, IFS_STARPHOT = 0.00746, 1e5      # SPHERE-IFS's 7.46 mas/px
 IFS_PROFILE_EVERY = 10
 # FastPACO's rescaling on every IFS_PACO_EVERY-th frame of the replica
 IFS_PACO_EVERY = 2
+# Slice 8a (phase 19) on the full cube: NaN damage made on the card (a
+# fraction S8A_SINGLE of single pixels, S8A_CLUMPS clumps of 3x3 to 5x5 px
+# a frame: ~0.1% in all); the host loops on S8A_HOST_FRAMES frames;
+# windows of S8A_WINDOW frames; the IUWT of S8A_IUWT_FRAMES frames;
+# float32 on the card against the CPU float64 mode within S8A_F32_TOL of
+# max(|ref|, 1) (the bound of the slice 7 card tests), Richardson-Lucy
+# against scipy within S8A_DECONV_TOL of max|ref|; randomized_svd_gpu of
+# the cube plus a rank-S8A_NCOMP structure whose singular values fall
+# from 10^3 to 10^1.5 times the noise's top one; a 39-channel star cube
+# (S8A_STAR_SIZE², the SPHERE-IFS field of phase 18) with hot patches in
+# the outlier channels
+S8A_SINGLE, S8A_CLUMPS, S8A_HOST_FRAMES = 7e-4, 4, 3
+S8A_WINDOW, S8A_IUWT_FRAMES, S8A_NCOMP = 10, 100, 10
+S8A_F32_TOL, S8A_DECONV_TOL, S8A_SPECTRUM = 1e-4, 1e-4, (3.0, 1.5)
+S8A_STAR_Z, S8A_STAR_SIZE, S8A_STAR_OUTLIERS = 39, 288, [5, 17, 30]
+S8A_REPS = 3
+# Q3-2 (phase 15): ipca in float32 through the kernels may stand at most
+# Q32_RATIO times as far from its float64 run on the card as the float32
+# plain route does. Q3-3 (phase 13): pca_incr_adi in float64 on the card
+# within Q33_TOL of max(|ref|, 1) of the CPU's float64 frame (the float64
+# bound of the slice 7 card tests)
+Q32_RATIO, Q33_TOL = 3.0, 1e-8
 NMF4 = dict(ncomp=14, handle_neg="subtr_min")
 NMF_ANN4 = dict(ncomp=9, radius_int=20, asize=4, handle_neg="subtr_min")
 LLSG4 = dict(rank=5, thresh=1, max_iter=20, random_seed=10, fwhm=4)
@@ -1439,6 +1487,8 @@ def phase_slice4(pcube, angles_np, src):
             ref, ref_first = _last_and_first(run())
         err, scale = _rel_err(frame, ref)
         err_first, scale_first = _rel_err(first, ref_first)
+        if name == "ipca":
+            _ipca_float64(pcube, angles_np, frame, first, ref, ref_first)
         del ref, ref_first
         # the greedy loops feed each frame back into the next pass: their
         # first pass is held to PIPE_TOL, their last to GREEDY_TOL
@@ -1475,6 +1525,41 @@ def phase_slice4(pcube, angles_np, src):
           f"({crop10.shape[0]}); the phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+def _ipca_float64(pcube, angles_np, frame, first, ref, ref_first):
+    """Q3-2: ``greedy.ipca`` of phase 15 in float64 on the card (H1 and H2
+    take float32 alone, so it runs the plain versions), against its
+    float32 runs through the kernels (``frame``, ``first``) and through
+    the plain route (``ref``, ``ref_first``). Rounding shows as both
+    float32 routes standing as far from the float64 run; a fault of the
+    kernels' route as that route alone standing farther (more than
+    Q32_RATIO times the plain route)."""
+    from vip_tpu_torch import greedy
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f64, first64 = _last_and_first(greedy.ipca(
+        pcube.double(), angles_np, ncomp=3, nit=3, full_output=True,
+        verbose=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _require(f64.dtype == torch.float64 and _counts() == dict.fromkeys(
+        ("H1", "H2", "H3", "H4"), 0), "ipca float64: launches or dtype")
+    errs = {k: _rel_err(a, b)[0] for k, (a, b) in {
+        "kernels": (frame, f64), "plain": (ref, f64),
+        "kernels vs plain": (frame, ref), "first kernels": (first, first64),
+        "first plain": (ref_first, first64)}.items()}
+    print(f"Q3-2 ipca float64 on the card ({wall:.4f} s, no launch): "
+          "max abs distance of the float32 frames, last pass "
+          f"(first pass): kernels {errs['kernels']:.3e} "
+          f"({errs['first kernels']:.3e}), plain route {errs['plain']:.3e} "
+          f"({errs['first plain']:.3e}); kernels vs plain "
+          f"{errs['kernels vs plain']:.3e}", flush=True)
+    _require(errs["kernels"] <= Q32_RATIO * errs["plain"],
+             "Q3-2: the kernels' route stands farther from float64 than "
+             "the plain route")
 
 
 def _negfc_near(p, truth, tol):
@@ -2163,6 +2248,334 @@ def phase_ifs(profile=False):
     return counts, times
 
 
+def _damage(cube, seed):
+    """A copy of ``cube`` with NaN pixels made on the card from a seeded
+    ``torch.Generator``: single pixels (S8A_SINGLE of all) and
+    S8A_CLUMPS clumps a frame of 3x3 to 5x5 px, anywhere in the frame.
+    Returns the copy and its NaN fraction."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n, ny, nx = cube.shape
+    out = cube.clone()
+    out[torch.rand(out.shape, generator=g, device=DEVICE) < S8A_SINGLE] = \
+        torch.nan
+    k = n * S8A_CLUMPS
+    f = torch.arange(n, device=DEVICE).repeat_interleave(S8A_CLUMPS)
+    y0 = torch.randint(0, ny - 4, (k,), generator=g, device=DEVICE)
+    x0 = torch.randint(0, nx - 4, (k,), generator=g, device=DEVICE)
+    side = torch.randint(3, 6, (k,), generator=g, device=DEVICE)
+    d = torch.arange(5, device=DEVICE)
+    keep = (d[None, :, None] < side[:, None, None]) \
+        & (d[None, None, :] < side[:, None, None])
+    fi = f[:, None, None].expand(-1, 5, 5)[keep]
+    yi = (y0[:, None, None] + d[None, :, None]).expand(-1, 5, 5)[keep]
+    xi = (x0[:, None, None] + d[None, None, :]).expand(-1, 5, 5)[keep]
+    out[fi, yi, xi] = torch.nan
+    return out, float(torch.isnan(out).float().mean())
+
+
+def _rl_scipy(frame, psf, n_it):
+    """Richardson-Lucy with ``scipy.signal.convolve(mode="same")`` on the
+    host in float64, as vip_tpu computes it (vip_tpu filters.py:290)."""
+    from scipy.signal import convolve
+
+    im = np.full(frame.shape, 0.5)
+    mirror = psf[::-1, ::-1]
+    for _ in range(n_it):
+        conv = convolve(im, psf, mode="same")
+        im *= convolve(frame / np.where(conv == 0, 1e-12, conv), mirror,
+                       mode="same")
+    return im
+
+
+def _step(name, fn):
+    """Run ``fn`` once with the counts reset just before it, synchronized:
+    (result, counts, seconds); prints one line."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    print(f"slice 8a {name}: {wall:.4f} s (the counted run), launches H1 "
+          f"{counts['H1']}, H2 {counts['H2']}", flush=True)
+    return out, counts, wall
+
+
+def _ulps32(got, ref):
+    """Largest distance of float32 ``got`` from ``ref`` in float32 ulps of
+    ``ref``, NaNs in the same places."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    _require(np.array_equal(np.isnan(got), np.isnan(ref)), "NaN pattern")
+    fin = ~np.isnan(ref)
+    return float(np.max(np.abs(got[fin].astype(np.float64) - ref[fin])
+                        / np.spacing(np.abs(ref[fin]))))
+
+
+def _subspace_gap(A, B):
+    """||B − B Aᵀ A||_F in float64 for two row-orthonormal (k, p) bases:
+    the root sum of squared sines of their principal angles (the rank-k
+    projectors' Frobenius distance over √2), without the cancellation of
+    2k − 2||A Bᵀ||²."""
+    A, B = A.double(), B.double()
+    return float(torch.linalg.matrix_norm(B - (B @ A.T) @ A))
+
+
+def phase_slice8a(cube, angles_np, pcube, src):
+    """Slice 8a at full width (1000x512² float32; see the module
+    docstring, phase 19). Returns ({name: counts}, {name: seconds})."""
+    import vip_tpu_torch
+    from vip_tpu_torch import psfsub, stats
+    from vip_tpu_torch.metrics import detection
+    from vip_tpu_torch.ops import badpix
+    from vip_tpu_torch.ops.linalg import svd
+    from vip_tpu_torch.preproc import cosmetics, subsampling
+    from vip_tpu_torch.stats import clip_sigma
+    from vip_tpu_torch.var import (cube_filter_iuwt, frame_deconvolution,
+                                   frame_filter_lowpass)
+
+    t_phase = time.perf_counter()
+    counts, times = {}, {}
+
+    def record(name, fn):
+        out, c, wall = _step(name, fn)
+        _require(c["H3"] == c["H4"] == 0, f"{name}: launches {c}")
+        # the counted run pays first-use costs (cuFFT plans, allocator
+        # growth): the time kept is the warm median of S8A_REPS more
+        counts[name], times[name] = c, _sync_time(fn, reps=S8A_REPS)
+        print(f"slice 8a {name}: warm median of {S8A_REPS} "
+              f"{times[name]:.4f} s", flush=True)
+        return out
+
+    # cube_correct_nan: the gathered route, its dense plain version, the
+    # host loop on S8A_HOST_FRAMES frames
+    dmg, frac = _damage(cube, 11)
+    out, nnan, nits = record("cube_correct_nan", lambda:
+                             cosmetics._correct_nan_frames(dmg, False))
+    _require(counts["cube_correct_nan"]["H1"] == 0, "NaN filter launched H1")
+    t0 = time.perf_counter()
+    dense, dnits = badpix._sigma_filter_dense(dmg, torch.isnan(dmg), 3)
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    _require(torch.equal(out.nan_to_num(7.0), dense.nan_to_num(7.0))
+             and torch.equal(nits, dnits),
+             "cube_correct_nan: the route and its dense plain version "
+             "differ")
+    del dense
+    host_ulps = 0.0
+    for i in range(S8A_HOST_FRAMES):
+        fr = dmg[i].cpu().numpy()
+        ref = clip_sigma._sigma_filter_host(fr.copy(), np.isnan(fr))
+        host_ulps = max(host_ulps, _ulps32(out[i].cpu().numpy(), ref))
+        _, nit1 = badpix.sigma_filter_device(dmg[i], torch.isnan(dmg[i]))
+        _require(int(nit1) == int(nits[i]), "sweeps of one frame alone")
+    _require(host_ulps <= 1, f"cube_correct_nan: {host_ulps} ulps from the "
+             f"host loop")
+    _require(not torch.isnan(out).any(), "NaNs left")
+    print(f"slice 8a cube_correct_nan: {frac * 100:.4f}% NaN pixels "
+          f"({int(nnan.sum())}), sweeps {int(nits.min())}..{int(nits.max())}"
+          f"; the dense plain version {t_dense:.4f} s, bit-equal, the same "
+          f"sweeps; {S8A_HOST_FRAMES} frames within {host_ulps:.0f} ulp of "
+          f"the host loop", flush=True)
+    del out, dmg
+
+    # clip_array with neighbours on one frame against the host route
+    frame = pcube[0].clone()
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    hot = torch.rand(frame.shape, generator=g, device=DEVICE) < 1e-3
+    frame[hot] += 8.0
+    host = frame.cpu().numpy()
+    gpm = np.ones(host.shape, bool)
+    for mad in (False, True):
+        idx = record(f"clip_array mad={mad}", lambda: stats.clip_array(
+            frame, 3.0, 3.0, neighbor=True, num_neighbor=5, mad=mad))
+        t0 = time.perf_counter()
+        ref = np.where(clip_sigma._clip_neighbor_host(
+            host, gpm, 3.0, 3.0, 2, 2, mad, None))
+        t_host = time.perf_counter() - t0
+        _require(all(np.array_equal(a, b) for a, b in zip(idx, ref)),
+                 f"clip_array mad={mad}: indices differ from the host route")
+        print(f"slice 8a clip_array mad={mad}: {idx[0].size} clipped, the "
+              f"same indices as the host route ({t_host:.4f} s)", flush=True)
+
+    # subsampling, kernels against the plain route
+    pa = angles_np.astype(np.float64)
+    sub_runs = {
+        "cube_subsample mean": lambda: subsampling.cube_subsample(
+            cube, S8A_WINDOW, "mean", parallactic=pa, verbose=False),
+        "cube_subsample median": lambda: subsampling.cube_subsample(
+            cube, S8A_WINDOW, "median", parallactic=pa, verbose=False),
+        "cube_subsample trimmean": lambda: subsampling.cube_subsample(
+            cube, S8A_WINDOW, "trimmean", parallactic=pa, verbose=False),
+        "cube_subsample_trimmean": lambda: (subsampling.
+                                            cube_subsample_trimmean(
+                                                cube, 6, S8A_WINDOW), pa),
+    }
+    t_plain = {}
+    for name, run in sub_runs.items():
+        (got, ang) = record(name, run)
+        with _plain_route():
+            ref, ref_ang = run()
+            t_plain[name] = _sync_time(run, reps=S8A_REPS)
+        _require(torch.equal(got, ref) and np.array_equal(ang, ref_ang),
+                 f"{name}: differs from the plain route")
+        want = 1 if name.endswith("median") else 0
+        _require(counts[name]["H1"] == want, f"{name}: {counts[name]}")
+    print(f"slice 8a subsampling: every {S8A_WINDOW} frames, bit-equal to "
+          f"the plain route; the plain route's warm median of "
+          f"{S8A_REPS}: " + ", ".join(f"{k} {v:.4f} s"
+                                      for k, v in t_plain.items()),
+          flush=True)
+
+    # IUWT of S8A_IUWT_FRAMES frames; frame 0 against the CPU float64 mode
+    coeffs = record("cube_filter_iuwt", lambda: cube_filter_iuwt(
+        pcube[:S8A_IUWT_FRAMES], coeff=5, full_output=True)[1])
+    vip_tpu_torch.set_device("cpu")
+    try:
+        ref = cube_filter_iuwt(pcube[:1].cpu().double(), coeff=5,
+                               full_output=True)[1]
+    finally:
+        vip_tpu_torch.set_device(DEVICE)
+    err, scale = _rel_err(coeffs[0].cpu(), ref[0])
+    _require(err <= S8A_F32_TOL * scale, f"IUWT {err:.3e}")
+    print(f"slice 8a cube_filter_iuwt: {tuple(coeffs.shape)}, frame 0 "
+          f"{err:.3e} from the CPU float64 mode (bound {S8A_F32_TOL:.0e} x "
+          f"{scale:.3f})", flush=True)
+    del coeffs
+
+    # Richardson-Lucy against scipy in float64
+    psf = _gaussian_psf(21)
+    psf /= psf.sum()
+    pos = pcube[0] - pcube[0].min() + 1.0
+    dec = record("frame_deconvolution", lambda: frame_deconvolution(
+        pos, psf, n_it=30))
+    t0 = time.perf_counter()
+    ref = _rl_scipy(pos.cpu().double().numpy(), psf, 30)
+    t_host = time.perf_counter() - t0
+    err = float(np.abs(dec.cpu().double().numpy() - ref).max()
+                / np.abs(ref).max())
+    _require(err <= S8A_DECONV_TOL, f"frame_deconvolution {err:.3e}")
+    print(f"slice 8a frame_deconvolution: {err:.3e} of max|ref| from host "
+          f"scipy in float64 ({t_host:.4f} s)", flush=True)
+
+    # every distance of the frames to frame 0; the first S8A_HOST_FRAMES
+    # against the CPU float64 mode
+    for dist in ("sad", "euclidean", "mse", "pearson", "spearman", "ssim"):
+        got = record(f"cube_distance {dist}", lambda: stats.cube_distance(
+            cube, 0, dist=dist, plot=False))
+        _require(got.shape == (N_FRAMES,) and bool(torch.isfinite(got).all()),
+                 f"cube_distance {dist}")
+        vip_tpu_torch.set_device("cpu")
+        try:
+            ref = stats.cube_distance(cube[:S8A_HOST_FRAMES].cpu().double(),
+                                      0, dist=dist, plot=False)
+        finally:
+            vip_tpu_torch.set_device(DEVICE)
+        err, scale = _rel_err(got[:S8A_HOST_FRAMES].cpu(), ref)
+        _require(err <= S8A_F32_TOL * scale, f"cube_distance {dist}: "
+                 f"{err:.3e} from the CPU float64 mode")
+    print(f"slice 8a cube_distance: the 6 distances of {N_FRAMES} frames, "
+          f"the first {S8A_HOST_FRAMES} within {S8A_F32_TOL:.0e} of the CPU "
+          f"float64 mode", flush=True)
+
+    # randomized_svd_gpu of a decaying spectrum: the noise cube plus a
+    # rank-S8A_NCOMP structure from 10^S8A_SPECTRUM[0] down to
+    # 10^S8A_SPECTRUM[1] times the noise's top singular value
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    M = cube.reshape(N_FRAMES, -1)
+    Ul = torch.linalg.qr(torch.randn((N_FRAMES, S8A_NCOMP), generator=g,
+                                     device=DEVICE))[0]
+    Vl = torch.linalg.qr(torch.randn((M.shape[1], S8A_NCOMP), generator=g,
+                                     device=DEVICE))[0]
+    noise_top = np.sqrt(N_FRAMES) + np.sqrt(M.shape[1])
+    s_l = torch.as_tensor(noise_top * np.logspace(*S8A_SPECTRUM, S8A_NCOMP),
+                          dtype=M.dtype, device=DEVICE)
+    M = M + (Ul * s_l) @ Vl.T
+    del Ul, Vl
+    U, S, Vh = record("randomized_svd_gpu", lambda: psfsub.randomized_svd_gpu(
+        M, S8A_NCOMP, random_state=0))
+    t0 = time.perf_counter()
+    u, s, vh = svd(M)
+    torch.cuda.synchronize()
+    t_svd = time.perf_counter() - t0
+    s_err = float(((S - s[:S8A_NCOMP]).abs() / s[:S8A_NCOMP]).max())
+    v_gap = _subspace_gap(Vh, vh[:S8A_NCOMP])
+    u_gap = _subspace_gap(U.T, u[:, :S8A_NCOMP].T)
+    _require(s_err <= S8A_F32_TOL and max(v_gap, u_gap) <= S8A_F32_TOL,
+             f"randomized_svd_gpu: singular values {s_err:.3e}, projectors "
+             f"{v_gap:.3e}, {u_gap:.3e}")
+    print(f"slice 8a randomized_svd_gpu {N_FRAMES}x{M.shape[1]} ncomp "
+          f"{S8A_NCOMP}: singular values within {s_err:.3e}, the right and "
+          f"left rank-{S8A_NCOMP} projectors {v_gap:.3e}, {u_gap:.3e} "
+          f"(Frobenius) of ops.linalg.svd ({t_svd:.4f} s)", flush=True)
+    del M, U, S, Vh, u, s, vh
+
+    # pca(smooth=) against pca then the Gaussian low-pass; the companion
+    smooth = record("pca smooth", lambda: psfsub.pca(
+        pcube, angles_np, ncomp=NCOMP, smooth=2, verbose=False))
+    base, base_counts, _ = _step("pca", lambda: psfsub.pca(
+        pcube, angles_np, ncomp=NCOMP, verbose=False))
+    _require(counts["pca smooth"] == base_counts,
+             f"pca smooth launches {counts['pca smooth']} against "
+             f"{base_counts}")
+    err, scale = _rel_err(smooth, frame_filter_lowpass(base, mode="gauss",
+                                                      fwhm_size=2))
+    _require(err <= PIPE_TOL * scale, f"pca smooth: {err:.3e}")
+    ys, xs = detection(smooth, fwhm=COMP_FWHM, mode="lpeaks", bkg_sigma=5,
+                       snr_thresh=5, full_output=False, plot=False,
+                       verbose=False)
+    _require(_near(ys, xs, src), "pca smooth: the planted companion was "
+             "missed")
+    print(f"slice 8a pca smooth=2: {err:.3e} from pca then "
+          f"frame_filter_lowpass; the companion found within 3 px",
+          flush=True)
+
+    # the star of an IFS-like cube made on the card
+    star = record("approx_stellar_position", lambda: cosmetics.
+                  approx_stellar_position(_star_cube(), 4.0,
+                                          return_test=True))
+    idx, test = star
+    truth = _star_truth()
+    good = ~np.isin(np.arange(S8A_STAR_Z), S8A_STAR_OUTLIERS)
+    _require(np.abs(idx - truth).max() <= 1.0
+             and not test[S8A_STAR_OUTLIERS].any() and test[good].all(),
+             f"approx_stellar_position: {idx.tolist()} {test.tolist()}")
+    print(f"slice 8a approx_stellar_position: {S8A_STAR_Z} channels within "
+          f"1 px of the star, outliers {S8A_STAR_OUTLIERS} flagged and "
+          f"replaced; the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts, times
+
+
+def _star_truth():
+    """The star's (y, x) in each channel: a chromatic drift of 0.2 px
+    inside one pixel (the sigma clip of the peaks' pixels, whose spread
+    is then 0, flags any other pixel)."""
+    z = np.arange(S8A_STAR_Z)
+    c = S8A_STAR_SIZE // 2
+    return np.stack([c + 0.3 + 0.2 * z / S8A_STAR_Z,
+                     c - 0.3 - 0.2 * z / S8A_STAR_Z], axis=1)
+
+
+def _star_cube():
+    """S8A_STAR_Z channels of a Gaussian star (FWHM 4 px, peak 1000)
+    drifting as ``_star_truth`` over unit noise from a seeded generator,
+    and a hot 3x3 patch far from the star in each outlier channel."""
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    n = S8A_STAR_SIZE
+    q = torch.arange(n, device=DEVICE, dtype=torch.float32)
+    t = torch.as_tensor(_star_truth(), dtype=torch.float32, device=DEVICE)
+    two_sig2 = 2 * (4.0 / (2 * np.sqrt(2 * np.log(2)))) ** 2
+    gy = torch.exp(-(q[None, :] - t[:, :1]) ** 2 / two_sig2)
+    gx = torch.exp(-(q[None, :] - t[:, 1:]) ** 2 / two_sig2)
+    cube = 1000 * gy[:, :, None] * gx[:, None, :] + torch.randn(
+        (S8A_STAR_Z, n, n), generator=g, device=DEVICE)
+    for k, z in enumerate(S8A_STAR_OUTLIERS):
+        y0 = 10 + k * (n // 4)
+        cube[z, y0:y0 + 3, 10:13] += 5000
+    return cube
+
+
 def _ifs_stages(cube, angles, scal):
     """The single and the double pass of phase 18 step by step at full
     depth, each step synchronized and timed once warm: where their time
@@ -2296,6 +2709,7 @@ def phase_f2():
                    for y, x in found):
                 _require(_near(ys, xs, (c[1], c[0])),
                          f"F2 {name}: the companion at {c} was missed")
+    _incr_float64(fwhm, meta["angles"], golden, cube32, errs, errs_cpu)
     psfn, _, fit_fwhm = normalize_psf(_moffat_psf(), fwhm="fit", size=20,
                                       force_odd=False, full_output=True,
                                       verbose=False)
@@ -2318,6 +2732,38 @@ def phase_f2():
           f"{float(np.abs(inj - inj64).max()):.3e}; detection oracle "
           f"passed", flush=True)
     return errs
+
+
+def _incr_float64(fwhm, angles, golden, cube32, errs, errs_cpu):
+    """Q3-3: the F2 configuration pca_incr_adi in float64 on the card
+    (a float64 tensor keeps its precision there) against the CPU's
+    float64 run of the same float32-rounded cube, within Q33_TOL of
+    max(|ref|, 1); each beside the golden."""
+    import vip_tpu_torch
+    import vip_tpu_torch.psfsub as tps
+
+    kw = dict(angle_list=angles, fwhm=fwhm, verbose=False, batch=30)
+    t0 = time.perf_counter()
+    card = tps.pca(cube=torch.as_tensor(cube32, dtype=torch.float64,
+                                        device=DEVICE), **kw)
+    wall = time.perf_counter() - t0
+    vip_tpu_torch.set_device("cpu")
+    try:
+        cpu = tps.pca(cube=torch.as_tensor(cube32, dtype=torch.float64),
+                      **kw)
+    finally:
+        vip_tpu_torch.set_device(DEVICE)
+    gold = np.load(os.path.join(golden, "pca_incr_adi.npy"))
+    err = float(np.abs(card - cpu).max()) / max(float(np.abs(cpu).max()),
+                                                1.0)
+    print(f"Q3-3 pca_incr_adi float64 on the card ({wall:.4f} s): "
+          f"{err:.3e} of max(|ref|, 1) from the CPU float64 (bound "
+          f"{Q33_TOL:.0e}); from the golden: float64 card "
+          f"{np.abs(card - gold).max():.3e}, CPU {np.abs(cpu - gold).max():.3e}"
+          f"; float32 card {errs['pca_incr_adi']:.3e}, CPU "
+          f"{errs_cpu['pca_incr_adi']:.3e}", flush=True)
+    _require(err <= Q33_TOL, "Q3-3: pca_incr_adi in float64 on the card "
+             "differs from the CPU")
 
 
 @contextlib.contextmanager
@@ -2716,12 +3162,14 @@ def main():
     negfc_counts, negfc_times = phase_negfc(pcube, angles_np, src)
     invprob_counts, invprob_times = phase_invprob(pcube, angles_np)
     ifs_counts, ifs_times = phase_ifs()
+    s8a_counts, s8a_times = phase_slice8a(cube, angles_np, pcube, src)
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
     new_paths.update({k: v[0] for k, v in slice4.items()})
     new_paths.update(negfc_counts)
     new_paths.update(invprob_counts)
     new_paths.update({f"ifs {k}": v for k, v in ifs_counts.items()})
+    new_paths.update({f"8a {k}": v for k, v in s8a_counts.items()})
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -2872,6 +3320,9 @@ def main():
         f"{k} {v:.4f}" for k, v in invprob_times.items()), flush=True)
     print("timing slice 7 (s; see the phase 18 lines): " + ", ".join(
         f"{k} {v:.4f}" for k, v in ifs_times.items()), flush=True)
+    print("timing slice 8a (s, one run each; see the phase 19 lines): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in s8a_times.items()),
+          flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
@@ -2998,6 +3449,38 @@ def ifs_only():
           flush=True)
 
 
+def slice8a_only():
+    """Phase 19 alone (``--slice8a``): the build, the cube with the planted
+    companion, slice 8a, with torch.profiler tables of
+    ``cube_correct_nan`` and ``randomized_svd_gpu``."""
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    angles_np = np.linspace(0.0, 80.0, N_FRAMES).astype(np.float32)
+    pcube, src = _plant_companion(cube, angles_np)
+    counts, _ = phase_slice8a(cube, angles_np, pcube, src)
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()),
+          flush=True)
+    from vip_tpu_torch.preproc import cosmetics
+    from vip_tpu_torch.psfsub import randomized_svd_gpu
+
+    dmg, _ = _damage(cube, 11)
+    wall, table = _profile_table(
+        lambda: cosmetics._correct_nan_frames(dmg, False))
+    print(f"profile cube_correct_nan {N_FRAMES}x{SIZE}x{SIZE}: {wall:.4f} s "
+          f"under the profiler; top ops by device time:\n{table}",
+          flush=True)
+    del dmg
+    M = cube.reshape(N_FRAMES, -1)
+    wall, table = _profile_table(lambda: randomized_svd_gpu(M, S8A_NCOMP))
+    print(f"profile randomized_svd_gpu {N_FRAMES}x{M.shape[1]} ncomp "
+          f"{S8A_NCOMP}: {wall:.4f} s under the profiler; top ops by device "
+          f"time:\n{table}", flush=True)
+
+
 def kernel_digests(root):
     """SHA-256 (first 16 hex digits) of the outputs of H1 (both propagate
     modes), H2 (512² and 160²) and H3 on the inputs of phases 3-5, with the
@@ -3069,6 +3552,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--ifs":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         ifs_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--slice8a":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        slice8a_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

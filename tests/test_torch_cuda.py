@@ -1057,3 +1057,157 @@ def test_ifs_negfc_lnprob_on_the_card(cuda_device):
     chi_ref = tfm.chisquare(tuple(params[0]), cube4, angles, psf4, 4.0, 8,
                             1, (r, theta), 1)
     assert abs(chi - chi_ref) <= NEGFC_TOL * abs(chi_ref)
+
+
+# Slice 8a: the bad-pixel filters, stats, subsampling, cosmetics,
+# randomized_svd_gpu and pca(smooth=). Each entry point in float64 on the
+# card against the CPU float64 mode (1e-8 of max(|ref|, 1); the sigma
+# filter's frames equal), and in float32 within the bound of slice 7's
+# card tests (1e-4 of max(|ref|, 1)).
+S8A_F64_TOL, S8A_F32_TOL = 1e-8, 1e-4
+
+
+def _s8a_cube(n=12, size=40, seed=3):
+    rng = np.random.default_rng(seed)
+    cube = rng.standard_normal((n, size, size)) + 10.0
+    nans = rng.random(cube.shape) < 0.01
+    nans[:, 10:15, 20:24] = True
+    cube[nans] = np.nan
+    return cube
+
+
+def _s8a_cases():
+    """(name, run(cube), H1 launches in float32)."""
+    import vip_tpu_torch.preproc as tpp
+    import vip_tpu_torch.psfsub as tps
+    import vip_tpu_torch.stats as tst
+    import vip_tpu_torch.var as tv
+
+    psf = tv.create_synth_psf(shape=(9, 9), fwhm=3)
+    psf /= psf.sum()
+    return [
+        ("cube_correct_nan", lambda c: tpp.cube_correct_nan(c), 0),
+        ("cube_subsample median", lambda c: tpp.cube_subsample(
+            tpp.cube_correct_nan(c), 4, "median", verbose=False), 1),
+        ("cube_subsample trimmean", lambda c: tpp.cube_subsample_trimmean(
+            tpp.cube_correct_nan(c), 2, 5), 0),
+        ("cube_filter_iuwt", lambda c: tv.cube_filter_iuwt(
+            tpp.cube_correct_nan(c), coeff=4, rel_coeff=2), 0),
+        ("frame_deconvolution", lambda c: tv.frame_deconvolution(
+            tpp.cube_correct_nan(c)[0], psf, n_it=10), 0),
+        # the median reference frame of each call: one H1 launch each
+        ("cube_distance", lambda c: torch.stack([tst.cube_distance(
+            tpp.cube_correct_nan(c), None, dist=d, plot=False) for d in
+            ("sad", "mse", "pearson", "spearman", "ssim")]), 5),
+        ("randomized_svd_gpu", lambda c: (lambda u, s, v: (s, v.T @ v))(
+            *tps.randomized_svd_gpu(tpp.cube_correct_nan(c).reshape(
+                c.shape[0], -1), 3)), 0),
+    ]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_slice8a_entry_points_on_the_card(cuda_device, case):
+    name, run, n_h1 = _s8a_cases()[case]
+    cube = _s8a_cube()
+    ref = _as_list(run(torch.as_tensor(cube)))
+    vip_tpu_torch.set_device("cuda")
+    try:
+        got64 = _as_list(run(torch.as_tensor(cube, device="cuda")))
+        before = median.launches
+        got32 = _as_list(run(torch.as_tensor(cube, dtype=torch.float32,
+                                             device="cuda")))
+        torch.cuda.synchronize()
+        n1 = median.launches - before
+    finally:
+        vip_tpu_torch.set_device("cpu")
+
+    def rel(got, want):
+        g, w = got.cpu().double().numpy(), want.double().numpy()
+        return np.abs(g - w).max() / max(np.abs(w).max(), 1.0)
+
+    e64 = max(rel(g, r) for g, r in zip(got64, ref))
+    e32 = max(rel(g, r) for g, r in zip(got32, ref))
+    print(f"{name} on the card: float64 {e64:.3e}, float32 {e32:.3e} "
+          f"against the CPU float64 mode; float32 H1 launches {n1}")
+    assert got32[0].is_cuda and got64[0].is_cuda
+    assert e64 <= S8A_F64_TOL, name
+    assert e32 <= S8A_F32_TOL, name
+    assert n1 == n_h1, name
+
+
+def test_sigma_filter_route_is_its_dense_plain_version(cuda_device):
+    """A stalled clump beside a clump eroded over several sweeps and
+    scattered pixels: the gathered route and the dense plain version give
+    the same bits and sweep counts, and the float64 frames equal the
+    CPU's."""
+    from vip_tpu_torch.ops import badpix
+
+    rng = np.random.default_rng(1)
+    cube = rng.standard_normal((6, 64, 48)).astype(np.float32)
+    bp = rng.random(cube.shape) < 0.01
+    bp[:, 20:29, 10:19] = True
+    bp[2] = True                          # stalled: three good pixels
+    bp[2, 0, 0] = bp[2, 7, 7] = bp[2, 30, 30] = False
+    for dtype in (torch.float32, torch.float64):
+        c = torch.as_tensor(cube, dtype=dtype, device=cuda_device)
+        b = torch.as_tensor(bp, device=cuda_device)
+        out, nit = badpix._sigma_filter_gathered(c, b, 3)
+        dense, dnit = badpix._sigma_filter_dense(c, b, 3)
+        assert torch.equal(out.nan_to_num(7.0), dense.nan_to_num(7.0))
+        assert torch.equal(nit, dnit)
+        cpu, cnit = badpix._sigma_filter_gathered(c.cpu(), b.cpu(), 3)
+        assert torch.equal(out.cpu(), cpu) and torch.equal(nit.cpu(), cnit)
+    assert int(nit[2]) == 1 and len(set(nit.tolist())) > 1
+
+
+def test_cube_subsample_median_is_one_h1_launch(cuda_device, monkeypatch):
+    import vip_tpu_torch.preproc as tpp
+
+    cube = torch.as_tensor(_s8a_cube(n=40, size=48, seed=5),
+                           dtype=torch.float32, device=cuda_device)
+    pa = np.linspace(0, 20, 40)
+    before = median.launches
+    out, angles = tpp.cube_subsample(cube, 6, "median", parallactic=pa,
+                                     verbose=False)
+    torch.cuda.synchronize()
+    assert median.launches - before == 1
+    _plain_route(monkeypatch)
+    ref, ref_angles = tpp.cube_subsample(cube, 6, "median", parallactic=pa,
+                                         verbose=False)
+    assert median.launches - before == 1
+    assert torch.equal(out.nan_to_num(7.0), ref.nan_to_num(7.0))
+    np.testing.assert_array_equal(angles, ref_angles)
+    c4 = torch.stack([cube, 2 * cube])
+    before = median.launches
+    monkeypatch.undo()
+    tpp.cube_subsample(c4, 6, "median", verbose=False)
+    assert median.launches - before == 1
+
+
+def test_pca_smooth_on_the_card(cuda_device):
+    """``smooth`` adds no launch: the same H1/H2 counts as without it, the
+    frame equal to ``pca`` then ``frame_filter_lowpass``, and within the
+    float32 bound of the CPU float64 frame."""
+    import vip_tpu_torch.psfsub as tps
+    from vip_tpu_torch.var import frame_filter_lowpass
+
+    rng = np.random.default_rng(2)
+    cube = rng.standard_normal((30, 64, 64))
+    angles = np.linspace(0, 40, 30)
+    ref = tps.pca(cube, angles, ncomp=3, smooth=2.0, verbose=False)
+    c32 = torch.as_tensor(cube, dtype=torch.float32, device=cuda_device)
+    counts = []
+    frames = []
+    for smooth in (None, 2.0):
+        before = (median.launches, shear.launches)
+        frames.append(tps.pca(c32, angles, ncomp=3, smooth=smooth,
+                              verbose=False))
+        torch.cuda.synchronize()
+        counts.append((median.launches - before[0],
+                       shear.launches - before[1]))
+    assert counts[0] == counts[1] and counts[0][0] == 1 and counts[0][1] > 0
+    low = frame_filter_lowpass(frames[0], mode="gauss", fwhm_size=2.0)
+    assert torch.equal(frames[1], low)
+    err = (frames[1].cpu().double() - ref).abs().max() / max(
+        float(ref.abs().max()), 1.0)
+    assert err <= S8A_F32_TOL

@@ -103,13 +103,14 @@ def test_pca_source_xy_delta_rot_vs_vip_tpu(small):
 
 
 def test_pca_paths_still_to_port_raise(small):
-    """``smooth`` still raises (slice 8). The paths slice 7 ported meet
-    vip_tpu: ``mask_rdi`` with a reference cube, a 4-d cube reduced
-    channel by channel, and ``scale_list`` on a 3-d cube raising the same
+    """The paths that raised until they were ported meet vip_tpu:
+    ``smooth`` (slice 8a; every branch in tests/test_torch_pca_smooth.py),
+    ``mask_rdi`` with a reference cube, a 4-d cube reduced channel by
+    channel, and ``scale_list`` on a 3-d cube raising the same
     ValueError."""
     cube, angles, ref_cube = small
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tps.pca(cube, angles, verbose=False, smooth=2)
+    assert _err(tps.pca(cube.copy(), angles, verbose=False, smooth=2),
+                jps.pca(cube.copy(), angles, verbose=False, smooth=2)) <= TOL
     kw = dict(mask_rdi=np.ones((32, 32)), cube_ref=ref_cube, ncomp=2,
               verbose=False)
     assert _err(tps.pca(cube.copy(), angles, **kw),

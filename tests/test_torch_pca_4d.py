@@ -287,9 +287,12 @@ def test_mask_rdi_double_pass(ifs_cube):
 
 
 def test_smooth_waits_for_slice_8(ifs_cube):
+    """``smooth`` came with slice 8a: a channel's 3-d frame is
+    smoothed as vip_tpu smooths it (every branch in
+    tests/test_torch_pca_smooth.py)."""
     cube, angles, _ = ifs_cube
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tps.pca(cube[0], angles, ncomp=1, smooth=2, verbose=False)
+    ref, got = _both(jps.pca, tps.pca, cube[0], angles, ncomp=1, smooth=2)
+    assert _err(got, ref) < TOL
 
 
 def test_params_objects_4d(ifs_cube):

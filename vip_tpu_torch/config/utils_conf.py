@@ -1,13 +1,13 @@
 """Array checks and the task map (port of the part of
-``vip_tpu.config.utils_conf`` that ``pca`` and the completeness curves
-call: ``check_array``, ``pool_map``, ``iterable``)."""
+``vip_tpu.config.utils_conf`` that the ported modules call:
+``check_array``, ``frame_or_shape``, ``pool_map``, ``iterable``)."""
 
 import numpy as np
 import torch
 
 sep = "-" * 80
 
-__all__ = ["sep", "check_array", "pool_map", "iterable"]
+__all__ = ["sep", "check_array", "frame_or_shape", "pool_map", "iterable"]
 
 
 def check_array(input_array, dim, msg=None):
@@ -29,6 +29,18 @@ def check_array(input_array, dim, msg=None):
         raise TypeError(f"`{msg}` must be a {wanted} numpy ndarray or "
                         "torch tensor")
     return input_array
+
+
+def frame_or_shape(data):
+    """A 2d frame as it is (numpy or tensor), or a host frame of zeros for a
+    shape tuple (vip_tpu utils_conf.py:82)."""
+    if isinstance(data, tuple):
+        return np.zeros(data)
+    if not isinstance(data, torch.Tensor):
+        data = np.asarray(data)
+    if data.ndim != 2:
+        raise TypeError("`data` must be a frame or a shape tuple")
+    return data
 
 
 class _Iterable:

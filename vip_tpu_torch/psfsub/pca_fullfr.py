@@ -24,8 +24,10 @@ one spectral PCA a temporal frame, all of them in one batched
 ``batch`` streams the cube through ``utils_pca.pca_incremental`` (a
 FITS path is read lazily) and returns host numpy results, as vip_tpu.
 
-Not ported yet: ``smooth`` (raises ``NotImplementedError``; ROADMAP.md
-Queue 1, slice 8).
+``smooth`` convolves the final frame of a 3-d cube with a Gaussian of
+that FWHM (``var.frame_filter_lowpass``), before the central mask, as
+vip_tpu does in ``_adi_rdi_pca`` alone: a grid ``ncomp``, ``batch`` and
+4-d cubes ignore it there, and here.
 """
 
 from dataclasses import dataclass
@@ -51,9 +53,6 @@ from ..var.shapes import mask_circle, prepare_matrix
 from .svd import MODE_TO_METHOD, SVDecomposer, svd_wrapper
 
 __all__ = ["pca", "PCA_Params"]
-
-_WAITS = "is not ported yet (ROADMAP.md, Queue 1, slice 8)"
-
 
 @dataclass
 class PCA_Params:
@@ -141,8 +140,6 @@ def pca(*all_args: List, **all_kwargs: dict):
                         or p.cube_ref is not None):
         raise NotImplementedError(
             "left_eigv is not compatible with 'mask_rdi' nor 'batch'")
-    if p.smooth is not None:
-        raise NotImplementedError(f"pca: smooth {_WAITS}")
     if p.scale_list is not None:
         return _pca_adimsdi(p, start_time, rot_options)
     if getattr(p.cube, "ndim", None) == 4:
@@ -358,10 +355,11 @@ def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
                  interpolation, collapse, verbose, start_time, nproc,
                  full_output, weights=None, mask_rdi=None, cube_sig=None,
                  left_eigv=False, min_frames_pca=10, max_frames_pca=None,
-                 grid_table=True, **rot_options):
+                 smooth=None, grid_table=True, **rot_options):
     """ADI/RDI full-frame PCA core (vip_tpu pca_fullfr.py:332-445). A grid
     ``ncomp`` goes to ``pca_grid`` (its pandas table only with
-    ``grid_table``)."""
+    ``grid_table``); ``smooth`` is the FWHM of a Gaussian low-pass of the
+    final frame."""
     if isinstance(ncomp, (tuple, list)):
         from .utils_pca import _pca_grid
 
@@ -439,6 +437,10 @@ def _adi_rdi_pca(cube, cube_ref, angle_list, ncomp, source_xy, delta_rot,
                                     interpolation=_value(interpolation),
                                     **rot_options)
     frame = cube_collapse(residuals_cube_, mode=_value(collapse), w=weights)
+    if smooth is not None:
+        from ..var.filters import frame_filter_lowpass
+
+        frame = frame_filter_lowpass(frame, mode="gauss", fwhm_size=smooth)
     if mask_center_px:
         residuals_cube_ = mask_circle(residuals_cube_, mask_center_px)
         frame = mask_circle(frame, mask_center_px)

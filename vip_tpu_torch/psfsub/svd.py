@@ -1,5 +1,6 @@
 """SVD front end (port of ``vip_tpu.psfsub.svd``: ``MODE_TO_METHOD``,
-``svd_wrapper``, ``get_eigenvectors`` and ``SVDecomposer``).
+``svd_wrapper``, ``get_eigenvectors``, ``randomized_svd_gpu`` and
+``SVDecomposer``).
 
 VIP's ten backend modes map onto the three methods of
 ``vip_tpu_torch.ops.linalg.svd_top``, which run on the matrix's device.
@@ -13,11 +14,11 @@ import torch
 
 from ..config import check_array, sep, time_ini, timing
 from ..config.device import as_tensor
-from ..ops.linalg import matrix_scaling_jax, svd_top
+from ..ops.linalg import matrix_scaling_jax, randomized_svd, svd_top
 from ..ops.median import nanmedian_plain
 
 __all__ = ["SVDecomposer", "svd_wrapper", "get_eigenvectors",
-           "MODE_TO_METHOD"]
+           "randomized_svd_gpu", "MODE_TO_METHOD"]
 
 MODE_TO_METHOD = {
     "lapack": "lapack",
@@ -73,6 +74,29 @@ def svd_wrapper(matrix, mode, ncomp, verbose=False, full_output=False,
     if full_output:
         return U, S[: int(ncomp)], V
     return U if left_eigv else V
+
+
+def randomized_svd_gpu(M, n_components, n_oversamples=10, n_iter="auto",
+                       transpose="auto", random_state=0, lib="jax"):
+    """Randomized SVD (Halko et al.) of a matrix on its device (numpy
+    input on :func:`~vip_tpu_torch.get_device`): (U, S, Vh) of
+    ``n_components`` (vip_tpu svd.py:95), through
+    ``ops.linalg.randomized_svd``. ``n_iter="auto"`` takes 7 power
+    iterations when ``n_components`` is under a tenth of the smaller side,
+    else 4. The Gaussian sketch is drawn from a ``torch.Generator`` on
+    the matrix's device seeded by ``random_state`` (None as 0), so its
+    draws are not vip_tpu's threefry ones. As in vip_tpu, ``transpose``
+    changes nothing (a matrix wider than tall is always decomposed
+    through its transpose) and neither does ``lib``: its default "jax"
+    named vip_tpu's backend; every value runs the same torch code on the
+    card."""
+    M = as_tensor(M)
+    if n_iter == "auto":
+        n_iter = 7 if n_components < 0.1 * min(M.shape) else 4
+    generator = torch.Generator(device=M.device).manual_seed(
+        int(random_state or 0))
+    return randomized_svd(M, int(n_components), n_oversamples=n_oversamples,
+                          n_iter=int(n_iter), generator=generator)
 
 
 def get_eigenvectors(ncomp, data, svd_mode, mode="noise", noise_error=1e-3,

@@ -475,8 +475,8 @@ def pca_incremental(cube, angle_list, batch=0.25, ncomp=1, collapse="median",
     ``cube`` is a FITS path (read lazily: only ``batch`` frames are
     decoded at a time), a lazy HDU, an array or a tensor. The work runs
     on the default device (:func:`vip_tpu_torch.set_device`), or on the
-    tensor's own, in float32 on a card and float64 on the CPU (the parity
-    mode). ``batch``: an int is frames a batch, a float in (0, 1) the
+    tensor's own, in float32 on a card (float64 for a float64 tensor) and
+    float64 on the CPU (the parity mode). ``batch``: an int is frames a batch, a float in (0, 1) the
     fraction of the available host memory a batch may take.
 
     Pass 1 merges each batch into the truncated SVD (exactly ``ncomp``
@@ -534,6 +534,8 @@ def pca_incremental(cube, angle_list, batch=0.25, ncomp=1, collapse="median",
 
     dev = cube.device if isinstance(cube, torch.Tensor) else get_device()
     work = torch.float32 if dev.type == "cuda" else torch.float64
+    if isinstance(cube, torch.Tensor) and cube.dtype == torch.float64:
+        work = torch.float64        # a float64 tensor keeps its precision
     wire = _wire_dtype(wire_dtype, work)
     work_np = np.float32 if work == torch.float32 else np.float64
 

@@ -1,5 +1,7 @@
-"""Coordinates and shapes (port of the part of ``vip_tpu.var`` that PCA,
-injection and the metrics use)."""
+"""Image primitives: coordinates, shapes and masks, filters, 2-d fits
+(port of ``vip_tpu.var``)."""
 
 from .coords import *
 from .shapes import *
+from .filters import *
+from .fit_2d import *

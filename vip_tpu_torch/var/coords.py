@@ -7,9 +7,12 @@ pixel of the central 2x2 block. Every FFT rotation in the port assumes it.
 """
 
 import numpy as np
+import torch
+
+from ..config.device import as_tensor
 
 __all__ = ["dist", "dist_matrix", "frame_center", "cart_to_pol",
-           "pol_to_cart"]
+           "pol_to_cart", "pol_to_eq", "QU_to_QUphi"]
 
 
 def dist(yc, xc, y1, x1):
@@ -103,3 +106,71 @@ def pol_to_cart(r, theta, r_err=0, theta_err=0, cx=0, cy=0,
     if np.any(r_err != 0) or np.any(theta_err != 0):
         return x, y, dx_err, dy_err
     return x, y
+
+
+def pol_to_eq(r, t, rError=0, tError=0, astro_convention=False, plot=False):
+    """Host polar (r, t in degrees) → (ΔRA, ΔDEC), each with the mean
+    half-width of its error ellipse, sampled at 5000 points (vip_tpu
+    coords.py:120). ``plot`` draws the ellipse (matplotlib, imported only
+    then)."""
+    if not astro_convention:
+        t = t - 90
+
+    ra = r * np.sin(np.deg2rad(t))
+    dec = r * np.cos(np.deg2rad(t))
+    u, v = ra, dec
+
+    nu = np.mod(np.pi / 2 - np.deg2rad(t), 2 * np.pi)
+    a, b = rError, r * np.sin(np.deg2rad(tError))
+
+    beta = np.linspace(0, 2 * np.pi, 5000)
+    x = u + (a * np.cos(beta) * np.cos(nu) - b * np.sin(beta) * np.sin(nu))
+    y = v + (b * np.sin(beta) * np.cos(nu) + a * np.cos(beta) * np.sin(nu))
+
+    raErrorInf = u - np.amin(x)
+    raErrorSup = np.amax(x) - u
+    decErrorInf = v - np.amin(y)
+    decErrorSup = np.amax(y) - v
+
+    if plot:
+        import matplotlib.pyplot as plt
+
+        plt.plot(u, v, "ks", x, y, "r")
+        plt.gca().set_aspect("equal")
+        plt.gca().invert_xaxis()
+        plt.show()
+
+    return ((ra, np.mean([raErrorInf, raErrorSup])),
+            (dec, np.mean([decErrorInf, decErrorSup])))
+
+
+def QU_to_QUphi(Q, U, delta_x=0, delta_y=0, scale_r2=False,
+                north_convention=False):
+    """Azimuthal Stokes (Qphi, Uphi) images from Q and U, on the device of
+    Q (numpy input on :func:`~vip_tpu_torch.get_device`), as tensors
+    (vip_tpu coords.py:155). The angle phi is measured from +x about the
+    frame center shifted by (delta_x, delta_y), from North with
+    ``north_convention``; ``scale_r2`` multiplies both by r².
+
+    As vip_tpu, this computes the documented intent: the upstream code
+    passes ``north_convention`` to ``cart_to_pol``, which does not take it,
+    so it raises on every call (vip_tpu coords.py:161)."""
+    Q = as_tensor(Q)
+    U = as_tensor(U, Q.device, Q.dtype)
+    cy, cx = frame_center(Q)
+    yy, xx = np.mgrid[: Q.shape[0], : Q.shape[1]]
+    x = xx - cx - delta_x
+    y = yy - cy - delta_y
+    phi = np.arctan2(y, x)
+    if north_convention:
+        phi -= np.deg2rad(90)
+    c2 = torch.as_tensor(np.cos(2 * phi), dtype=Q.dtype, device=Q.device)
+    s2 = torch.as_tensor(np.sin(2 * phi), dtype=Q.dtype, device=Q.device)
+    Qphi = Q * c2 + U * s2
+    Uphi = -Q * s2 + U * c2
+    if scale_r2:
+        rho2 = torch.as_tensor(np.hypot(y, x) ** 2, dtype=Q.dtype,
+                               device=Q.device)
+        Qphi = Qphi * rho2
+        Uphi = Uphi * rho2
+    return Qphi, Uphi

@@ -9,8 +9,10 @@ filtered in one batched pass on its device; only the 'median' modes run
 frame by frame, through scipy's median filter on the host, as in
 vip_tpu. The 'laplacian' high-pass mode computes OpenCV's ``Laplacian``
 itself (the aperture kernel of ``ksize``, ``BORDER_REFLECT_101``, a
-float32 result). IUWT and deconvolution wait for ROADMAP Queue 1,
-slice 8.
+float32 result). Richardson-Lucy deconvolution convolves on the device
+with ``torch.fft`` where vip_tpu calls ``scipy.signal.convolve`` on the
+host (the same sums to rounding); the IUWT filter decomposes every frame
+in one batched pass (``var.iuwt``).
 """
 
 import numpy as np
@@ -23,7 +25,8 @@ GAUSSIAN_FWHM_TO_SIGMA = 1.0 / (2.0 * np.sqrt(2.0 * np.log(2.0)))
 
 __all__ = ["frame_filter_lowpass", "cube_filter_lowpass",
            "frame_filter_highpass", "cube_filter_highpass",
-           "gaussian_kernel_2d", "convolve_with_mask", "fft", "ifft"]
+           "gaussian_kernel_2d", "convolve_with_mask", "fft", "ifft",
+           "cube_filter_iuwt", "frame_deconvolution"]
 
 # the kernels of the 'laplacian-conv' mode (vip_tpu filters.py:204-217)
 _LAPLACIAN_CONV = {
@@ -333,3 +336,53 @@ def cube_filter_highpass(array, mode="laplacian", verbose=True, **kwargs):
                         f"{sorted(unknown)}")
     opts.update(kwargs)
     return _highpass(array, mode, **opts)
+
+
+def _convolve_same(image, kernel):
+    """``scipy.signal.convolve(image, kernel, mode="same")`` over the last
+    two axes, as an FFT product on the full (y + ky − 1, x + kx − 1)
+    support, cropped to the image's size around the full result's
+    center."""
+    ny, nx = image.shape[-2:]
+    ky, kx = kernel.shape[-2:]
+    fy, fx = ny + ky - 1, nx + kx - 1
+    full = torch.fft.irfft2(torch.fft.rfft2(image, s=(fy, fx))
+                            * torch.fft.rfft2(kernel, s=(fy, fx)), s=(fy, fx))
+    y0, x0 = (ky - 1) // 2, (kx - 1) // 2
+    return full[..., y0:y0 + ny, x0:x0 + nx]
+
+
+def frame_deconvolution(array, psf, n_it=30):
+    """Richardson-Lucy deconvolution of a frame by ``psf``, ``n_it``
+    iterations from a flat 0.5 (vip_tpu filters.py:290). Each 'same'
+    convolution is one ``torch.fft`` product on the frame's device (numpy
+    input on :func:`~vip_tpu_torch.get_device`), where vip_tpu calls
+    ``scipy.signal.convolve`` on the host: the two agree to rounding
+    (1e-8 relative at float64 in tests/test_torch_var_more.py). Returns a
+    tensor."""
+    array = as_tensor(array)
+    if not array.is_floating_point():
+        array = array.to(torch.float64)
+    psf = as_tensor(psf, array.device, array.dtype)
+    im_deconv = torch.full_like(array, 0.5)
+    psf_mirror = psf.flip((-2, -1))
+    for _ in range(n_it):
+        conv = _convolve_same(im_deconv, psf)
+        relative_blur = array / torch.where(conv == 0, 1e-12, conv)
+        im_deconv = im_deconv * _convolve_same(relative_blur, psf_mirror)
+    return im_deconv
+
+
+def cube_filter_iuwt(cube, coeff=5, rel_coeff=1, full_output=False):
+    """IUWT filtering of a cube ([KEN15]/[DAB15]; vip_tpu
+    filters.py:305): the sum of each frame's first ``rel_coeff`` detail
+    coefficients of ``coeff``, every frame in one batched pass on the
+    cube's device; with ``full_output`` also the coefficients (frames,
+    coeff, y, x). Returns tensors."""
+    from .iuwt import iuwt_decomposition_batch
+
+    cube_coeff = iuwt_decomposition_batch(cube, coeff)
+    cubeout = cube_coeff[:, :rel_coeff].sum(dim=1)
+    if full_output:
+        return cubeout, cube_coeff
+    return cubeout

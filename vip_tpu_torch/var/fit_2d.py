@@ -4,8 +4,9 @@
 Host numpy and scipy, as in vip_tpu: the models match astropy's
 Gaussian2D, Moffat2D and AiryDisk2D, the fits are Levenberg-Marquardt
 through ``scipy.optimize.least_squares`` with vip_tpu's initialization
-(center-of-mass centroid, peak-to-peak amplitude). The double Gaussian
-and ``create_synth_psf`` wait for ROADMAP Queue 1, slice 8.
+(center-of-mass centroid, peak-to-peak amplitude). ``create_synth_psf``
+builds the models on a host grid; pandas is imported only for the
+``full_output`` tables.
 """
 
 import numpy as np
@@ -19,8 +20,8 @@ from .shapes import get_square
 GAUSSIAN_FWHM_TO_SIGMA = 1.0 / (2.0 * np.sqrt(2.0 * np.log(2.0)))
 GAUSSIAN_SIGMA_TO_FWHM = 2.0 * np.sqrt(2.0 * np.log(2.0))
 
-__all__ = ["fit_2dgaussian", "fit_2dmoffat", "fit_2dairydisk",
-           "gaussian_2d", "moffat_2d", "airydisk_2d",
+__all__ = ["create_synth_psf", "fit_2dgaussian", "fit_2dmoffat",
+           "fit_2dairydisk", "fit_2d2gaussian", "gaussian_2d", "moffat_2d", "airydisk_2d",
            "GAUSSIAN_FWHM_TO_SIGMA", "GAUSSIAN_SIGMA_TO_FWHM"]
 
 
@@ -55,6 +56,44 @@ def airydisk_2d(x, y, amplitude, x_0, y_0, radius):
     rt = np.pi * r[mask]
     out[mask] = (2.0 * j1(rt) / rt) ** 2
     return amplitude * out
+
+
+def create_synth_psf(model="gauss", shape=(9, 9), amplitude=1, x_mean=None,
+                     y_mean=None, fwhm=4, theta=0, gamma=None, alpha=1.5,
+                     radius=None, msdi=False):
+    """Host synthetic PSF (vip_tpu fit_2d.py:60): a 'gauss' (``fwhm`` a
+    scalar or (x, y), ``theta`` in degrees), 'moff' or 'airy' model on a
+    ``shape`` = (x size, y size) grid centered at (x_mean, y_mean), the
+    frame center by default; with ``msdi`` one frame for each ``fwhm``."""
+    if msdi:
+        if np.isscalar(fwhm):
+            raise ValueError("`Fwhm` must be a 1d vector")
+        return np.array([
+            create_synth_psf(model, shape, amplitude, x_mean, y_mean, fwhm_i,
+                             theta, gamma, alpha, radius)
+            for fwhm_i in fwhm])
+    sizex, sizey = shape
+    if x_mean is None or y_mean is None:
+        y_mean, x_mean = frame_center((sizey, sizex))
+    x, y = np.meshgrid(np.arange(sizex), np.arange(sizey))
+    if model == "gauss":
+        if np.isscalar(fwhm):
+            fwhm_x = fwhm_y = fwhm
+        else:
+            fwhm_x, fwhm_y = fwhm
+        return gaussian_2d(x, y, amplitude, x_mean, y_mean,
+                           fwhm_x * GAUSSIAN_FWHM_TO_SIGMA,
+                           fwhm_y * GAUSSIAN_FWHM_TO_SIGMA,
+                           np.deg2rad(theta))
+    elif model == "moff":
+        if gamma is None and fwhm is not None:
+            gamma = fwhm / (2.0 * np.sqrt(2 ** (1 / alpha) - 1))
+        return moffat_2d(x, y, amplitude, x_mean, y_mean, gamma, alpha)
+    elif model == "airy":
+        if radius is None and fwhm is not None:
+            radius = (fwhm * 2.44) / 1.028 / 2.0
+        return airydisk_2d(x, y, amplitude, x_mean, y_mean, radius)
+    raise ValueError("`model` not recognized")
 
 
 def _centroid_com(data):
@@ -282,3 +321,59 @@ def fit_2dairydisk(array, crop=False, cent=None, cropsize=15, fwhm=4,
 
         return pd.DataFrame(fit, index=[0], dtype=np.float64)
     return fit["centroid_y"], fit["centroid_x"]
+
+
+def fit_2d2gaussian(array, crop=False, cent=None, cropsize=15, fwhm_neg=4,
+                    fwhm_pos=4, theta_neg=0, theta_pos=0, neg_amp=1,
+                    fix_neg=True, threshold=False, sigfactor=2, bpm=None,
+                    full_output=False, debug=True):
+    """Fit a positive minus a negative 2-d Gaussian (a coronagraphic PSF;
+    vip_tpu fit_2d.py:319). With ``fix_neg`` the negative one keeps its
+    center (``cent``, else the centroid), FWHM and angle, and only its
+    amplitude ratio is fitted. Returns the (y, x) centroid of the positive
+    Gaussian, or with ``full_output`` a one-row pandas table (pandas is
+    imported only then)."""
+    xg, yg, data, init_amplitude, xcom, ycom, suby, subx = _fit_data(
+        array, crop, cent, cropsize, threshold, sigfactor, bpm)
+    if np.isscalar(fwhm_neg):
+        fwhm_neg = (fwhm_neg, fwhm_neg)
+    if np.isscalar(fwhm_pos):
+        fwhm_pos = (fwhm_pos, fwhm_pos)
+    pos0 = [init_amplitude, xcom, ycom, fwhm_pos[0] * GAUSSIAN_FWHM_TO_SIGMA,
+            fwhm_pos[1] * GAUSSIAN_FWHM_TO_SIGMA, np.deg2rad(theta_pos)]
+    neg_sig = (fwhm_neg[0] * GAUSSIAN_FWHM_TO_SIGMA,
+               fwhm_neg[1] * GAUSSIAN_FWHM_TO_SIGMA)
+
+    if fix_neg:
+        neg_x, neg_y = cent if cent is not None else (xcom, ycom)
+
+        def model(p):
+            amp_p, xm, ym, xs, ys, th, amp_n = p
+            pos = gaussian_2d(xg, yg, amp_p, xm, ym, xs, ys, th)
+            neg = gaussian_2d(xg, yg, amp_n * amp_p, neg_x - subx,
+                              neg_y - suby, *neg_sig, np.deg2rad(theta_neg))
+            return pos - neg
+
+        p0 = np.array(pos0 + [neg_amp])
+    else:
+        def model(p):
+            return gaussian_2d(xg, yg, *p[:6]) - gaussian_2d(xg, yg, *p[6:])
+
+        p0 = np.array(pos0 + [neg_amp * init_amplitude, xcom, ycom,
+                              *neg_sig, np.deg2rad(theta_neg)])
+
+    p, _ = _lm_fit(lambda p: model(p) - data, p0)
+    mean_x = p[1] + subx
+    mean_y = p[2] + suby
+    if debug:
+        print("centroid y =", mean_y)
+        print("centroid x =", mean_x)
+    if full_output:
+        import pandas as pd
+
+        cols = {"centroid_y": mean_y, "centroid_x": mean_x,
+                "fwhm_x": abs(p[3]) * GAUSSIAN_SIGMA_TO_FWHM,
+                "fwhm_y": abs(p[4]) * GAUSSIAN_SIGMA_TO_FWHM,
+                "amplitude": p[0], "theta": np.rad2deg(p[5])}
+        return pd.DataFrame(cols, index=[0], dtype=np.float64)
+    return mean_y, mean_x
