@@ -15,8 +15,10 @@ the injection → contrast curve → completeness path (``metrics``), the
 goldens in float32, slice 4 (NMF, LLSG, LOCI, frame differencing,
 roll subtraction, the greedy loops), slice 5 (NEGFC: the first guess
 and the MCMC of the planted companion), slice 6 (ANDROMEDA, FMMF,
-PACO), slice 7 (the 4-d IFS paths) and slice 8a (the bad-pixel filters,
-stats, subsampling, cosmetics, ``randomized_svd_gpu``, ``pca(smooth=)``).
+PACO), slice 7 (the 4-d IFS paths), slice 8a (the bad-pixel filters,
+stats, subsampling, cosmetics, ``randomized_svd_gpu``, ``pca(smooth=)``)
+and slice 8b (registration and recentering, bad-pixel correction,
+bad-frame detection).
 Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -129,7 +131,30 @@ Phases, one line each:
     1000x262144 matrix (the cube plus a decaying rank-10 structure)
     against ``ops.linalg.svd``; ``pca(ncomp=10, smooth=2)`` against
     ``pca`` then ``frame_filter_lowpass``, the companion found within
-    3 px; ``approx_stellar_position`` of a 39-channel star cube.
+    3 px; ``approx_stellar_position`` of a 39-channel star cube;
+20. slice 8b (run before the timings of 14), each step synchronized with
+    its wall time (a warm median of 3 under 1 s) and its H1 launches, each
+    batched route against its plain version (the per-frame loop of the
+    same functions, the plain median; maps equal, frames within 1e-5 of
+    max(|ref|, 1)): on the noise cube with a Moffat star jittered by up to
+    1.5 px, ``cube_recenter_dft_upsampling`` (upsample 100, ``subi_size``
+    9: one H1 launch, the shifts within 0.05 px of the jitter, the batched
+    registration within 0.01 px of the per-frame loop on 20 frames), its
+    masked variant on 100 frames, ``cube_recenter_2dfit`` ('gauss' on all
+    frames, 'moff' on 100), ``cube_recenter_via_speckles`` (101² crops,
+    5 iterations, 5 H1 launches) and once with ``recenter_median`` and the
+    annulus fit on 50 frames (its 160,000-point grid timed alone);
+    ``cube_recenter_satspots``, ``frame_center_radon`` and
+    ``cube_recenter_radon`` on 100 coronagraphic frames with four spots at
+    40 px, the Radon column-only cost against the full sinogram row; on
+    the cube with hot pixels and clumps, ``cube_fix_badpix_isolated``
+    (shared map on all frames, ``frame_by_frame`` on 100),
+    ``cube_fix_badpix_clump`` and ``cube_fix_badpix_annuli`` on 100 (recall
+    and false positives), ``cube_fix_badpix_interp`` 'fft' on 10 (nit 500;
+    float64 on the card against the per-frame loop within 1e-10, equal
+    iterations) and 'gauss' on 100, ``cube_fix_badpix_ifs`` on the star
+    cube of 19 (one H1 launch); the three bad-frame detectors on 30
+    damaged frames (elongated, dimmed, shifted), with their hits.
 
 Phase 13 also runs the F2 configuration pca_incr_adi in float64 on the
 card against the CPU's float64 frame (ROADMAP Q3-3), and phase 15
@@ -147,7 +172,8 @@ alone, with a torch.profiler table of one FMMF annulus; ``--ifs`` runs
 phase 18 alone, with torch.profiler tables of one single-pass and one
 double-pass ``pca`` call.
 ``--slice8a`` runs phase 19 alone, with torch.profiler tables of
-``cube_correct_nan`` and ``randomized_svd_gpu``.
+``cube_correct_nan`` and ``randomized_svd_gpu``; ``--slice8b`` runs
+phase 20 alone, with torch.profiler tables of its two slowest steps.
 ``--seed N`` (with any of the above) makes phase 18's sequence from seed
 N (default 0).
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
@@ -335,6 +361,41 @@ S8A_WINDOW, S8A_IUWT_FRAMES, S8A_NCOMP = 10, 100, 10
 S8A_F32_TOL, S8A_DECONV_TOL, S8A_SPECTRUM = 1e-4, 1e-4, (3.0, 1.5)
 S8A_STAR_Z, S8A_STAR_SIZE, S8A_STAR_OUTLIERS = 39, 288, [5, 17, 30]
 S8A_REPS = 3
+# Slice 8b (phase 20) on the full cube: the NACO replica's Moffat star
+# (``_moffat_psf``, FWHM S8B_FWHM) jittered by up to S8B_JITTER px a frame
+# (seed 12) over the noise cube; recovered shifts within S8B_SHIFT_TOL px
+# of the jitter; the batched registration against the per-frame loop on
+# S8B_LOOP_FRAMES frames; the masked registration (a disk of
+# S8B_MASK_RADIUS px), the Moffat fit, the per-frame bad-pixel routes and
+# the Gaussian interpolation on S8B_SUB_FRAMES frames; the speckle
+# alignment in S8B_SUBFRAME² crops, with the annulus fit on
+# S8B_ANN_FRAMES frames; S8B_SAT_FRAMES coronagraphic frames with four
+# spots (a tenth of the star) on the 'x' diagonals at S8B_SAT_SEP px,
+# jittered by up to 1 px (seed 13), S8B_RADON_FRAMES of them through
+# cube_recenter_radon (S8B_RADON_CROP² crops, centers within S8B_RADON_TOL
+# px); a static map of
+# hot pixels (S8B_HOT of all, +S8B_HOT_VALUE sigma) and S8A_CLUMPS clumps a
+# frame (+S8B_CLUMP_VALUE sigma; seed 14), the shared map found at recall
+# S8B_RECALL at least; the FFT fill on S8B_FFT_FRAMES frames; the IFS
+# correction on phase 19's star cube; S8B_BAD_FRAMES damaged frames
+S8B_FWHM, S8B_JITTER, S8B_SHIFT_TOL = 4.800919383981533, 1.5, 0.05
+S8B_LOOP_FRAMES, S8B_SUB_FRAMES, S8B_MASK_RADIUS = 20, 100, 100
+S8B_SUBFRAME, S8B_ANN_FRAMES = 101, 50
+S8B_SAT_FRAMES, S8B_SAT_SEP, S8B_RADON_FRAMES = 100, 40, 10
+S8B_RADON_TOL, S8B_RADON_CROP = 0.25, 161
+S8B_HOT, S8B_HOT_VALUE, S8B_CLUMP_VALUE, S8B_RECALL = 1e-3, 50.0, 30.0, 0.99
+S8B_FFT_FRAMES, S8B_BAD_FRAMES = 10, 30
+# shifts of a route through host fits against its per-frame route in
+# float32 (the fits see float32 rounding of another order), and the float64
+# bound of the routes compared in float64 on the card
+S8B_FIT_TOL, S8B_F64_TOL = 1e-4, 1e-10
+# the cuts of the plain-route checks (each printed): routes whose frames
+# depend on each other (a median of all) on a cube of the first
+# S8B_PLAIN_CUBE frames, per-frame loops on the first S8B_PLAIN_FRAMES,
+# the float64 FFT fill on S8B_FFT64_FRAMES, the full sinograms on a
+# S8B_RADON_GRID² grid
+S8B_PLAIN_CUBE, S8B_PLAIN_FRAMES, S8B_FFT64_FRAMES, S8B_RADON_GRID = \
+    100, 4, 3, 7
 # Q3-2 (phase 15): ipca in float32 through the kernels may stand at most
 # Q32_RATIO times as far from its float64 run on the card as the float32
 # plain route does. Q3-3 (phase 13): pca_incr_adi in float64 on the card
@@ -2649,6 +2710,618 @@ def _ifs_stages(cube, angles, scal):
                   for k, v in times.items()), flush=True)
 
 
+# ----------------------------------------------------------------------
+# Slice 8b (phase 20): registration and recentering, bad pixels, bad
+# frames
+
+
+def _step8b(name, fn, warm=True):
+    """Run ``fn`` with the counts reset just before it, synchronized, and
+    when it took under 1 s its warm median of 3: (result, counts, seconds).
+    Prints one line."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    how = "once"
+    if warm and wall < 1.0:
+        wall, how = _sync_time(fn, reps=3), "warm median of 3"
+    print(f"slice 8b {name}: {wall:.4f} s ({how}), launches H1 "
+          f"{counts['H1']}, H2 {counts['H2']}", flush=True)
+    return out, counts, wall
+
+
+def _quiet(fn):
+    """``fn`` with its standard output discarded (vip_tpu's routines print
+    unconditionally)."""
+    def run(*args, **kwargs):
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            return fn(*args, **kwargs)
+    return run
+
+
+@contextlib.contextmanager
+def _per_frame_route():
+    """The plain version of each batched route of slice 8b, for a block:
+    every ``cube_shift`` a loop of ``frame_shift``, every batched
+    bad-pixel pass (isolated, clump, annulus, FFT fill) and the satellite
+    spots' filters and stamps a loop over frames of the same function.
+    (The Radon grid's plain version, a loop of ``_radon_costf``, and the
+    IFS pair zooms', a loop of ``frame_rescaling``, are held to them
+    apart.) With ``_plain_route`` it also takes the plain median."""
+    from vip_tpu_torch.preproc import badpixremoval as bp
+    from vip_tpu_torch.preproc import recentering as rc
+
+    saved = {(rc, k): getattr(rc, k) for k in
+             ("cube_shift", "_satspots_centroids")}
+    saved.update({(bp, k): getattr(bp, k) for k in
+                  ("_isolated_frames", "_clump_frames", "_ann_removal_frames",
+                   "_fft_fill_frames")})
+
+    def orig(mod, name):
+        return saved[(mod, name)]
+
+    def cube_shift(cube, shift_y, shift_x, imlib="vip-fft", *a, **k):
+        n = cube.shape[0]
+        sy = np.broadcast_to(np.asarray(shift_y, float), (n,))
+        sx = np.broadcast_to(np.asarray(shift_x, float), (n,))
+        return torch.stack([rc.frame_shift(cube[i], sy[i], sx[i], imlib=imlib)
+                            for i in range(n)])
+
+    def satspots(frames, xys, *args):
+        outs = [orig(rc, "_satspots_centroids")(frames[i:i + 1], xys[i:i + 1],
+                                                *args)
+                for i in range(frames.shape[0])]
+        return (torch.cat([o[0] for o in outs]),
+                np.concatenate([o[1] for o in outs]),
+                np.concatenate([o[2] for o in outs]))
+
+    def isolated(frames, bpm, correct_only, sig, nn, size, protect, cys,
+                 cxs, mad, ignore_nan, excl):
+        outs = [orig(bp, "_isolated_frames")(
+            frames[i:i + 1], None if bpm is None else bpm[i:i + 1],
+            correct_only, sig, nn, size, protect, [cys[i]], [cxs[i]], mad,
+            ignore_nan, excl[i:i + 1]) for i in range(frames.shape[0])]
+        return tuple(torch.cat(o) for o in zip(*outs))
+
+    def clump(frames, cys, cxs, fwhms, *args):
+        sig, protect, seeds, excls = args[:4]
+        outs = [orig(bp, "_clump_frames")(
+            frames[i:i + 1], [cys[i]], [cxs[i]], [fwhms[i]], sig, protect,
+            seeds[i:i + 1], excls[i:i + 1], *args[4:])
+            for i in range(frames.shape[0])]
+        return tuple(torch.cat(o) for o in zip(*outs))
+
+    def annuli(frames, cys, cxs, fwhms, sig, protect, seeds, excls, *args):
+        outs = [orig(bp, "_ann_removal_frames")(
+            frames[i:i + 1], [cys[i]], [cxs[i]], [fwhms[i]], sig, protect,
+            seeds[i:i + 1], excls[i:i + 1], *args)
+            for i in range(frames.shape[0])]
+        return tuple(torch.cat(o) for o in zip(*outs))
+
+    def fft_fill(frames, masks, *args):
+        outs = [orig(bp, "_fft_fill_frames")(frames[i:i + 1],
+                                             masks[i:i + 1], *args)
+                for i in range(frames.shape[0])]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]),
+                np.concatenate([o[2] for o in outs]))
+
+    patch = {(rc, "cube_shift"): cube_shift,
+             (rc, "_satspots_centroids"): satspots,
+             (bp, "_isolated_frames"): isolated, (bp, "_clump_frames"): clump,
+             (bp, "_ann_removal_frames"): annuli,
+             (bp, "_fft_fill_frames"): fft_fill}
+    try:
+        for (mod, name), fn in patch.items():
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _s8b_star_template(stretch=1.0):
+    """The NACO replica's Moffat star (``_moffat_psf``, FWHM S8B_FWHM) at
+    the center of a SIZE² frame, optionally stretched along x, on the
+    card."""
+    size, fwhm = SIZE, S8B_FWHM
+    c = size // 2
+    psf = _moffat_psf(fwhm=fwhm)
+    if stretch != 1.0:
+        gamma = fwhm / (2.0 * np.sqrt(2.0 ** (1.0 / 2.5) - 1.0))
+        yy, xx = np.mgrid[:39, :39].astype(np.float64) - 19.0
+        psf = 1680.0 * (1.0 + (xx ** 2 / stretch ** 2 + yy ** 2)
+                        / gamma ** 2) ** (-2.5)
+    frame = torch.zeros((size, size), dtype=torch.float32, device=DEVICE)
+    frame[c - 19:c + 20, c - 19:c + 20] = torch.as_tensor(psf,
+                                                         dtype=torch.float32)
+    return frame
+
+
+def _s8b_shifted(template, jitter):
+    """``template`` shifted to each (dy, dx) of ``jitter`` (n, 2) by
+    ``fourier_shift_batch`` (pad margin 2), in chunks."""
+    from vip_tpu_torch.ops.fft import fourier_shift_batch
+
+    n = jitter.shape[0]
+    out = torch.empty((n,) + tuple(template.shape), dtype=torch.float32,
+                      device=DEVICE)
+    for s in range(0, n, 200):
+        e = min(n, s + 200)
+        out[s:e] = fourier_shift_batch(template.expand(e - s, -1, -1),
+                                       jitter[s:e, 0], jitter[s:e, 1], 2)
+    return out
+
+
+def _s8b_jitter(n, seed, amp=S8B_JITTER):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    j = (torch.rand((n, 2), generator=g, device=DEVICE) * 2 - 1) * amp
+    return j.double().cpu().numpy()
+
+
+def _s8b_hot(cube, seed):
+    """A copy of ``cube`` with a static map of hot pixels (S8B_HOT of all,
+    +S8B_HOT_VALUE, the same in every frame) and S8A_CLUMPS hot clumps of
+    3x3 to 5x5 px a frame (+S8B_CLUMP_VALUE), made on the card from a
+    seeded ``torch.Generator`` as ``_damage`` makes its NaNs. Returns the
+    copy, the static map and the clump map (bool)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n, ny, nx = cube.shape
+    static = torch.rand((ny, nx), generator=g, device=DEVICE) < S8B_HOT
+    out = cube + static * S8B_HOT_VALUE
+    k = n * S8A_CLUMPS
+    f = torch.arange(n, device=DEVICE).repeat_interleave(S8A_CLUMPS)
+    y0 = torch.randint(0, ny - 4, (k,), generator=g, device=DEVICE)
+    x0 = torch.randint(0, nx - 4, (k,), generator=g, device=DEVICE)
+    side = torch.randint(3, 6, (k,), generator=g, device=DEVICE)
+    d = torch.arange(5, device=DEVICE)
+    keep = (d[None, :, None] < side[:, None, None]) \
+        & (d[None, None, :] < side[:, None, None])
+    fi = f[:, None, None].expand(-1, 5, 5)[keep]
+    yi = (y0[:, None, None] + d[None, :, None]).expand(-1, 5, 5)[keep]
+    xi = (x0[:, None, None] + d[None, None, :]).expand(-1, 5, 5)[keep]
+    clumps = torch.zeros(cube.shape, dtype=torch.bool, device=DEVICE)
+    clumps[fi, yi, xi] = True
+    out[clumps] += S8B_CLUMP_VALUE
+    return out, static, clumps
+
+
+def _at(t0):
+    """' (t+s s)': the seconds since ``t0``, for a phase's summary lines."""
+    return f" (t+{time.perf_counter() - t0:.1f} s)"
+
+
+def _recall(found, truth):
+    """(recall, false positives) of a found map against a planted one."""
+    found, truth = found.bool(), truth.bool()
+    hit = int((found & truth).sum())
+    return hit / max(int(truth.sum()), 1), int((found & ~truth).sum())
+
+
+def _held(name, got, ref, tol=PIPE_TOL):
+    """Frames of the batched route within ``tol`` of max(|ref|, 1) of the
+    plain route's; maps equal. Returns the error."""
+    err, scale = _rel_err(got, ref)
+    _require(err <= tol * scale, f"{name}: {err:.3e} from the plain route "
+             f"(scale {scale:.3e})")
+    return err / scale
+
+
+def phase_slice8b(cube):
+    """Slice 8b at full width (see the module docstring, phase 20). Returns
+    ({name: counts}, {name: seconds})."""
+    from vip_tpu_torch.ops.registration import (dft_registration,
+                                                dft_registration_batch,
+                                                masked_register_translation)
+    from vip_tpu_torch.ops.median import nanmedian_plain
+    from vip_tpu_torch.preproc import badframes as bf
+    from vip_tpu_torch.preproc import badpixremoval as bp
+    from vip_tpu_torch.preproc import recentering as rc
+    from vip_tpu_torch.preproc import rescaling
+    from vip_tpu_torch.preproc.cosmetics import frame_crop
+
+    t_phase = time.perf_counter()
+    counts, times = {}, {}
+
+    def record(name, fn, warm=True):
+        out, c, wall = _step8b(name, fn, warm)
+        _require(c["H3"] == c["H4"] == 0, f"{name}: launches {c}")
+        counts[name], times[name] = c, wall
+        return out
+
+    n, c = cube.shape[0], SIZE // 2
+    # --- registration on a jittered star cube
+    jitter = _s8b_jitter(n, 12)
+    star = _s8b_star_template()
+    stars = cube + _s8b_shifted(star, jitter)
+
+    def dft(k=n):
+        return rc.cube_recenter_dft_upsampling(
+            stars[:k], center_fr1=(c, c), upsample_factor=100, subi_size=9,
+            fwhm=S8B_FWHM, full_output=True, verbose=False, plot=False)
+
+    rec, y, x = record("cube_recenter_dft_upsampling", dft)
+    _require(counts["cube_recenter_dft_upsampling"]["H1"] == 1,
+             "dft_upsampling: H1 launches")
+    err_truth = max(np.abs(y + jitter[:, 0]).max(),
+                    np.abs(x + jitter[:, 1]).max())
+    _require(err_truth <= S8B_SHIFT_TOL, f"dft_upsampling: shifts "
+             f"{err_truth:.4f} px from the jitter")
+    ref_f = torch.fft.fft2(stars[0])
+    loop = torch.stack([dft_registration(ref_f, torch.fft.fft2(stars[i]), 100)
+                        for i in range(1, S8B_LOOP_FRAMES + 1)])
+    batch = dft_registration_batch(stars[0], stars[1:S8B_LOOP_FRAMES + 1], 100)
+    reg_err = float((loop - batch).abs().max())
+    _require(reg_err <= 0.01 + 1e-6, f"registration: the batch {reg_err} px "
+             "from the per-frame loop")
+    # the plain route on the first S8B_PLAIN_CUBE frames (the median
+    # couples the frames: both routes run on that cube)
+    rec, y, x = dft(S8B_PLAIN_CUBE)
+    with _plain_route(), _per_frame_route():
+        ref, ry, rx = dft(S8B_PLAIN_CUBE)
+    e = _held("dft_upsampling", rec, ref)
+    _require(max(np.abs(y - ry).max(), np.abs(x - rx).max()) <= S8B_FIT_TOL,
+             "dft_upsampling: shifts differ from the plain route")
+    print(f"slice 8b cube_recenter_dft_upsampling {n}x{SIZE}^2: shifts "
+          f"within {err_truth:.4f} px of the jitter; the batched "
+          f"registration within {reg_err:.4f} px of the per-frame loop on "
+          f"{S8B_LOOP_FRAMES} frames; on {S8B_PLAIN_CUBE} frames, frames "
+          f"{e:.3e} from the plain route{_at(t_phase)}", flush=True)
+    del rec, ref
+
+    nm = S8B_SUB_FRAMES
+    yy, xx = np.mgrid[:SIZE, :SIZE]
+    mask = (yy - c) ** 2 + (xx - c) ** 2 < S8B_MASK_RADIUS ** 2
+    rec, my, mx = record("dft_upsampling mask", lambda: rc.
+                         cube_recenter_dft_upsampling(
+                             stars[:nm], mask=mask, full_output=True,
+                             verbose=False, plot=False))
+    rel = jitter[:nm] - jitter[0]
+    err_m = max(np.abs(my + rel[:, 0]).max(), np.abs(mx + rel[:, 1]).max())
+    _require(err_m <= 1.0, f"masked registration: {err_m} px")
+    one = rc.cube_recenter_dft_upsampling(stars[:5], mask=mask,
+                                          full_output=True, verbose=False,
+                                          plot=False)
+    _require(np.array_equal(one[1], my[:5]) and np.array_equal(one[2], mx[:5])
+             and all(np.array_equal(masked_register_translation(
+                 stars[0], stars[i], mask), [my[i], mx[i]])
+                 for i in range(1, 5)),
+             "masked registration: the batch differs from one frame at a time")
+    print(f"slice 8b dft_upsampling mask (r < {S8B_MASK_RADIUS} px) "
+          f"{nm} frames: integer shifts within {err_m:.3f} px of the jitter, "
+          f"the batch equal to one frame at a time", flush=True)
+    del rec
+
+    for model, nf in (("gauss", n), ("moff", nm)):
+        name = f"cube_recenter_2dfit {model}"
+        run = lambda m=model, k=nf: rc.cube_recenter_2dfit(  # noqa: E731
+            stars[:k], fwhm=S8B_FWHM, subi_size=9, model=m, full_output=True,
+            verbose=False, plot=False)
+        rec, fy, fx = record(name, run, warm=False)
+        err = max(np.abs(fy + jitter[:nf, 0]).max(),
+                  np.abs(fx + jitter[:nf, 1]).max())
+        _require(err <= S8B_SHIFT_TOL, f"{name}: {err:.4f} px")
+        msg = ""
+        if model == "moff":
+            with _plain_route(), _per_frame_route():
+                ref = run()
+            _require(np.abs(ref[1] - fy).max() <= S8B_FIT_TOL,
+                     f"{name}: shifts")
+            msg = f"; frames {_held(name, rec, ref[0]):.3e} from the plain " \
+                "route"
+        print(f"slice 8b {name} {nf} frames: shifts within {err:.4f} px of "
+              f"the jitter{msg}{_at(t_phase)}", flush=True)
+        del rec
+
+    def speckles(k=n, src=stars, **kw):
+        return rc.cube_recenter_via_speckles(
+            src[:k], subframesize=S8B_SUBFRAME, alignment_iter=5,
+            fwhm=S8B_FWHM, plot=False, full_output=True, **kw)
+
+    # the float32 run through H1; the batched route against the per-frame
+    # one in float64 on the card: in float32 a frame's registration peak
+    # may move to a neighbouring point of the 0.01 px grid between the two
+    speckles = _quiet(speckles)
+    sp = record("cube_recenter_via_speckles", speckles, warm=False)
+    stars64 = stars[:S8B_PLAIN_CUBE].double()
+    sp64 = speckles(S8B_PLAIN_CUBE, src=stars64)
+    with _plain_route(), _per_frame_route():
+        sp_ref = speckles(S8B_PLAIN_CUBE, src=stars64)
+    _require(counts["cube_recenter_via_speckles"]["H1"] == 5,
+             "speckles: H1 launches")
+    _require(np.array_equal(sp64[3], sp_ref[3])
+             and np.array_equal(sp64[4], sp_ref[4]), "speckles: shifts")
+    e = _held("speckles", sp64[0], sp_ref[0], S8B_F64_TOL)
+    del sp64, sp_ref, stars64
+    rel = jitter - jitter.mean(axis=0)
+    off = np.median(sp[4] + rel[:, 0]), np.median(sp[3] + rel[:, 1])
+    err_sp = max(np.abs(sp[4] + rel[:, 0] - off[0]).max(),
+                 np.abs(sp[3] + rel[:, 1] - off[1]).max())
+    print(f"slice 8b cube_recenter_via_speckles {n} frames (subframe "
+          f"{S8B_SUBFRAME}, 5 iterations): cumulated shifts within "
+          f"{err_sp:.4f} px of the jitter (up to a common offset "
+          f"{off[0]:.3f}, {off[1]:.3f}); on {S8B_PLAIN_CUBE} frames in "
+          f"float64 on the card, the same shifts and frames {e:.3e} from the "
+          f"per-frame route{_at(t_phase)}", flush=True)
+    _require(err_sp <= S8B_SHIFT_TOL, f"speckles: {err_sp:.4f} px")
+    del sp
+
+    record("speckles recenter_median ann", lambda: speckles(
+        S8B_ANN_FRAMES, recenter_median=True, fit_type="ann",
+        negative=False), warm=False)
+    stamp = rc._host(stars[0, c - 11:c + 12, c - 11:c + 12])
+    grid = np.arange(-2, 2, 0.01)
+    fl = record("annulus grid 160000 points", lambda: rc._annulus_flux_grid(
+        torch.as_tensor(stamp, device=DEVICE), grid, grid, [2.4], 2.4))
+    coarse = np.arange(-2, 2, 0.1)
+    g_b = rc._annulus_flux_grid(torch.as_tensor(stamp, device=DEVICE),
+                                coarse, coarse, [2.4], 2.4)[0]
+    from vip_tpu_torch.stats import frame_basic_stats
+
+    g_p = np.array([[frame_basic_stats(rc.frame_shift(
+        torch.as_tensor(stamp, device=DEVICE), yv, xv), "annulus",
+        inner_radius=2.4, size=2.4, plot=False) for yv in coarse]
+        for xv in coarse])
+    g_p = np.maximum(g_p, 0)
+    e = np.abs(g_b - g_p).max() / max(np.abs(g_p).max(), 1.0)
+    _require(e <= PIPE_TOL, f"annulus grid: {e:.3e}")
+    print(f"slice 8b annulus grid: {fl[0].size} points; the {coarse.size}² "
+          f"grid {e:.3e} from the per-point loop{_at(t_phase)}", flush=True)
+
+    # --- satellite spots and Radon
+    ns = S8B_SAT_FRAMES
+    d = S8B_SAT_SEP / np.sqrt(2)
+    spot = _s8b_star_template()
+    sat = torch.zeros_like(spot)
+    for sy, sx in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
+        sat += 0.1 * torch.roll(spot, (int(round(sy * d)), int(round(sx * d))),
+                                dims=(0, 1))
+    sjit = _s8b_jitter(ns, 13, 1.0)
+    sats = cube[:ns] + _s8b_shifted(sat, sjit)
+    xy = ((c - round(d), c - round(d)), (c + round(d), c - round(d)),
+          (c - round(d), c + round(d)), (c + round(d), c + round(d)))
+
+    def satspots():
+        np.random.seed(12)
+        return rc.cube_recenter_satspots(sats, xy, fit_type="moff",
+                                         plot=False, verbose=False,
+                                         full_output=True)
+
+    srec = record("cube_recenter_satspots", satspots, warm=False)
+    err_s = max(np.abs(srec[1] + sjit[:, 0]).max(),
+                np.abs(srec[2] + sjit[:, 1]).max())
+    _require(err_s <= S8B_SHIFT_TOL, f"satspots: {err_s:.4f} px")
+    # the per-frame route on the first S8B_PLAIN_FRAMES frames (the same
+    # first host draws)
+    k = S8B_PLAIN_FRAMES
+    with _plain_route(), _per_frame_route():
+        np.random.seed(12)
+        sref = rc.cube_recenter_satspots(sats[:k], xy, fit_type="moff",
+                                         plot=False, verbose=False,
+                                         full_output=True)
+    _require(all(np.abs(a[:k] - b).max() <= S8B_FIT_TOL
+                 for a, b in zip(srec[1:], sref[1:])),
+             "satspots: the fits differ from the per-frame route")
+    e = _held("satspots", srec[0][:k], sref[0])
+    print(f"slice 8b cube_recenter_satspots {ns} frames: the spots' centre "
+          f"within {err_s:.4f} px of the truth; on {k} frames, frames "
+          f"{e:.3e} from the per-frame route{_at(t_phase)}", flush=True)
+
+    def radon1():
+        return rc.frame_center_radon(sats[0], cropsize=S8B_RADON_CROP,
+                                     satspots_cfg="x",
+                                     full_output=True, verbose=False,
+                                     plot=False)
+
+    @_quiet
+    def radon(src):
+        return rc.cube_recenter_radon(
+            src[:S8B_RADON_FRAMES], full_output=True, verbose=False,
+            cropsize=S8B_RADON_CROP, satspots_cfg="x")
+
+    r1 = record("frame_center_radon", _quiet(radon1), warm=False)
+    rr = record("cube_recenter_radon", lambda: radon(sats), warm=False)
+    with _plain_route(), _per_frame_route():
+        rr_ref = radon(sats)
+    err_r = max(abs(r1[0] - c - sjit[0, 0]), abs(r1[1] - c - sjit[0, 1]))
+    _require(np.array_equal(rr[1], rr_ref[1])
+             and np.array_equal(rr[2], rr_ref[2]),
+             "cube_recenter_radon: shifts differ from the per-frame route")
+    e = _held("cube_recenter_radon", rr[0], rr_ref[0])
+    err_rc = max(np.abs(rr[1] - sjit[:S8B_RADON_FRAMES, 0]).max(),
+                 np.abs(rr[2] - sjit[:S8B_RADON_FRAMES, 1]).max())
+    _require(max(err_r, err_rc) <= S8B_RADON_TOL,
+             f"radon: {err_r:.3f} / {err_rc:.3f} px from the truth")
+    print(f"slice 8b frame_center_radon (crop {S8B_RADON_CROP}, 'x'): "
+          f"{err_r:.4f} px from "
+          f"the truth; cube_recenter_radon {S8B_RADON_FRAMES} frames "
+          f"{err_rc:.4f} px, frames {e:.3e} from the per-frame "
+          f"route{_at(t_phase)}", flush=True)
+    fr = frame_crop(sats[0], S8B_RADON_CROP, verbose=False)
+    half = S8B_RADON_CROP // 2
+    coords = [(a, b) for a in np.linspace(-1, 1, 21)
+              for b in np.linspace(-1, 1, 21)]
+    record("radon column-only cost 441 points", lambda: rc._radon_costs(
+        fr, half, 0, coords, "x"))
+    # against the full sinogram's row on a S8B_RADON_GRID² grid (a full
+    # sinogram a point: 441 take seconds)
+    g = np.linspace(-1, 1, S8B_RADON_GRID)
+    coords = [(a, b) for a in g for b in g]
+    col = rc._radon_costs(fr, half, 0, coords, "x")
+    t0 = time.perf_counter()
+    full = np.array([rc._radon_costf(fr, half, 0, co, "x") for co in coords])
+    t_full = time.perf_counter() - t0
+    e = np.abs(col - full).max() / np.abs(full).max()
+    _require(e <= PIPE_TOL, f"radon cost: {e:.3e}")
+    print(f"slice 8b radon cost grid {S8B_RADON_GRID}²: column-only {e:.3e} "
+          f"from the full sinogram row (the full one {t_full:.4f} s)"
+          f"{_at(t_phase)}", flush=True)
+    del sats
+
+    # --- bad pixels on the cube
+    hot, static, clumps = _s8b_hot(cube, 14)
+    truth = static[None] | clumps
+    iso = record("cube_fix_badpix_isolated shared", lambda: bp.
+                 cube_fix_badpix_isolated(hot, full_output=True,
+                                          verbose=False))
+    rcl, fp = _recall(iso[1], static)
+    _require(rcl >= S8B_RECALL, f"isolated shared: recall {rcl}")
+    with _plain_route(), _per_frame_route():
+        iso_ref = bp.cube_fix_badpix_isolated(hot, full_output=True,
+                                              verbose=False)
+    _require(torch.equal(iso[1], iso_ref[1]), "isolated shared: maps")
+    e = _held("isolated shared", iso[0], iso_ref[0])
+    print(f"slice 8b cube_fix_badpix_isolated shared map {n} frames: "
+          f"recall {rcl:.4f} of the static hot pixels, {fp} false "
+          f"positives; frames {e:.3e} from the plain route{_at(t_phase)}",
+          flush=True)
+    del iso, iso_ref
+
+    sub = hot[:nm]
+    k = S8B_PLAIN_FRAMES
+    thr = dict(min_thr=float(sub.min()) - 1, max_thr=float(sub.max()) - 1)
+    for name, run in (
+            ("cube_fix_badpix_isolated frame_by_frame", lambda f: bp.
+             cube_fix_badpix_isolated(f, frame_by_frame=True,
+                                      full_output=True, verbose=False)),
+            ("cube_fix_badpix_clump", lambda f: bp.cube_fix_badpix_clump(
+                f, full_output=True, verbose=False)),
+            ("cube_fix_badpix_annuli", lambda f: (
+                np.random.seed(12), bp.cube_fix_badpix_annuli(
+                    f, S8B_FWHM, full_output=True, verbose=False,
+                    **thr))[1])):
+        out = record(name, lambda: run(sub), warm=False)
+        # the per-frame loop on the first S8B_PLAIN_FRAMES frames
+        with _plain_route(), _per_frame_route():
+            ref = run(sub[:k])
+        _require(torch.equal(out[1][:k].bool(), ref[1].bool()),
+                 f"{name}: maps")
+        e = _held(name, out[0][:k], ref[0])
+        rcl, fp = _recall(out[1], truth[:nm])
+        print(f"slice 8b {name} {nm} frames: recall {rcl:.4f} of the planted "
+              f"hot pixels, {fp} false positives; on {k} frames, maps equal "
+              f"and frames {e:.3e} from the per-frame route{_at(t_phase)}",
+              flush=True)
+    del out, ref
+
+    nf = S8B_FFT_FRAMES
+    bpm = truth[:nf]
+    fft32 = record("cube_fix_badpix_interp fft", lambda: bp.
+                   cube_fix_badpix_interp(hot[:nf], bpm, mode="fft", nit=500,
+                                          tol=1), warm=False)
+    kf = S8B_FFT64_FRAMES
+    h64 = hot[:kf].double()
+    res, _, its = bp._fft_fill_frames(h64, bpm[:kf], 500, 1, 2, False)
+    with _per_frame_route():
+        lres, _, lits = bp._fft_fill_frames(h64, bpm[:kf], 500, 1, 2, False)
+    _require(np.array_equal(its, lits), f"fft: iterations {its} / {lits}")
+    e64 = _held("fft float64", res, lres, S8B_F64_TOL)
+    _require(bool(torch.isfinite(fft32).all()), "fft: not finite")
+    print(f"slice 8b cube_fix_badpix_interp fft {nf}x{SIZE}^2 nit 500: "
+          f"on {kf} frames in float64 on the card, iterations "
+          f"{its.tolist()} and frames {e64:.3e} from the per-frame loop"
+          f"{_at(t_phase)}", flush=True)
+    del res, lres, h64
+    gauss = record("cube_fix_badpix_interp gauss", lambda: bp.
+                   cube_fix_badpix_interp(sub, truth[:nm], mode="gauss",
+                                          fwhm=S8B_FWHM))
+    gref = torch.stack([bp.cube_fix_badpix_interp(sub[i], truth[i],
+                                                  mode="gauss",
+                                                  fwhm=S8B_FWHM)
+                        for i in range(k)])
+    e = _held("interp gauss", gauss[:k], gref)
+    print(f"slice 8b cube_fix_badpix_interp gauss {nm} frames: on {k} "
+          f"frames {e:.3e} from the per-frame loop{_at(t_phase)}", flush=True)
+    del gauss, gref, hot, sub
+
+    star_ifs = _star_cube()
+    lbdas = np.linspace(0.95, 1.35, S8A_STAR_Z)
+    found = {}
+    real_scal = rescaling.find_scal_vector
+
+    def kept_scal(*a, **k):
+        found["v"] = real_scal(*a, **k)
+        return found["v"]
+
+    rescaling.find_scal_vector = kept_scal
+    try:
+        ifs = record("cube_fix_badpix_ifs", _quiet(
+            lambda: bp.cube_fix_badpix_ifs(star_ifs, lbdas, mad=True,
+                                           full_output=True, verbose=False)),
+            warm=False)
+    finally:
+        rescaling.find_scal_vector = real_scal
+    _require(counts["cube_fix_badpix_ifs"]["H1"] == 1, "ifs: H1 launches")
+    # the residuals against the plain median of the same batched zooms
+    # (bit-equal) and of the per-pair frame_rescaling loop (the operator
+    # and the FFT forms of a zoom round apart); the clump and isolated
+    # passes on them are the per-frame routes held above
+    z = S8A_STAR_Z
+
+    def residuals(diffs):
+        stack = diffs.permute(1, 0, 2, 3).reshape(z - 1, -1, S8A_STAR_SIZE)
+        return nanmedian_plain(stack, 0, propagate=True).reshape(
+            star_ifs.shape)
+
+    res_same = residuals(bp._sdi_diffs_batched(star_ifs, *found["v"]))
+    res_plain = residuals(bp._sdi_diffs_plain(star_ifs, *found["v"], None,
+                                              "vip-fft", "lanczos4"))
+    _require(torch.equal(ifs[2], res_same), "ifs: H1 residuals")
+    e_res = _held("ifs residuals", ifs[2], res_plain)
+    del res_same, res_plain
+    patches = sum(bool(ifs[1][z, 10 + k * (S8A_STAR_SIZE // 4) + 1, 11])
+                  for k, z in enumerate(S8A_STAR_OUTLIERS))
+    print(f"slice 8b cube_fix_badpix_ifs {S8A_STAR_Z}x{S8A_STAR_SIZE}^2: "
+          f"{patches}/{len(S8A_STAR_OUTLIERS)} hot patches flagged; the "
+          f"residuals bit-equal to the plain median of the same zooms and "
+          f"{e_res:.3e} from the per-pair frame_rescaling loop{_at(t_phase)}",
+          flush=True)
+    _require(patches == len(S8A_STAR_OUTLIERS), "ifs: hot patches missed")
+    del ifs, star_ifs, stars
+
+    # --- bad frames: the star at the center of every frame, then
+    # S8B_BAD_FRAMES frames damaged: a third elongated, a third dimmed, a
+    # third shifted by 4 px
+    stride = n // S8B_BAD_FRAMES
+    kinds = (np.arange(S8B_BAD_FRAMES) * stride + stride // 2).reshape(3, -1)
+    dmg = cube + star
+    dmg[kinds[0]] = cube[kinds[0]] + _s8b_star_template(stretch=2.0)
+    dmg[kinds[1]] = cube[kinds[1]] + 0.3 * star
+    dmg[kinds[2]] = cube[kinds[2]] + _s8b_shifted(
+        star, np.tile([0.0, 4.0], (kinds.shape[1], 1)))
+    hits = {}
+    for name, run, want in (
+            ("cube_detect_badfr_pxstats", lambda: bf.cube_detect_badfr_pxstats(
+                dmg, mode="annulus", in_radius=2, width=6, top_sigma=3,
+                low_sigma=3, plot=False, verbose=False), kinds[1]),
+            ("cube_detect_badfr_ellipticity", lambda: bf.
+             cube_detect_badfr_ellipticity(dmg, fwhm=S8B_FWHM, crop_size=30,
+                                           plot=False, verbose=False),
+             kinds[0]),
+            ("cube_detect_badfr_correlation", lambda: bf.
+             cube_detect_badfr_correlation(dmg, 0, crop_size=30,
+                                           dist="pearson",
+                                           percentile=100 * S8B_BAD_FRAMES
+                                           / n,
+                                           plot=False, verbose=False),
+             np.r_[kinds[0], kinds[2]])):
+        good, bad = record(name, run)
+        got = set(bad.tolist())
+        hits[name] = {k: len(got & set(kinds[i].tolist()))
+                      for i, k in enumerate(("elongated", "dimmed",
+                                             "shifted"))}
+        _require(set(want.tolist()) <= got, f"{name}: {sorted(got)[:40]}")
+        print(f"slice 8b {name}: {len(got)} flagged; hits {hits[name]} of "
+              f"{kinds.shape[1]} each{_at(t_phase)}", flush=True)
+    print(f"slice 8b: the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts, times
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3163,6 +3836,7 @@ def main():
     invprob_counts, invprob_times = phase_invprob(pcube, angles_np)
     ifs_counts, ifs_times = phase_ifs()
     s8a_counts, s8a_times = phase_slice8a(cube, angles_np, pcube, src)
+    s8b_counts, s8b_times = phase_slice8b(cube)
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
     new_paths.update({k: v[0] for k, v in slice4.items()})
@@ -3170,6 +3844,7 @@ def main():
     new_paths.update(invprob_counts)
     new_paths.update({f"ifs {k}": v for k, v in ifs_counts.items()})
     new_paths.update({f"8a {k}": v for k, v in s8a_counts.items()})
+    new_paths.update({f"8b {k}": v for k, v in s8b_counts.items()})
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -3322,6 +3997,9 @@ def main():
         f"{k} {v:.4f}" for k, v in ifs_times.items()), flush=True)
     print("timing slice 8a (s, one run each; see the phase 19 lines): "
           + ", ".join(f"{k} {v:.4f}" for k, v in s8a_times.items()),
+          flush=True)
+    print("timing slice 8b (s; see the phase 20 lines): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in s8b_times.items()),
           flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
@@ -3481,6 +4159,41 @@ def slice8a_only():
           f"time:\n{table}", flush=True)
 
 
+def slice8b_only():
+    """Phase 20 alone (``--slice8b``): the build, the noise cube, slice 8b,
+    with torch.profiler tables of its two slowest steps."""
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    counts, times = phase_slice8b(cube)
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()),
+          flush=True)
+    from vip_tpu_torch.preproc import recentering as rc
+
+    jitter = _s8b_jitter(N_FRAMES, 12)
+    stars = cube + _s8b_shifted(_s8b_star_template(), jitter)
+    runs = {
+        "cube_recenter_via_speckles": lambda: rc.cube_recenter_via_speckles(
+            stars, subframesize=S8B_SUBFRAME, alignment_iter=5,
+            fwhm=S8B_FWHM, plot=False),
+        "cube_recenter_2dfit gauss": lambda: rc.cube_recenter_2dfit(
+            stars, fwhm=S8B_FWHM, subi_size=9, verbose=False, plot=False),
+        "cube_recenter_dft_upsampling": lambda: rc.
+        cube_recenter_dft_upsampling(stars, upsample_factor=100, subi_size=9,
+                                     fwhm=S8B_FWHM, verbose=False,
+                                     plot=False)}
+    slowest = [k for k in sorted(times, key=times.get, reverse=True)
+               if k in runs][:2]
+    for name in slowest:
+        with contextlib.redirect_stdout(sys.stderr):
+            wall, table = _profile_table(runs[name])
+        print(f"profile {name} {N_FRAMES}x{SIZE}x{SIZE}: {wall:.4f} s under "
+              f"the profiler; top ops by device time:\n{table}", flush=True)
+
+
 def kernel_digests(root):
     """SHA-256 (first 16 hex digits) of the outputs of H1 (both propagate
     modes), H2 (512² and 160²) and H3 on the inputs of phases 3-5, with the
@@ -3556,6 +4269,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--slice8a":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         slice8a_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--slice8b":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        slice8b_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

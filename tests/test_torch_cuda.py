@@ -1211,3 +1211,197 @@ def test_pca_smooth_on_the_card(cuda_device):
     err = (frames[1].cpu().double() - ref).abs().max() / max(
         float(ref.abs().max()), 1.0)
     assert err <= S8A_F32_TOL
+
+
+# Slice 8b: registration and recentering, bad pixels, bad frames. Each
+# batched route against its per-frame loop on the card (float32: maps
+# equal, frames within 1e-5 of max(|ref|, 1); the routes with an argmax or
+# a stopping test in float64, where float32 rounding could move a
+# decision), and each entry point in float64 on the card against the CPU
+# float64 mode (1e-8 of max(|ref|, 1); shifts through host fits 1e-6 px).
+S8B_F32_TOL, S8B_F64_TOL, S8B_FIT_TOL = 1e-5, 1e-8, 1e-6
+
+
+def _s8b_stars(n=10, size=64, seed=4):
+    """``n`` frames of unit noise with a Moffat star jittered by up to
+    1.5 px, and the jitter."""
+    from vip_tpu_torch.var.fit_2d import create_synth_psf
+
+    rng = np.random.default_rng(seed)
+    jit = rng.uniform(-1.5, 1.5, (n, 2))
+    c = size // 2
+    cube = np.stack([create_synth_psf("moff", (size, size), amplitude=300,
+                                      fwhm=4, x_mean=c + dx, y_mean=c + dy)
+                     for dy, dx in jit]) \
+        + rng.standard_normal((n, size, size))
+    return cube, jit
+
+
+def _s8b_hot(n=6, size=64, seed=5):
+    rng = np.random.default_rng(seed)
+    cube = rng.standard_normal((n, size, size)) + 10
+    cube[rng.random(cube.shape) < 0.005] += 40
+    cube[:, 20:23, 30:33] += 30
+    return cube
+
+
+def _rel(got, want):
+    g = got.detach().cpu().double().numpy()
+    w = want.detach().cpu().double().numpy() if isinstance(
+        want, torch.Tensor) else np.asarray(want, float)
+    return np.abs(g - w).max() / max(np.abs(w).max(), 1.0)
+
+
+def test_slice8b_registration_batch_is_the_frame_loop(cuda_device):
+    from vip_tpu_torch.ops import registration as reg
+
+    cube, _ = _s8b_stars()
+    t = torch.as_tensor(cube, dtype=torch.float32, device=cuda_device)
+    batch = reg.dft_registration_batch(t[0], t[1:], 100)
+    rf = torch.fft.fft2(t[0])
+    loop = torch.stack([reg.dft_registration(rf, torch.fft.fft2(f), 100)
+                        for f in t[1:]])
+    assert float((batch - loop).abs().max()) <= 0.01 + 1e-6
+    mask = np.zeros(cube.shape[-2:], bool)
+    mask[8:56, 8:56] = True
+    mb = reg.masked_register_translation(t[0], t[1:], mask)
+    for i in range(1, t.shape[0]):
+        np.testing.assert_array_equal(
+            reg.masked_register_translation(t[0], t[i], mask), mb[i - 1])
+
+
+def test_slice8b_badpix_batches_are_the_frame_loops(cuda_device):
+    from vip_tpu_torch.preproc import badpixremoval as bp
+
+    cube = torch.as_tensor(_s8b_hot(), dtype=torch.float32,
+                           device=cuda_device)
+    n = cube.shape[0]
+    zeros = torch.zeros(cube.shape, dtype=torch.bool, device=cuda_device)
+    c = [32] * n
+    # isolated, frame by frame
+    got = bp._isolated_frames(cube, None, False, 3, 5, 5, 0, c, c, False,
+                              True, zeros)
+    ref = [torch.cat(o) for o in zip(*[bp._isolated_frames(
+        cube[i:i + 1], None, False, 3, 5, 5, 0, [32], [32], False, True,
+        zeros[i:i + 1]) for i in range(n)])]
+    assert torch.equal(got[1], ref[1]) and _rel(got[0], ref[0]) <= \
+        S8B_F32_TOL
+    # clump
+    got = bp._clump_frames(cube, c, c, [4.0] * n, 4.0, 0, zeros, zeros,
+                           None, 15, False, True, False)
+    ref = [torch.cat(o) for o in zip(*[bp._clump_frames(
+        cube[i:i + 1], [32], [32], [4.0], 4.0, 0, zeros[i:i + 1],
+        zeros[i:i + 1], None, 15, False, True, False) for i in range(n)])]
+    assert torch.equal(got[1], ref[1]) and _rel(got[0], ref[0]) <= \
+        S8B_F32_TOL
+    # annuli: numpy's generator drawn in frame order by both
+    np.random.seed(1)
+    got = bp._ann_removal_frames(cube, c, c, [4.0] * n, 3.0, 0, zeros, zeros,
+                                 50, None, 0.0, 60.0, None, False, False)
+    np.random.seed(1)
+    ref = [torch.cat(o) for o in zip(*[bp._ann_removal_frames(
+        cube[i:i + 1], [32], [32], [4.0], 3.0, 0, zeros[i:i + 1],
+        zeros[i:i + 1], 50, None, 0.0, 60.0, None, False, False)
+        for i in range(n)])]
+    assert torch.equal(got[1], ref[1]) and _rel(got[0], ref[0]) <= \
+        S8B_F32_TOL
+    # the FFT fill in float64: each frame's iterations and frame
+    c64 = cube.double()
+    masks = cube > 30
+    res, _, its = bp._fft_fill_frames(c64, masks, 300, 1e3, 2, False)
+    for i in range(n):
+        r1, _, i1 = bp._fft_fill_frames(c64[i:i + 1], masks[i:i + 1], 300,
+                                        1e3, 2, False)
+        assert i1[0] == its[i]
+        assert _rel(res[i], r1[0]) <= 1e-10
+
+
+def test_slice8b_ifs_is_one_h1_launch(cuda_device, monkeypatch):
+    """39 channels: the 38 residuals of each in one H1 launch with
+    ``propagate=True``, bit-equal to the plain median on the same zooms;
+    the batched zooms' residuals against the per-pair ``frame_rescaling``
+    loop."""
+    from vip_tpu_torch.preproc import badpixremoval as bp
+    from vip_tpu_torch.preproc import rescaling
+
+    rng = np.random.default_rng(7)
+    z, s = 39, 48
+    lbda = np.linspace(0.95, 1.35, z)
+    yy, xx = np.mgrid[:s, :s]
+    cube = np.stack([300 * np.exp(-((yy - 24) ** 2 + (xx - 24) ** 2)
+                                  / (2 * (1.5 * lb) ** 2)) for lb in lbda])
+    cube += rng.standard_normal(cube.shape)
+    cube[5, 8:11, 8:11] += 2000
+    t = torch.as_tensor(cube, dtype=torch.float32, device=cuda_device)
+    scal = rescaling.find_scal_vector(t, lbda, [1] * z, nfp=2, fm="sum")
+    monkeypatch.setattr(rescaling, "find_scal_vector", lambda *a, **k: scal)
+    before = median.launches
+    got = bp.cube_fix_badpix_ifs(t, lbda, mad=True, full_output=True,
+                                 verbose=False)
+    torch.cuda.synchronize()
+    assert median.launches - before == 1
+    _plain_route(monkeypatch)
+    # the plain median on the same zooms: bit-equal to H1's
+    same = bp.cube_fix_badpix_ifs(t, lbda, mad=True, full_output=True,
+                                  verbose=False)
+    assert median.launches - before == 1
+    for g, r in zip(got, same):
+        assert torch.equal(g, r)
+    assert bool(got[1][5, 9, 9])
+    # the per-pair frame_rescaling loop: the same residuals to rounding
+    monkeypatch.setattr(bp, "_sdi_diffs_batched", lambda ch, sv, fv: bp.
+                        _sdi_diffs_plain(ch, sv, fv, None, "vip-fft",
+                                         "lanczos4"))
+    ref = bp.cube_fix_badpix_ifs(t, lbda, mad=True, full_output=True,
+                                 verbose=False)
+    assert _rel(got[2], ref[2]) <= S8B_F32_TOL
+
+
+def _s8b_cases():
+    """(name, run(cube as a tensor), output indices compared as shifts)."""
+    import vip_tpu_torch.preproc as tpp
+
+    mask = np.zeros((64, 64), bool)
+    mask[6:58, 6:58] = True
+    return [
+        ("cube_recenter_dft_upsampling", lambda c: tpp.
+         cube_recenter_dft_upsampling(c, subi_size=9, full_output=True,
+                                      verbose=False, plot=False), (1, 2)),
+        ("dft_upsampling mask", lambda c: tpp.cube_recenter_dft_upsampling(
+            c, mask=mask, full_output=True, verbose=False, plot=False),
+         (1, 2)),
+        ("cube_recenter_2dfit", lambda c: tpp.cube_recenter_2dfit(
+            c, subi_size=9, model="moff", full_output=True, verbose=False,
+            plot=False), (1, 2)),
+        ("cube_recenter_via_speckles", lambda c: tpp.
+         cube_recenter_via_speckles(c, subframesize=31, alignment_iter=2,
+                                    plot=False, full_output=True), (3, 4)),
+        ("cube_fix_badpix_clump", lambda c: tpp.cube_fix_badpix_clump(
+            c + 10, full_output=True, verbose=False), ()),
+        ("cube_fix_badpix_annuli", lambda c: (np.random.seed(2), tpp.
+                                              cube_fix_badpix_annuli(
+            c + 10, 4, sig=3.0, full_output=True, verbose=False))[1], ()),
+        ("cube_fix_badpix_interp fft", lambda c: tpp.cube_fix_badpix_interp(
+            c, c > 100, mode="fft", nit=100, tol=1e-3), ()),
+        ("cube_detect_badfr_ellipticity", lambda c: tpp.
+         cube_detect_badfr_ellipticity(c, 4, crop_size=20, plot=False,
+                                       verbose=False), (0, 1)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_slice8b_entry_points_on_the_card(cuda_device, case):
+    name, run, shift_idx = _s8b_cases()[case]
+    cube, _ = _s8b_stars()
+    ref = run(torch.as_tensor(cube))
+    got = run(torch.as_tensor(cube, device=cuda_device))
+    ref = list(ref) if isinstance(ref, tuple) else [ref]
+    got = list(got) if isinstance(got, tuple) else [got]
+    for k, (g, r) in enumerate(zip(got, ref)):
+        if k in shift_idx:
+            np.testing.assert_allclose(np.asarray(g, float),
+                                       np.asarray(r, float), rtol=0,
+                                       atol=S8B_FIT_TOL, err_msg=name)
+        elif isinstance(r, torch.Tensor):
+            assert g.device == cuda_device or g.is_cuda, name
+            assert _rel(g, r) <= S8B_F64_TOL, (name, k, _rel(g, r))

@@ -29,16 +29,6 @@ STILL_TO_PORT = {
                "VLT_SPHERE_IRDIS"},
         "11": {"chunked_vmap", "device_put_sharded_frames", "frame_mesh",
                "shard_cube", "sharded_frame_map"}},
-    "preproc": {
-        "8b": {"cube_detect_badfr_correlation",
-               "cube_detect_badfr_ellipticity", "cube_detect_badfr_pxstats",
-               "cube_fix_badpix_annuli", "cube_fix_badpix_clump",
-               "cube_fix_badpix_ifs", "cube_fix_badpix_interp",
-               "cube_fix_badpix_isolated", "cube_recenter_2dfit",
-               "cube_recenter_dft_upsampling", "cube_recenter_radon",
-               "cube_recenter_satspots", "cube_recenter_via_speckles",
-               "frame_center_radon", "frame_center_satspots",
-               "frame_fix_badpix_fft", "frame_fix_badpix_isolated"}},
     "metrics": {"10": {"EvalRoc"}},
     "fm": {
         "9": {"DustEllipticalDistribution2PowerLaws", "Dust_distribution",
@@ -47,6 +37,17 @@ STILL_TO_PORT = {
               "firstguess_fd", "firstguess_fd_from_coord",
               "interpolate_model"}},
 }
+
+# slice 8b's functions (ROADMAP Queue 1): none may be left
+SLICE_8B = {"cube_detect_badfr_correlation", "cube_detect_badfr_ellipticity",
+            "cube_detect_badfr_pxstats", "cube_fix_badpix_annuli",
+            "cube_fix_badpix_clump", "cube_fix_badpix_ifs",
+            "cube_fix_badpix_interp", "cube_fix_badpix_isolated",
+            "cube_recenter_2dfit", "cube_recenter_dft_upsampling",
+            "cube_recenter_radon", "cube_recenter_satspots",
+            "cube_recenter_via_speckles", "frame_center_radon",
+            "frame_center_satspots", "frame_fix_badpix_fft",
+            "frame_fix_badpix_isolated"}
 
 # slice 8a's functions (ROADMAP Queue 1): none may be left
 SLICE_8A = {"frame_or_shape", "pol_to_eq", "QU_to_QUphi", "mask_ellipse",
@@ -98,3 +99,11 @@ def test_no_slice_8a_name_is_still_to_port():
     everywhere = set().union(*(_public(f"vip_tpu_torch.{s}")
                                for s in SHARED))
     assert SLICE_8A <= everywhere, sorted(SLICE_8A - everywhere)
+
+
+def test_no_slice_8b_name_is_still_to_port():
+    waiting = set().union(*(_waiting(s) for s in SHARED))
+    assert not waiting & SLICE_8B
+    assert len(SLICE_8B) == 17
+    assert SLICE_8B <= _public("vip_tpu_torch.preproc"), \
+        sorted(SLICE_8B - _public("vip_tpu_torch.preproc"))

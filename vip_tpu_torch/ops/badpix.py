@@ -1,5 +1,5 @@
 """Bad-pixel window filters: the iterative sigma filter, the neighbour
-sigma clip and the mirror median filter (port of ``vip_tpu.ops.badpix``;
+sigma clip and scipy's median filter (port of ``vip_tpu.ops.badpix``;
 jnp code there, not Pallas).
 
 Window semantics (vip_tpu badpix.py:1-18): the box around a pixel keeps
@@ -23,12 +23,11 @@ version (``_sigma_filter_dense``); the two give the same bits.
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config.device import as_tensor
 
 __all__ = ["sigma_filter_device", "cube_sigma_filter_device",
-           "clip_neighbor_device", "median_filter_device"]
+           "clip_neighbor_device", "median_filter_device", "median_filter_at"]
 
 # The dense plain version's working set: each pixel of a chunk holds its
 # window's values, sorted values, sort indices and flags (~24 bytes a
@@ -169,18 +168,140 @@ def cube_sigma_filter_device(cube, bpix_maps, min_neighbors=3):
     return _sigma_filter_gathered(cube, bp, int(min_neighbors))
 
 
-def median_filter_device(frames, size):
-    """``scipy.ndimage.median_filter(x, size, mode="mirror")`` of the
-    frames of a tensor (any leading axes; vip_tpu badpix.py:132): mirror
-    is numpy's 'reflect' padding, and an odd ``size``² window has one
-    middle value."""
+def _pad_index(n, lo, hi, mode):
+    """Host source index of the positions -lo .. n - 1 + hi along an axis
+    of n pixels under scipy.ndimage's boundary ``mode``: 'mirror' (d c b |
+    a b c d | c b a), 'reflect' (b a | a b c d | d c) or 'nearest' (a a |
+    a b c d | d d), periodic so that any pad length works."""
+    q = np.arange(-lo, n + hi)
+    if mode == "nearest":
+        return np.clip(q, 0, n - 1)
+    if mode == "mirror":
+        if n == 1:
+            return np.zeros_like(q)
+        q = np.mod(q, 2 * n - 2)
+        return np.where(q >= n, 2 * n - 2 - q, q)
+    if mode == "reflect":
+        q = np.mod(q, 2 * n)
+        return np.where(q >= n, 2 * n - 1 - q, q)
+    raise ValueError(f"median filter mode {mode!r} not supported ('mirror',"
+                     " 'reflect' or 'nearest')")
+
+
+def _median_window(size):
+    """(lo, hi, rank) of scipy's ``median_filter`` of ``size``: the window
+    spans offsets [-lo, hi] (scipy's origin: [-s/2, s/2 - 1] for an even
+    size) and the median is the value of 0-based rank size² // 2."""
+    lo = size // 2
+    return lo, size - 1 - lo, (size * size) // 2
+
+
+def _quickselect(buf, rank):
+    """scipy.ndimage's ``NI_Select`` (ni_filters.c: Hoare partitions about
+    the first value, recursing into the side that holds ``rank``) of every
+    row of a (K, W) tensor, all rows stepped together, one pointer move a
+    row a step. On NaN-free rows it is the rank-th smallest value, as a
+    sort gives; a row with a NaN gets the value scipy's median filter
+    gives it (the comparisons with NaN are false)."""
+    buf = buf.clone()
+    K, W = buf.shape
+    dev = buf.device
+    rows = torch.arange(K, device=dev)
+    lo = torch.zeros(K, dtype=torch.long, device=dev)
+    hi = torch.full((K,), W - 1, dtype=torch.long, device=dev)
+    rk = torch.full((K,), int(rank), dtype=torch.long, device=dev)
+    ii, jj = lo - 1, hi + 1
+    x = buf[:, 0].clone()
+    # phase 1 steps jj down past values > x, phase 2 steps ii up past
+    # values < x, phase 3 swaps or picks the side that holds the rank
+    phase = torch.ones(K, dtype=torch.long, device=dev)
+    done = lo == hi
+    while not bool(done.all()):
+        p1 = ~done & (phase == 1)
+        p2 = ~done & (phase == 2)
+        p3 = ~done & (phase == 3)
+        jj = torch.where(p1, jj - 1, jj)
+        ii = torch.where(p2, ii + 1, ii)
+        vj = buf[rows, jj.clamp(0, W - 1)]
+        vi = buf[rows, ii.clamp(0, W - 1)]
+        phase = torch.where(p1 & ~(vj > x), 2, phase)
+        phase = torch.where(p2 & ~(vi < x), 3, phase)
+        swap = p3 & (ii < jj)
+        if bool(swap.any()):
+            r, a, b = rows[swap], ii[swap], jj[swap]
+            va, vb = buf[r, a].clone(), buf[r, b].clone()
+            buf[r, a], buf[r, b] = vb, va
+        phase = torch.where(swap, 1, phase)
+        split = p3 & ~swap
+        k = jj - lo + 1
+        left = split & (rk < k)
+        right = split & ~(rk < k)
+        hi = torch.where(left, jj, hi)
+        rk = torch.where(right, rk - k, rk)
+        lo = torch.where(right, jj + 1, lo)
+        done = done | (split & (lo == hi))
+        restart = split & (lo != hi)
+        x = torch.where(restart, buf[rows, lo], x)
+        ii = torch.where(restart, lo - 1, ii)
+        jj = torch.where(restart, hi + 1, jj)
+        phase = torch.where(restart, 1, phase)
+    return buf[rows, lo]
+
+
+def _window_median(win, rank):
+    """The value of rank ``rank`` of each row of (..., W) windows as
+    scipy's median filter gives it: a sort's for rows without NaN, scipy's
+    own selection (:func:`_quickselect`) for the rows with one."""
+    out = torch.sort(win, dim=-1).values[..., rank]
+    nan = torch.isnan(win).any(dim=-1)
+    if bool(nan.any()):
+        out[nan] = _quickselect(win[nan], rank)
+    return out
+
+
+def median_filter_device(frames, size, mode="mirror"):
+    """``scipy.ndimage.median_filter(x, size, mode=mode)`` of the frames
+    of a tensor (any leading axes; vip_tpu badpix.py:132) for the modes
+    'mirror', 'reflect' and 'nearest', odd and even sizes, frames smaller
+    than the window included, NaNs as scipy's selection meets them: the
+    value of rank size² // 2 of each pixel's size² window (scipy's upper
+    middle for an even size), frames in chunks whose window stacks fit
+    ``_DENSE_BYTES``."""
     frames = as_tensor(frames)
-    h = size // 2
+    size = int(size)
     ny, nx = frames.shape[-2:]
-    p = F.pad(frames.reshape(-1, 1, ny, nx), (h, h, h, h), mode="reflect")
-    win = p.unfold(2, size, 1).unfold(3, size, 1)      # (B, 1, ny, nx, s, s)
-    s = torch.sort(win.reshape(*win.shape[:4], -1), dim=-1).values
-    return s[..., (size * size) // 2].reshape(frames.shape)
+    lo, hi, rank = _median_window(size)
+    iy = torch.as_tensor(_pad_index(ny, lo, hi, mode), device=frames.device)
+    ix = torch.as_tensor(_pad_index(nx, lo, hi, mode), device=frames.device)
+    flat = frames.reshape(-1, ny, nx)
+    # each window member holds its value, the sorted value and its index
+    per_frame = ny * nx * size * size * (2 * flat.element_size() + 8)
+    chunk = max(1, min(flat.shape[0], _DENSE_BYTES // per_frame))
+    out = torch.empty_like(flat)
+    for s in range(0, flat.shape[0], chunk):
+        p = flat[s:s + chunk][:, iy[:, None], ix[None, :]]
+        win = p.unfold(1, size, 1).unfold(2, size, 1)
+        out[s:s + chunk] = _window_median(win.reshape(*win.shape[:3], -1),
+                                          rank)
+    return out.reshape(frames.shape)
+
+
+def median_filter_at(frames, b, y, x, size, mode="mirror"):
+    """The values of :func:`median_filter_device` of a (B, ny, nx) tensor
+    at the pixels (b, y, x) alone (index tensors on its device): their
+    windows gathered, as scipy's ``median_filter`` would give them there.
+    Bit-equal to the whole filter at those pixels."""
+    ny, nx = frames.shape[-2:]
+    lo, hi, rank = _median_window(int(size))
+    dev = frames.device
+    py = torch.as_tensor(_pad_index(ny, lo, hi, mode), device=dev)
+    px = torch.as_tensor(_pad_index(nx, lo, hi, mode), device=dev)
+    offs = torch.arange(int(size), device=dev)
+    wy = py[y[:, None] + offs]                      # (k, s) source rows
+    wx = px[x[:, None] + offs]
+    idx = (b[:, None, None] * (ny * nx) + wy[:, :, None] * nx
+           + wx[:, None, :]).reshape(b.shape[0], -1)
+    return _window_median(frames.reshape(-1)[idx], rank)
 
 
 def clip_neighbor_device(array, gpm_ori, lower_sigma, upper_sigma, hy, hx,
@@ -189,15 +310,34 @@ def clip_neighbor_device(array, gpm_ori, lower_sigma, upper_sigma, hy, hx,
     originally good pixel against the median ± sigma (the standard
     deviation, or the MAD with ``mad``, at least ``min_std`` with
     ``has_min_std``) of the good pixels of its inward-shifted (2hy+1,
-    2hx+1) window without itself. Returns the bad-pixel map (bool tensor),
-    the originally bad pixels True."""
+    2hx+1) window without itself. ``array`` is a frame or a batch with
+    leading frame axes (``gpm_ori`` the frame's map or one a frame); the
+    frames run in chunks whose window stacks fit ``_DENSE_BYTES``, each
+    bit-equal to its own call. Returns the bad-pixel map (bool tensor), the
+    originally bad pixels True."""
     a = _float(array)
     gpm = as_tensor(gpm_ori, a.device) != 0
-    ny, nx = a.shape
+    ny, nx = a.shape[-2:]
     flat = _window_flat(ny, nx, hy, hx, a.device)
-    wim = _windows(a, flat)
     center = flat == torch.arange(ny * nx, device=a.device).reshape(
         ny, nx, 1)
+    frames = a.reshape(-1, ny, nx)
+    gpms = gpm.reshape(-1, ny, nx).expand(frames.shape[0], -1, -1)
+    # a member's value, flag, sorted value and index, and the MAD's pass
+    per_frame = ny * nx * flat.shape[-1] * (4 * a.element_size() + 17)
+    chunk = max(1, min(frames.shape[0], _DENSE_BYTES // per_frame))
+    out = torch.empty(frames.shape, dtype=torch.bool, device=a.device)
+    for s in range(0, frames.shape[0], chunk):
+        out[s:s + chunk] = _clip_neighbor(
+            frames[s:s + chunk], gpms[s:s + chunk], flat, center,
+            lower_sigma, upper_sigma, mad, has_min_std, min_std)
+    return out.reshape(a.shape)
+
+
+def _clip_neighbor(a, gpm, flat, center, lower_sigma, upper_sigma, mad,
+                   has_min_std, min_std):
+    """:func:`clip_neighbor_device` of a (B, ny, nx) chunk."""
+    wim = _windows(a, flat)
     good = _windows(gpm, flat) & ~center
     k = good.sum(dim=-1)
     med = _masked_median(wim, good, k)

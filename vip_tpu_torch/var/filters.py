@@ -5,11 +5,11 @@ Convolutions follow the astropy.convolution semantics VIP relies on
 (normalized kernel, zero-fill boundary, NaN interpolation by the
 convolved valid-coverage map) as FFT convolutions on the image's device.
 Every filter works on the last two axes of a tensor, so a cube is
-filtered in one batched pass on its device; only the 'median' modes run
-frame by frame, through scipy's median filter on the host, as in
-vip_tpu. The 'laplacian' high-pass mode computes OpenCV's ``Laplacian``
-itself (the aperture kernel of ``ksize``, ``BORDER_REFLECT_101``, a
-float32 result). Richardson-Lucy deconvolution convolves on the device
+filtered in one batched pass on its device, the 'median' modes too
+(scipy's median filter computed on the device,
+``ops.badpix.median_filter_device``). The 'laplacian' high-pass mode
+computes OpenCV's ``Laplacian`` itself (the aperture kernel of
+``ksize``, ``BORDER_REFLECT_101``, a float32 result). Richardson-Lucy deconvolution convolves on the device
 with ``torch.fft`` where vip_tpu calls ``scipy.signal.convolve`` on the
 host (the same sums to rounding); the IUWT filter decomposes every frame
 in one batched pass (``var.iuwt``).
@@ -99,14 +99,11 @@ def _interp_remaining_nan(filtered, kernel):
 
 
 def _median_frames(array, median_size):
-    """scipy's median filter (mode 'nearest') of each frame, on the host;
-    a tensor on the array's device."""
-    from scipy.ndimage import median_filter
+    """scipy's median filter (mode 'nearest') of each frame, on the
+    array's device (``ops.badpix.median_filter_device``)."""
+    from ..ops.badpix import median_filter_device
 
-    host = array.cpu().numpy()
-    size = (1,) * (host.ndim - 2) + (median_size, median_size)
-    return torch.as_tensor(median_filter(host, size, mode="nearest"),
-                           device=array.device)
+    return median_filter_device(array, median_size, mode="nearest")
 
 
 def _lowpass(array, mode, median_size, fwhm_size, kernel_sz, psf, mask,
@@ -161,8 +158,8 @@ def _lowpass(array, mode, median_size, fwhm_size, kernel_sz, psf, mask,
 def frame_filter_lowpass(array, mode="gauss", median_size=5, fwhm_size=5,
                          conv_mode="convfft", kernel_sz=None, psf=None,
                          mask=None, iterate=True, half_res_y=False, **kwargs):
-    """Low-pass filter a frame: 'median' (scipy's median filter on the
-    host), 'gauss' or 'psf' convolution (vip_tpu filters.py:96). Returns a
+    """Low-pass filter a frame: 'median' (scipy's median filter, on the
+    device), 'gauss' or 'psf' convolution (vip_tpu filters.py:96). Returns a
     tensor on the frame's device."""
     array = as_tensor(array)
     if array.ndim != 2:
@@ -324,8 +321,8 @@ def frame_filter_highpass(array, mode, median_size=5, kernel_size=5,
 
 def cube_filter_highpass(array, mode="laplacian", verbose=True, **kwargs):
     """:func:`frame_filter_highpass` of every frame of a cube (vip_tpu
-    filters.py:281) in one batched pass on the cube's device (the
-    'median-subt' medians frame by frame on the host). Returns a tensor."""
+    filters.py:281) in one batched pass on the cube's device. Returns a
+    tensor."""
     array = as_tensor(array)
     opts = dict(median_size=5, kernel_size=5, fwhm_size=5, btw_cutoff=0.2,
                 btw_order=2, hann_cutoff=5, psf=None, conv_mode="conv",

@@ -323,16 +323,15 @@ def fit_2dairydisk(array, crop=False, cent=None, cropsize=15, fwhm=4,
     return fit["centroid_y"], fit["centroid_x"]
 
 
-def fit_2d2gaussian(array, crop=False, cent=None, cropsize=15, fwhm_neg=4,
-                    fwhm_pos=4, theta_neg=0, theta_pos=0, neg_amp=1,
-                    fix_neg=True, threshold=False, sigfactor=2, bpm=None,
-                    full_output=False, debug=True):
-    """Fit a positive minus a negative 2-d Gaussian (a coronagraphic PSF;
-    vip_tpu fit_2d.py:319). With ``fix_neg`` the negative one keeps its
-    center (``cent``, else the centroid), FWHM and angle, and only its
-    amplitude ratio is fitted. Returns the (y, x) centroid of the positive
-    Gaussian, or with ``full_output`` a one-row pandas table (pandas is
-    imported only then)."""
+def _2gauss_fit(array, crop=False, cent=None, cropsize=15, fwhm_neg=4,
+                fwhm_pos=4, theta_neg=0, theta_pos=0, neg_amp=1,
+                fix_neg=True, threshold=False, sigfactor=2, bpm=None,
+                debug=True):
+    """The fit of :func:`fit_2d2gaussian` as a dict of floats, without
+    pandas: the positive Gaussian's columns of its table, and with
+    ``fix_neg`` False the negative one's too (``centroid_y_neg``,
+    ``centroid_x_neg``, ``fwhm_x_neg``, ``fwhm_y_neg``, ``theta_neg``,
+    ``amplitude_neg``), which vip_tpu's table lacks."""
     xg, yg, data, init_amplitude, xcom, ycom, suby, subx = _fit_data(
         array, crop, cent, cropsize, threshold, sigfactor, bpm)
     if np.isscalar(fwhm_neg):
@@ -368,12 +367,36 @@ def fit_2d2gaussian(array, crop=False, cent=None, cropsize=15, fwhm_neg=4,
     if debug:
         print("centroid y =", mean_y)
         print("centroid x =", mean_x)
+    cols = {"centroid_y": mean_y, "centroid_x": mean_x,
+            "fwhm_x": abs(p[3]) * GAUSSIAN_SIGMA_TO_FWHM,
+            "fwhm_y": abs(p[4]) * GAUSSIAN_SIGMA_TO_FWHM,
+            "amplitude": p[0], "theta": np.rad2deg(p[5])}
+    if not fix_neg:
+        cols.update({"centroid_y_neg": p[8] + suby,
+                     "centroid_x_neg": p[7] + subx,
+                     "fwhm_x_neg": abs(p[9]) * GAUSSIAN_SIGMA_TO_FWHM,
+                     "fwhm_y_neg": abs(p[10]) * GAUSSIAN_SIGMA_TO_FWHM,
+                     "theta_neg": np.rad2deg(p[11]), "amplitude_neg": p[6]})
+    return cols
+
+
+def fit_2d2gaussian(array, crop=False, cent=None, cropsize=15, fwhm_neg=4,
+                    fwhm_pos=4, theta_neg=0, theta_pos=0, neg_amp=1,
+                    fix_neg=True, threshold=False, sigfactor=2, bpm=None,
+                    full_output=False, debug=True):
+    """Fit a positive minus a negative 2-d Gaussian (a coronagraphic PSF;
+    vip_tpu fit_2d.py:319). With ``fix_neg`` the negative one keeps its
+    center (``cent``, else the centroid), FWHM and angle, and only its
+    amplitude ratio is fitted. Returns the (y, x) centroid of the positive
+    Gaussian, or with ``full_output`` a one-row pandas table of vip_tpu's
+    six columns (pandas is imported only then)."""
+    fit = _2gauss_fit(array, crop, cent, cropsize, fwhm_neg, fwhm_pos,
+                      theta_neg, theta_pos, neg_amp, fix_neg, threshold,
+                      sigfactor, bpm, debug)
     if full_output:
         import pandas as pd
 
-        cols = {"centroid_y": mean_y, "centroid_x": mean_x,
-                "fwhm_x": abs(p[3]) * GAUSSIAN_SIGMA_TO_FWHM,
-                "fwhm_y": abs(p[4]) * GAUSSIAN_SIGMA_TO_FWHM,
-                "amplitude": p[0], "theta": np.rad2deg(p[5])}
+        cols = {k: fit[k] for k in ("centroid_y", "centroid_x", "fwhm_x",
+                                    "fwhm_y", "amplitude", "theta")}
         return pd.DataFrame(cols, index=[0], dtype=np.float64)
-    return mean_y, mean_x
+    return fit["centroid_y"], fit["centroid_x"]
