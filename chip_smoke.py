@@ -16,9 +16,11 @@ goldens in float32, slice 4 (NMF, LLSG, LOCI, frame differencing,
 roll subtraction, the greedy loops), slice 5 (NEGFC: the first guess
 and the MCMC of the planted companion), slice 6 (ANDROMEDA, FMMF,
 PACO), slice 7 (the 4-d IFS paths), slice 8a (the bad-pixel filters,
-stats, subsampling, cosmetics, ``randomized_svd_gpu``, ``pca(smooth=)``)
-and slice 8b (registration and recentering, bad-pixel correction,
-bad-frame detection).
+stats, subsampling, cosmetics, ``randomized_svd_gpu``, ``pca(smooth=)``),
+slice 8b (registration and recentering, bad-pixel correction,
+bad-frame detection), slice 8c (the interpolation imlibs, ``edge_blend``,
+``rot_mode="interp"``) and slice 9 (the scattered-light disk, its
+injection, NEGFD).
 Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -155,6 +157,21 @@ Phases, one line each:
     iterations) and 'gauss' on 100, ``cube_fix_badpix_ifs`` on the star
     cube of 19 (one H1 launch); the three bad-frame detectors on 30
     damaged frames (elongated, dimmed, shifted), with their hits.
+21. slices 8c and 9 (run before the timings of 14), each step
+    synchronized with its wall time and its H1, H2 and H3 launches:
+    ``cube_derotate`` of all 1000 frames with 'opencv' (lanczos4, bicubic,
+    bilinear, nearneig), 'skimage' biquintic and 'tpu-interp' bicubic,
+    each against its per-frame loop and in float32 against float64 on the
+    card; ``pca_adi_pipeline(rot_mode="interp")`` (ncomp 10, H1) against
+    the plain median; ``cube_shift`` 'opencv' lanczos4 (reflect) of all
+    frames, 'ndimage-interp' biquintic of 100 (host scipy);
+    ``cube_px_resampling`` 'opencv' at 0.5 and 1.37; ``edge_blend=
+    "noise+interp"`` on 100 frames (the blended 2048² canvases through
+    H3, held to the plain rotation); a 512² ``ScatteredLightDisk`` (HG,
+    float32 against float64), injected into all 1000 frames (H2), one
+    ``chisquare_fd`` at full depth (pca ncomp 10, 'vip-fft': H1 and H2)
+    and ``firstguess_fd`` ('skimage' / biquintic) on every 10th frame,
+    recovering the planted flux within 10%.
 
 Phase 13 also runs the F2 configuration pca_incr_adi in float64 on the
 card against the CPU's float64 frame (ROADMAP Q3-3), and phase 15
@@ -173,7 +190,9 @@ phase 18 alone, with torch.profiler tables of one single-pass and one
 double-pass ``pca`` call.
 ``--slice8a`` runs phase 19 alone, with torch.profiler tables of
 ``cube_correct_nan`` and ``randomized_svd_gpu``; ``--slice8b`` runs
-phase 20 alone, with torch.profiler tables of its two slowest steps.
+phase 20 alone, with torch.profiler tables of its two slowest steps;
+``--slice8c9`` runs phase 21 alone, with torch.profiler tables of its two
+slowest warps.
 ``--seed N`` (with any of the above) makes phase 18's sequence from seed
 N (default 0).
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
@@ -396,6 +415,27 @@ S8B_FIT_TOL, S8B_F64_TOL = 1e-4, 1e-10
 # S8B_RADON_GRID² grid
 S8B_PLAIN_CUBE, S8B_PLAIN_FRAMES, S8B_FFT64_FRAMES, S8B_RADON_GRID = \
     100, 4, 3, 7
+# Slices 8c and 9 (phase 21) on the full cube: each batched warp against
+# its per-frame loop on the first S8C_LOOP_FRAMES frames within
+# S8C_LOOP_TOL of max(|ref|, 1), and in float32 against the same call in
+# float64 on the card within S8C_F32_TOL (the bilinear float32 bound of
+# tests/test_torch_imlibs.py); the host scipy shift and edge_blend on
+# S8C_HOST_FRAMES frames; resampling at S8C_RESAMPLE. The disk: an HG
+# phase function (g S9_G) seen at S9_ITILT degrees, a = S9_A au, slopes
+# S9_AIN / S9_AOUT, at S9_DIST pc with NACO's S9_PXSCALE arcsec px,
+# S9_SLICES half slices; its float32 map within S9_DISK_TOL of its peak of
+# the float64 one; scaled to a peak of S9_PEAK, planted at flux S9_FLUX
+# (noise sigma 1) and held in the ring S9_MASK px; the first guess on
+# every S9_EVERY-th frame within S9_FLUX_TOL of the flux (the bound of
+# tests/test_fm_negfd.py:86, 0.3 on 3.0), its simplex cut to S9_SIMPLEX;
+# the χ² at the planted flux within S9_CHI_TOL of the noise cube's
+S8C_LOOP_FRAMES, S8C_LOOP_TOL, S8C_F32_TOL = 4, 1e-6, 1e-4
+S8C_HOST_FRAMES, S8C_RESAMPLE = 100, (0.5, 1.37)
+S9_G, S9_ITILT, S9_A, S9_AIN, S9_AOUT = 0.4, 70.0, 40.0, 10.0, -5.0
+S9_DIST, S9_PXSCALE, S9_SLICES, S9_DISK_TOL = 50.0, 0.01225, 25, 1e-4
+S9_PEAK, S9_FLUX, S9_MASK, S9_EVERY = 10.0, 3.0, (30, 110), 10
+S9_FLUX_TOL, S9_CHI_TOL = 0.1, 1e-3
+S9_SIMPLEX = {"xatol": 1e-3, "fatol": 1e-4, "maxiter": 60, "maxfev": 80}
 # Q3-2 (phase 15): ipca in float32 through the kernels may stand at most
 # Q32_RATIO times as far from its float64 run on the card as the float32
 # plain route does. Q3-3 (phase 13): pca_incr_adi in float64 on the card
@@ -3322,6 +3362,289 @@ def phase_slice8b(cube):
     return counts, times
 
 
+# ----------------------------------------------------------------------
+# Slices 8c and 9 (phase 21): the interpolation imlibs, then the disks
+
+
+def _step21(name, fn, warm=True):
+    """Run ``fn`` with the counts reset just before it, synchronized, and
+    when it took under 1 s its warm median of 3: (result, counts,
+    seconds). Prints one line."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    how = "once"
+    if warm and wall < 1.0:
+        wall, how = _sync_time(fn, reps=3), "warm median of 3"
+    print(f"slice 8c/9 {name}: {wall:.4f} s ({how}), launches H1 "
+          f"{counts['H1']}, H2 {counts['H2']}, H3 {counts['H3']}",
+          flush=True)
+    return out, counts, wall
+
+
+def _s9_disk(dtype=torch.float64, flux_max=None):
+    """Phase 21's disk model: ScatteredLightDisk at the cube's 512² with
+    an HG phase function (see S9_*), computed on the card."""
+    from vip_tpu_torch.fm import ScatteredLightDisk
+
+    disk = ScatteredLightDisk(
+        nx=SIZE, ny=SIZE, distance=S9_DIST, itilt=S9_ITILT,
+        pxInArcsec=S9_PXSCALE, flux_max=flux_max,
+        density_dico={'name': '2PowerLaws', 'ain': S9_AIN, 'aout': S9_AOUT,
+                      'a': S9_A, 'e': 0., 'ksi0': 1., 'gamma': 2.,
+                      'beta': 1., 'dens_at_r0': 1.},
+        spf_dico={'name': 'HG', 'g': S9_G, 'polar': False})
+    return disk.compute_scattered_light(halfNbSlices=S9_SLICES, dtype=dtype)
+
+
+def phase_slice8c9(cube, angles_np):
+    """Slices 8c and 9 at full width (see the module docstring, phase
+    21). Returns ({name: counts}, {name: seconds})."""
+    from vip_tpu_torch.fm import (chisquare_fd, cube_inject_fakedisk,
+                                  firstguess_fd)
+    from vip_tpu_torch.ops.fft import rotate_fft_batch, rotate_fft_small_plain
+    from vip_tpu_torch.ops.pipeline import pca_adi_pipeline
+    from vip_tpu_torch.preproc.derotation import (_prepad_placement,
+                                                  cube_derotate, frame_rotate)
+    from vip_tpu_torch.preproc.recentering import cube_shift, frame_shift
+    from vip_tpu_torch.preproc.rescaling import cube_px_resampling
+
+    t_phase = time.perf_counter()
+    counts, times = {}, {}
+    n = cube.shape[0]
+    angles = torch.as_tensor(angles_np, device=DEVICE)
+    four = cube[:S8C_LOOP_FRAMES]
+    four64 = four.double()
+
+    def record(name, fn, warm=True):
+        out, c, wall = _step21(name, fn, warm)
+        counts[name], times[name] = c, wall
+        return out
+
+    def against_loop(name, batched, loop, tol=S8C_LOOP_TOL):
+        """The first frames of a batched warp against the per-frame calls
+        of the same function on the card."""
+        err, scale = _rel_err(batched[:S8C_LOOP_FRAMES], loop)
+        _require(err <= tol * scale, f"{name}: {err:.3e} from its per-frame "
+                 f"loop (scale {scale:.3e})")
+        return err / scale
+
+    # --- warps of the whole cube, each held to its per-frame loop and, in
+    # float32, to the same call in float64 on the card
+    warps = [("opencv", "lanczos4"), ("opencv", "bicubic"),
+             ("opencv", "bilinear"), ("opencv", "nearneig"),
+             ("skimage", "biquintic"), ("tpu-interp", "bicubic")]
+    for imlib, intp in warps:
+        name = f"cube_derotate {imlib} {intp}"
+        kw = dict(imlib=imlib, interpolation=intp)
+        out = record(name, lambda: cube_derotate(cube, angles, **kw))
+        _require(tuple(out.shape) == tuple(cube.shape)
+                 and bool(torch.isfinite(out).all()), f"{name}: output")
+        loop = torch.stack([frame_rotate(four[i], -float(angles_np[i]), **kw)
+                            for i in range(S8C_LOOP_FRAMES)]) \
+            if imlib != "tpu-interp" else torch.cat(
+                [cube_derotate(four[i:i + 1], angles[i:i + 1], **kw)
+                 for i in range(S8C_LOOP_FRAMES)])
+        e_loop = against_loop(name, out, loop)
+        ref64 = cube_derotate(four64, angles[:S8C_LOOP_FRAMES].double(),
+                              **kw)
+        err, scale = _rel_err(out[:S8C_LOOP_FRAMES], ref64)
+        _require(err <= S8C_F32_TOL * scale, f"{name}: float32 {err:.3e} "
+                 f"from float64 on the card")
+        print(f"slice 8c {name} {n}x{SIZE}^2: per-frame loop on the first "
+              f"{S8C_LOOP_FRAMES} frames {e_loop:.3e}, float32 against "
+              f"float64 on the card {err / scale:.3e}{_at(t_phase)}",
+              flush=True)
+        del out, loop, ref64
+
+    # --- the main path of slice 8c: PCA-ADI with the interpolation
+    # rotation, its median through H1, against the plain median
+    frame = record("pca_adi_pipeline rot_mode=interp", lambda: pca_adi_pipeline(
+        cube, angles, ncomp=NCOMP, rot_mode="interp"))
+    _require(counts["pca_adi_pipeline rot_mode=interp"]["H1"] >= 1,
+             "rot_mode=interp: H1 did not launch")
+    with _plain_route():
+        plain = pca_adi_pipeline(cube, angles, ncomp=NCOMP, rot_mode="interp")
+    e_main = _held("rot_mode=interp", frame, plain)
+    print(f"slice 8c pca_adi_pipeline rot_mode=interp ncomp {NCOMP}: "
+          f"{e_main:.3e} from the plain median{_at(t_phase)}", flush=True)
+    del frame, plain
+
+    # --- shifts and resampling
+    rng = np.random.default_rng(21)
+    sy, sx = rng.uniform(-2.5, 2.5, (2, n))
+    kw = dict(imlib="opencv", interpolation="lanczos4", border_mode="reflect")
+    out = record("cube_shift opencv lanczos4", lambda: cube_shift(
+        cube, sy, sx, **kw))
+    loop = torch.stack([frame_shift(four[i], sy[i], sx[i], **kw)
+                        for i in range(S8C_LOOP_FRAMES)])
+    e_loop = against_loop("cube_shift opencv", out, loop)
+    err, scale = _rel_err(out[:S8C_LOOP_FRAMES], cube_shift(
+        four64, sy[:S8C_LOOP_FRAMES], sx[:S8C_LOOP_FRAMES], **kw))
+    _require(err <= S8C_F32_TOL * scale, "cube_shift opencv: float64")
+    print(f"slice 8c cube_shift opencv lanczos4 reflect {n} frames: "
+          f"per-frame loop {e_loop:.3e}, float64 {err / scale:.3e}"
+          f"{_at(t_phase)}", flush=True)
+    del out, loop
+    sub = cube[:S8C_HOST_FRAMES]
+    out = record("cube_shift ndimage-interp biquintic", lambda: cube_shift(
+        sub, sy[:S8C_HOST_FRAMES], sx[:S8C_HOST_FRAMES],
+        imlib="ndimage-interp", interpolation="biquintic"), warm=False)
+    _require(bool(torch.isfinite(out).all()), "ndimage-interp: output")
+    for scale_f in S8C_RESAMPLE:
+        name = f"cube_px_resampling opencv x{scale_f}"
+        out = record(name, lambda: cube_px_resampling(
+            cube, scale_f, imlib="opencv", verbose=False))
+        want = int(np.rint(SIZE * scale_f))
+        _require(tuple(out.shape) == (n, want, want), f"{name}: shape")
+        ref64 = cube_px_resampling(four64, scale_f, imlib="opencv",
+                                   verbose=False)
+        err, sc = _rel_err(out[:S8C_LOOP_FRAMES], ref64)
+        _require(err <= S8C_F32_TOL * sc, f"{name}: float64")
+        print(f"slice 8c {name}: {tuple(out.shape)}, float32 against float64"
+              f" on the card {err / sc:.3e}{_at(t_phase)}", flush=True)
+        del out, ref64
+
+    # --- edge_blend: the blended 4x canvases rotate whole through
+    # rotate_fft_batch, H3 on the card; the draws are handed in so that the
+    # per-frame loop sees the same noise
+    sub = cube[:S8C_HOST_FRAMES]
+    ny_c, nx_c = _prepad_placement(SIZE, SIZE)[:2]
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    draws = torch.randn((S8C_HOST_FRAMES, ny_c, nx_c), generator=gen,
+                        device=DEVICE)
+    out = record("cube_derotate edge_blend noise+interp", lambda:
+                 cube_derotate(sub, angles[:S8C_HOST_FRAMES],
+                               edge_blend="noise+interp", draws=draws))
+    c_blend = counts["cube_derotate edge_blend noise+interp"]
+    _require(c_blend["H3"] >= 3, "edge_blend: H3 did not launch")
+    loop = torch.stack([frame_rotate(sub[i], -float(angles_np[i]),
+                                     edge_blend="noise+interp",
+                                     draws=draws[i])
+                        for i in range(S8C_LOOP_FRAMES)])
+    e_loop = against_loop("edge_blend", out, loop, tol=ROT_TOL)
+    # H3 against the plain batched rotate_fft on blended canvases
+    canv = torch.zeros((S8C_LOOP_FRAMES, 4 * SIZE, 4 * SIZE), device=DEVICE)
+    canv[:, 3 * SIZE // 2:5 * SIZE // 2, 3 * SIZE // 2:5 * SIZE // 2] = four
+    a4 = -angles[:S8C_LOOP_FRAMES]
+    err, scale = _rel_err(rotate_fft_batch(canv, a4),
+                          rotate_fft_small_plain(canv, a4))
+    _require(err <= ROT_TOL * scale, f"rotate_fft_batch H3: {err:.3e}")
+    print(f"slice 8c edge_blend noise+interp {S8C_HOST_FRAMES} frames: "
+          f"per-frame loop {e_loop:.3e}; rotate_fft_batch on {4 * SIZE}^2 "
+          f"canvases through H3 {err / scale:.3e} from the plain version "
+          f"(ROT_TOL {ROT_TOL}){_at(t_phase)}", flush=True)
+    del out, loop, canv, draws
+
+    # --- disks: the model at 512², float32 against float64 on the card
+    disk64 = record(f"ScatteredLightDisk {SIZE}^2", lambda: _s9_disk())
+    disk32 = _s9_disk(torch.float32)
+    peak = float(disk64.max())
+    e_disk = float((disk32.double() - disk64).abs().max()) / peak
+    _require(peak > 0 and e_disk <= S9_DISK_TOL,
+             f"disk map float32: {e_disk:.3e} of its peak")
+    disk = (disk64 * (S9_PEAK / peak)).float()
+    print(f"slice 9 ScatteredLightDisk {SIZE}^2 halfNbSlices {S9_SLICES}: "
+          f"peak {peak:.4e}, float32 {e_disk:.3e} of the peak from float64"
+          f"{_at(t_phase)}", flush=True)
+    del disk32
+    injected = record("cube_inject_fakedisk", lambda: cube_inject_fakedisk(
+        disk, angles_np))
+    _require(counts["cube_inject_fakedisk"]["H2"] >= 3,
+             "cube_inject_fakedisk: H2 did not launch")
+    mask = np.zeros((SIZE, SIZE), dtype=bool)
+    yy, xx = np.mgrid[:SIZE, :SIZE]
+    r = np.hypot(yy - SIZE // 2, xx - SIZE // 2)
+    mask[(r > S9_MASK[0]) & (r < S9_MASK[1])] = True
+    dcube = cube + S9_FLUX * injected
+    del injected
+    opts = {"ncomp": NCOMP, "verbose": False}
+    chi = record("chisquare_fd pca vip-fft", lambda: chisquare_fd(
+        (S9_FLUX,), dcube, angles_np, disk, mask, (0.0, 0.0, 0.0, 1.0),
+        (1, 1, 1, 1, 0), algo_options=opts, imlib="vip-fft"))
+    c_chi = counts["chisquare_fd pca vip-fft"]
+    _require(c_chi["H1"] >= 1 and c_chi["H2"] >= 3,
+             f"chisquare_fd: launches {c_chi}")
+    # at the planted flux the model cancels the disk: the χ² of the noise
+    # cube alone, up to the float32 rounding of the subtraction
+    chi_noise = chisquare_fd((0.0,), cube, angles_np, disk, mask,
+                             (0.0, 0.0, 0.0, 1.0), (1, 1, 1, 1, 0),
+                             algo_options=opts, imlib="vip-fft")
+    chi0 = chisquare_fd((0.0,), dcube, angles_np, disk, mask,
+                        (0.0, 0.0, 0.0, 1.0), (1, 1, 1, 1, 0),
+                        algo_options=opts, imlib="vip-fft")
+    _require(abs(chi - chi_noise) <= S9_CHI_TOL * chi_noise,
+             f"chisquare_fd: {chi} at the planted flux, {chi_noise} of the "
+             f"noise alone")
+    print(f"slice 9 chisquare_fd {n}x{SIZE}^2 pca ncomp {NCOMP}: chi2r "
+          f"{chi:.6f} at the planted flux, {chi_noise:.6f} of the noise "
+          f"cube alone, {chi0:.6f} without the model{_at(t_phase)}",
+          flush=True)
+    del dcube
+    every = cube[::S9_EVERY]
+    a_every = angles_np[::S9_EVERY]
+    fg_cube = every + S9_FLUX * cube_inject_fakedisk(disk, a_every)
+    res = record("firstguess_fd skimage biquintic", lambda: firstguess_fd(
+        fg_cube, a_every, disk, mask, f_range=np.geomspace(0.5, 10, 12),
+        algo_options=opts, simplex_options=S9_SIMPLEX, verbose=False),
+        warm=False)
+    f0 = float(res[4])
+    print(f"slice 9 firstguess_fd {fg_cube.shape[0]}x{SIZE}^2 (every "
+          f"{S9_EVERY}-th frame; 'skimage' rotation, 'ndimage-interp' shift, "
+          f"biquintic; grid of 12 fluxes, then a simplex of at most "
+          f"{S9_SIMPLEX['maxfev']} evaluations): (x, y, theta, scal, f) = "
+          + ", ".join(f"{float(v):.4f}" for v in res)
+          + f", planted flux {S9_FLUX}{_at(t_phase)}", flush=True)
+    _require(abs(f0 - S9_FLUX) < S9_FLUX_TOL * S9_FLUX,
+             f"firstguess_fd: flux {f0} for {S9_FLUX}")
+    del fg_cube
+    print(f"slice 8c/9: the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts, times
+
+
+def slice8c9_only():
+    """Phase 21 alone (``--slice8c9``): the build, the noise cube, slices
+    8c and 9, with torch.profiler tables of its two slowest steps."""
+    from vip_tpu_torch.preproc.derotation import cube_derotate
+    from vip_tpu_torch.preproc.recentering import cube_shift
+
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    angles_np = np.linspace(0.0, 80.0, N_FRAMES).astype(np.float32)
+    counts, times = phase_slice8c9(cube, angles_np)
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()),
+          flush=True)
+    angles = torch.as_tensor(angles_np, device=DEVICE)
+    runs = {f"cube_derotate {i} {p}": (lambda i=i, p=p: cube_derotate(
+        cube, angles, imlib=i, interpolation=p))
+        for i, p in (("opencv", "lanczos4"), ("opencv", "bicubic"),
+                     ("opencv", "bilinear"), ("opencv", "nearneig"),
+                     ("skimage", "biquintic"), ("tpu-interp", "bicubic"))}
+    runs["cube_shift opencv lanczos4"] = lambda: cube_shift(
+        cube, 0.3, -1.7, imlib="opencv", border_mode="reflect")
+    slowest = [k for k in sorted(times, key=times.get, reverse=True)
+               if k in runs][:2]
+    for name in slowest:
+        with contextlib.redirect_stdout(sys.stderr):
+            wall, table = _profile_table(runs[name])
+        print(f"profile {name} {N_FRAMES}x{SIZE}x{SIZE}: {wall:.4f} s under "
+              f"the profiler; top ops by device time:\n{table}", flush=True)
+    others = [k for k in sorted(times, key=times.get, reverse=True)
+              if k not in runs][:2]
+    print("slowest steps without a profile table (host-bound or "
+          "once-only): " + ", ".join(f"{k} {times[k]:.4f} s"
+                                     for k in others), flush=True)
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3837,6 +4160,7 @@ def main():
     ifs_counts, ifs_times = phase_ifs()
     s8a_counts, s8a_times = phase_slice8a(cube, angles_np, pcube, src)
     s8b_counts, s8b_times = phase_slice8b(cube)
+    s89_counts, s89_times = phase_slice8c9(cube, angles_np)
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
     new_paths.update({k: v[0] for k, v in slice4.items()})
@@ -3845,6 +4169,7 @@ def main():
     new_paths.update({f"ifs {k}": v for k, v in ifs_counts.items()})
     new_paths.update({f"8a {k}": v for k, v in s8a_counts.items()})
     new_paths.update({f"8b {k}": v for k, v in s8b_counts.items()})
+    new_paths.update({f"8c/9 {k}": v for k, v in s89_counts.items()})
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -4001,6 +4326,9 @@ def main():
     print("timing slice 8b (s; see the phase 20 lines): "
           + ", ".join(f"{k} {v:.4f}" for k, v in s8b_times.items()),
           flush=True)
+    print("timing slices 8c and 9 (s; see the phase 21 lines): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in s89_times.items()),
+          flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
           f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
@@ -4065,7 +4393,8 @@ def main():
         dict(entry("rotate_fft_small_fused", "vip_tpu_torch/csrc/fft_shear.cu",
                    "vip_tpu/ops/pallas_shear.py:918", ann_counts["H3"],
                    h3_err, t_h3 * 1e3, t_h3p * 1e3, small_bound),
-             cufft_lines_ms=t_fft3),
+             cufft_lines_ms=t_fft3, launches_new_paths={
+                 k: v["H3"] for k, v in new_paths.items() if v["H3"]}),
         entry("rotate_fft_exact_fused3", "vip_tpu_torch/csrc/fft_shear3.cu",
               "vip_tpu/ops/pallas_shear.py:845", h4_counts["H4"], h4_err,
               t_h4 * 1e3, t_h2p * 1e3, exact_bound),
@@ -4273,6 +4602,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--slice8b":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         slice8b_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--slice8c9":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        slice8c9_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

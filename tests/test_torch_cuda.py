@@ -1405,3 +1405,149 @@ def test_slice8b_entry_points_on_the_card(cuda_device, case):
         elif isinstance(r, torch.Tensor):
             assert g.device == cuda_device or g.is_cuda, name
             assert _rel(g, r) <= S8B_F64_TOL, (name, k, _rel(g, r))
+
+
+# ----------------------------------------------------------------------
+# Slices 8c and 9: the batched warps, rotate_fft_batch, the disk map
+
+# a batched warp against its per-frame loop on the card (the same
+# element-wise arithmetic), and the float32 card runs against float64
+# ones (the bilinear float32 bound of tests/test_torch_imlibs.py)
+S8C_LOOP_TOL, S8C_F32_TOL = 1e-6, 1e-4
+
+
+def _s8c_frames(n=6, size=48, seed=31):
+    return np.random.default_rng(seed).standard_normal(
+        (n, size, size)).astype(np.float32)
+
+
+@pytest.mark.parametrize("imlib,interpolation", [
+    ("opencv", "lanczos4"), ("opencv", "bicubic"), ("opencv", "bilinear"),
+    ("opencv", "nearneig"), ("skimage", "biquintic"),
+    ("skimage", "biquadratic"), ("tpu-interp", "bicubic")])
+def test_slice8c_warps_are_the_frame_loops(cuda_device, imlib,
+                                           interpolation):
+    from vip_tpu_torch.preproc.derotation import cube_derotate, frame_rotate
+
+    cube = torch.as_tensor(_s8c_frames(), device=cuda_device)
+    angles = np.linspace(-70, 130, cube.shape[0])
+    kw = dict(imlib=imlib, interpolation=interpolation)
+    got = cube_derotate(cube, angles, **kw)
+    assert got.is_cuda and got.dtype == torch.float32
+    if imlib == "tpu-interp":
+        loop = torch.cat([cube_derotate(cube[i:i + 1], angles[i:i + 1], **kw)
+                          for i in range(cube.shape[0])])
+    else:
+        loop = torch.stack([frame_rotate(cube[i], -angles[i], **kw)
+                            for i in range(cube.shape[0])])
+    assert _rel(got, loop) <= S8C_LOOP_TOL
+    f64 = cube_derotate(cube.double(), angles, **kw)
+    assert _rel(got, f64) <= S8C_F32_TOL
+
+
+def test_slice8c_shift_and_resize_on_the_card(cuda_device):
+    from vip_tpu_torch.preproc.recentering import cube_shift, frame_shift
+    from vip_tpu_torch.preproc.rescaling import cube_px_resampling
+
+    cube = torch.as_tensor(_s8c_frames(), device=cuda_device)
+    sy = np.linspace(-2.3, 1.9, cube.shape[0])
+    sx = np.linspace(1.7, -0.6, cube.shape[0])
+    kw = dict(imlib="opencv", interpolation="lanczos4", border_mode="reflect")
+    got = cube_shift(cube, sy, sx, **kw)
+    loop = torch.stack([frame_shift(cube[i], sy[i], sx[i], **kw)
+                        for i in range(cube.shape[0])])
+    assert got.is_cuda and _rel(got, loop) <= S8C_LOOP_TOL
+    assert _rel(got, cube_shift(cube.double(), sy, sx, **kw)) <= S8C_F32_TOL
+    for scale in (0.5, 1.37):
+        out = cube_px_resampling(cube, scale, imlib="opencv", verbose=False)
+        ref = cube_px_resampling(cube.double(), scale, imlib="opencv",
+                                 verbose=False)
+        assert out.is_cuda and _rel(out, ref) <= S8C_F32_TOL
+
+
+@pytest.mark.parametrize("N", [256, 2048])
+def test_slice8c_rotate_fft_batch_runs_h3(cuda_device, N):
+    """rotate_fft_batch on CUDA float32 canvases that H3 takes is H3,
+    within ROT_TOL of its plain version; a float64 batch is the plain
+    version."""
+    from vip_tpu_torch.ops.fft import rotate_fft_batch
+
+    canv = torch.zeros((3, N, N), device=cuda_device)
+    canv[:, N // 4:3 * N // 4, N // 4:3 * N // 4] = torch.as_tensor(
+        _s8c_frames(3, N // 2, 32), device=cuda_device)
+    angles = torch.tensor([12.5, -100.0, 200.0])
+    before = shear.small_launches
+    got = rotate_fft_batch(canv, angles)
+    assert shear.small_launches == before + 3
+    ref = rotate_fft_small_plain(canv, angles)
+    assert _rel(got, ref) <= ROT_TOL
+    f64 = rotate_fft_batch(canv.double(), angles)
+    assert shear.small_launches == before + 3
+    assert _rel(got, f64) <= ROT_TOL
+
+
+def test_slice8c_edge_blend_on_the_card(cuda_device):
+    from vip_tpu_torch.preproc.derotation import (_prepad_placement,
+                                                  cube_derotate, frame_rotate)
+
+    cube = torch.as_tensor(_s8c_frames(4, 64), device=cuda_device)
+    angles = np.array([10.0, -35.0, 95.0, 170.0])
+    ny, nx = _prepad_placement(64, 64)[:2]
+    draws = torch.randn((4, ny, nx), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(1))
+    before = shear.small_launches
+    got = cube_derotate(cube, angles, edge_blend="noise+interp", draws=draws)
+    assert shear.small_launches > before            # 256² canvases: H3
+    loop = torch.stack([frame_rotate(cube[i], -angles[i],
+                                     edge_blend="noise+interp",
+                                     draws=draws[i]) for i in range(4)])
+    assert _rel(got, loop) <= ROT_TOL
+    f64 = cube_derotate(cube.double(), angles, edge_blend="noise+interp",
+                        draws=draws.double())
+    assert _rel(got, f64) <= 1e-4
+
+
+def test_slice9_disk_map_float32_against_float64(cuda_device):
+    from vip_tpu_torch.fm import ScatteredLightDisk
+
+    disk = ScatteredLightDisk(
+        nx=128, ny=128, distance=50., itilt=70., pxInArcsec=0.05,
+        density_dico={'name': '2PowerLaws', 'ain': 10, 'aout': -5, 'a': 40,
+                      'e': 0.1, 'ksi0': 1., 'gamma': 2., 'beta': 1.},
+        spf_dico={'name': 'HG', 'g': 0.4, 'polar': False})
+    m64 = disk.compute_scattered_light(halfNbSlices=25, device=cuda_device)
+    m32 = disk.compute_scattered_light(halfNbSlices=25, device=cuda_device,
+                                       dtype=torch.float32)
+    cpu = disk.compute_scattered_light(halfNbSlices=25, device="cpu")
+    assert m64.is_cuda and m32.dtype == torch.float32
+    peak = float(cpu.max())
+    assert float((m64.cpu() - cpu).abs().max()) <= 1e-12 * peak
+    assert float((m32.double().cpu() - cpu).abs().max()) <= 1e-4 * peak
+
+
+def test_slice9_chisquare_fd_on_the_card(cuda_device):
+    """cube_inject_fakedisk and chisquare_fd on a CUDA cube: H2 derotates
+    the model, H1 takes pca's median, and the χ² is the CPU float64 one
+    within float32 rounding of the PCA (1e-3)."""
+    from vip_tpu_torch.fm import chisquare_fd, cube_inject_fakedisk
+
+    rng = np.random.default_rng(33)
+    n, size = 40, 64
+    angles = np.linspace(0, 60, n)
+    yy, xx = np.mgrid[:size, :size]
+    r = np.hypot((yy - 32) / 0.4, xx - 32)
+    disk = np.exp(-((r - 18) / 3.0) ** 2)
+    noise = rng.standard_normal((n, size, size))
+    cube = noise + 5 * np.asarray(cube_inject_fakedisk(disk, angles))
+    mask = (np.hypot(yy - 32, xx - 32) > 8) & (np.hypot(yy - 32, xx - 32) < 28)
+    args = ((5.0,), None, angles, disk, mask, (0.0, 0.0, 0.0, 1.0),
+            (1, 1, 1, 1, 0))
+    opts = {"ncomp": 5, "verbose": False}
+    ref = chisquare_fd(args[0], torch.as_tensor(cube), *args[2:],
+                       algo_options=opts, imlib="vip-fft")
+    before = (median.launches, shear.launches)
+    got = chisquare_fd(args[0], torch.as_tensor(cube, dtype=torch.float32,
+                                                device=cuda_device),
+                       *args[2:], algo_options=opts, imlib="vip-fft")
+    assert median.launches > before[0] and shear.launches > before[1]
+    assert abs(got - ref) <= 1e-3 * ref

@@ -119,10 +119,16 @@ def test_bilinear_rotation_is_vip_tpus_opencv_call(size):
     np.testing.assert_array_equal(
         tder.frame_rotate(masks[0], 33.3, **kw).numpy(),
         jder.frame_rotate(masks[0], 33.3, **kw))
-    for other in (dict(imlib="skimage", interpolation="lanczos4"),
-                  dict(imlib="opencv", interpolation="bilinear")):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            tder.cube_derotate(masks, angles, **other)
+    # the other interpolations and the 'opencv' imlib are ported too:
+    # Lanczos at float64 is exact to rounding, the float32 path ('opencv')
+    # rounds as OpenCV's float32 arithmetic does (test_torch_imlibs.py)
+    for other, tol in ((dict(imlib="skimage", interpolation="lanczos4"),
+                        1e-12),
+                       (dict(imlib="opencv", interpolation="bilinear"),
+                        1e-4)):
+        ref = jder.cube_derotate(masks, angles, **other)
+        got = tder.cube_derotate(masks, angles, **other).numpy()
+        assert np.abs(got - ref).max() <= tol
 
 
 @pytest.mark.parametrize("kw", [dict(fwhm_size=2.0), dict(mode="median"),

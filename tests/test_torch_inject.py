@@ -94,8 +94,10 @@ def test_frame_and_cube_shift_vs_vip_tpu():
                 jrec.frame_shift(cube[0], 1.3, -2.4)) <= TOL
     assert _err(trec.cube_shift(cube, sy, sx),
                 jrec.cube_shift(cube, sy, sx)) <= TOL
-    with pytest.raises(NotImplementedError):
-        trec.frame_shift(cube[0], 1, 1, imlib="opencv")
+    # 'opencv' is ported: OpenCV's float32 Lanczos warp within float32
+    # rounding (test_torch_imlibs.py holds every interpolation and border)
+    assert _err(trec.frame_shift(cube[0], 1, 1, imlib="opencv"),
+                jrec.frame_shift(cube[0], 1, 1, imlib="opencv")) <= 1e-5
 
 
 def test_crops_vs_vip_tpu():

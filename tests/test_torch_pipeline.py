@@ -82,6 +82,11 @@ def test_median_adi_pipeline_vs_vip_tpu(cube, collapse):
 
 
 def test_interp_rotation_waits(cube):
+    """rot_mode='interp' (vip_tpu's gather rotation) is ported: the
+    pipeline gives vip_tpu's frame (test_torch_interp_rotation.py holds
+    the rotation itself at 1e-12)."""
     c, ang = cube
-    with pytest.raises(NotImplementedError):
-        pipeline.pca_adi_pipeline(c, ang, rot_mode="interp")
+    ref = jpipe.pca_adi_pipeline(jnp.asarray(c), jnp.asarray(ang), ncomp=5,
+                                 rot_mode="interp")
+    got = pipeline.pca_adi_pipeline(c, ang, ncomp=5, rot_mode="interp")
+    assert _err(got, ref) <= TOL

@@ -88,8 +88,12 @@ def test_frame_rescaling_ndimage():
 
 
 def test_opencv_waits_for_slice_8():
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tr.frame_rescaling(_frame(16), scale=1.1, imlib="opencv")
+    """'opencv' rescaling is ported: OpenCV's float32 Lanczos warp within
+    float32 rounding (test_torch_imlibs.py holds every interpolation)."""
+    fr = _frame(16)
+    ref = jr.frame_rescaling(fr.copy(), scale=1.1, imlib="opencv")
+    got = tr.frame_rescaling(fr.copy(), scale=1.1, imlib="opencv")
+    assert _err(got, ref) <= 1e-5
 
 
 @pytest.mark.parametrize("scale", [1.1, 1.3752, 0.8])

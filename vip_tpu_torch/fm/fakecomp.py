@@ -10,10 +10,11 @@ moved to the host first; results are numpy arrays. The reductions that
 inject the same cube many times (contrast curves, completeness) inject on
 the card instead, through ``ops.inject.inject_ladder_adi``.
 
-The stamps shift by 'vip-fft' (VIP's padded shift) or 'ndimage-fourier'
-(scipy's cyclic shift, NEGFC's default, ``ops.fft.cyclic_fourier_shift``),
-either one batch for all frames; the interpolating imlibs wait for
-ROADMAP Queue 1, slice 8.
+The stamps shift by 'vip-fft' (VIP's padded shift), 'ndimage-fourier'
+(scipy's cyclic shift, NEGFC's default, ``ops.fft.cyclic_fourier_shift``)
+or 'opencv' (OpenCV's float32 warp), each one batch for all frames;
+'skimage' and 'ndimage-interp' shift by scipy's spline on the host, as
+vip_tpu pairs them (fakecomp.py:112-121).
 """
 
 import numpy as np
@@ -34,9 +35,6 @@ from ..var.shapes import get_annulus_segments, get_circle
 __all__ = ["cube_inject_companions", "generate_cube_copies_with_injections",
            "frame_inject_companion", "collapse_psf_cube", "normalize_psf",
            "cube_planet_free"]
-
-_SLICE8 = "(ROADMAP.md, Queue 1, slice 8)"
-
 
 def _host(x, dtype=float):
     """Host numpy array of ``x`` (tensors leave their device)."""
@@ -73,8 +71,11 @@ def _inject_batched_subpx(array_out, fc_fr, angle_list, rad, ang, flevel,
     dsx = shift_x - shift_x.astype(int)
     if imlib_sh == "vip-fft":
         shifted = _host(fourier_shift_batch(fc_fr, dsy, dsx, 1))
-    else:
+    elif imlib_sh == "ndimage-fourier":
         shifted = _host(cyclic_fourier_shift(as_tensor(fc_fr), dsy, dsx))
+    else:
+        shifted = _host(cube_shift(as_tensor(fc_fr), dsy, dsx,
+                                   imlib=imlib_sh, border_mode="constant"))
 
     for fr in range(array_out.shape[0]):
         y0 = sty + int(shift_y[fr])
@@ -147,11 +148,15 @@ def cube_inject_companions(array, psf_template, angle_list, flevel, rad_dists,
                                                        nframes):
             raise TypeError("if not scalar `flevel` must have same length as "
                             "array")
-    if imlib in ("opencv", "skimage", "ndimage-interp"):
-        raise NotImplementedError(
-            f"cube_inject_companions: imlib {imlib!r} is not ported yet "
-            f"(only 'vip-fft' and 'ndimage-fourier') {_SLICE8}")
-    if imlib not in ("vip-fft", "ndimage-fourier"):
+    # the shift and rotation imlibs of each imlib (vip_tpu
+    # fakecomp.py:112-121)
+    if imlib == "opencv":
+        imlib_sh = imlib_rot = imlib
+    elif imlib in ("skimage", "ndimage-interp"):
+        imlib_sh, imlib_rot = "ndimage-interp", "skimage"
+    elif imlib in ("vip-fft", "ndimage-fourier"):
+        imlib_sh, imlib_rot = imlib, "vip-fft"
+    else:
         raise TypeError("Interpolation not recognized.")
 
     rad_dists = np.asarray(rad_dists).reshape(-1)
@@ -198,7 +203,7 @@ def cube_inject_companions(array, psf_template, angle_list, flevel, rad_dists,
                         psf_trans = _host(frame_rotate(
                             fc_fr_rad[0],
                             -(ang * 180 / np.pi - angle_list[0]),
-                            imlib="vip-fft", interpolation=interpolation))
+                            imlib=imlib_rot, interpolation=interpolation))
                     else:
                         fc_fr_rad = interp_trans(rad) * fc_fr
                 if transmission is not None and radial_gradient:
@@ -207,15 +212,15 @@ def cube_inject_companions(array, psf_template, angle_list, flevel, rad_dists,
                         stamp = _host(frame_rotate(
                             fc_fr_rad[fr],
                             -(ang * 180 / np.pi - angle_list[fr]),
-                            imlib="vip-fft", interpolation=interpolation))
+                            imlib=imlib_rot, interpolation=interpolation))
                         array_out[fr:fr + 1] = _inject_batched_subpx(
                             array_out[fr:fr + 1], stamp[None],
                             angle_list[fr:fr + 1], rad, ang,
-                            flevel[fr:fr + 1], imlib)
+                            flevel[fr:fr + 1], imlib_sh)
                 else:
                     array_out = _inject_batched_subpx(
                         array_out, fc_fr_rad, angle_list, rad, ang, flevel,
-                        imlib)
+                        imlib_sh)
                 pos_y = rad * np.sin(ang) + ceny
                 pos_x = rad * np.cos(ang) + cenx
                 positions.append((pos_y, pos_x))

@@ -67,8 +67,8 @@ def _inject_negative(cube, psfn, angs, r, theta, flux, imlib_sh,
     frames) array) subtracted. The 'ndimage-fourier' injection runs on the
     cube's device, channel by channel for a 4-d cube without a
     transmission; the others (a transmission of a 4-d cube, a
-    radial-gradient transmission, the interpolating imlibs, which raise
-    until slice 8) take the host injector."""
+    radial-gradient transmission, the interpolating imlibs) take the host
+    injector."""
     if cube.ndim == 4 and imlib_sh == "ndimage-fourier" \
             and transmission is None:
         psf = _host(psfn)

@@ -11,7 +11,9 @@ or LOCI coefficients), derotated and matched to the residuals.
 The P unit-companion models of an annulus are built in one batch on the
 device: one batched sub-pixel shift of the PSF stamp for every (pixel,
 frame) pair (``ops.fft.fourier_shift_batch``, the 'vip-fft' shift of
-``fm.cube_inject_companions``) and one indexed add into the annulus
+``fm.cube_inject_companions``; 'opencv' and 'skimage' shift them as that
+function pairs its imlibs, in one ``cube_shift``) and one indexed add
+into the annulus
 columns (``ops.negfc_model._place``), where vip_tpu injects a cube a
 pixel. Two forms of the per-pixel loop, as in vip_tpu
 (``VIP_TPU_FMMF_BATCHED``): the serial one derotates each pixel's n model
@@ -210,9 +212,13 @@ def _unit_models(shape, psf, angle_list, ys, xs, band, imlib, device, dtype):
     elif imlib == "ndimage-fourier":
         stamps = cyclic_fourier_shift(stamp, dsy, dsx)
     else:
-        raise NotImplementedError(
-            f"fmmf: imlib {imlib!r} is not ported yet (only 'vip-fft' and "
-            "'ndimage-fourier'; ROADMAP.md, Queue 1, slice 8)")
+        # cube_inject_companions' shift imlib for 'opencv' and 'skimage'
+        # (vip_tpu fakecomp.py:112-121): every stamp in one cube_shift
+        from ..preproc.recentering import cube_shift
+
+        imlib_sh = "opencv" if imlib == "opencv" else "ndimage-interp"
+        stamps = cube_shift(stamp.expand(P * n, *stamp.shape), dsy, dsx,
+                            imlib=imlib_sh, border_mode="constant")
     sty, stx = _stamp_origin(ny, nx, psf.shape[-1])
     col_map = torch.full((ny * nx,), -1, dtype=torch.long, device=device)
     flat = torch.as_tensor(band[0] * nx + band[1], device=device)

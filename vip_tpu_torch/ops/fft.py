@@ -17,7 +17,8 @@ cycles, where a float32 evaluation loses ~1e-4 rad.
 
 ``rotate_fft_exact_pruned`` and ``rotate_fft_small_plain`` are the plain
 versions of the CUDA shear kernels H2 and H3 in
-:mod:`vip_tpu_torch.ops.shear`.
+:mod:`vip_tpu_torch.ops.shear`. ``rotate_fft_batch`` (a batch of
+:func:`rotate_fft`) runs H3 where its gate holds.
 
 ``fourier_shift_batch`` is VIP's 'vip-fft' sub-pixel shift (pad to a
 square even canvas, FFT phase ramp, crop) over a batch of frames, each
@@ -36,7 +37,8 @@ import torch
 from ..config.device import as_tensor
 
 __all__ = ["decompose_rotation", "quad_rot90", "fft_shear", "rotate_fft",
-           "rotate_fft_exact_pruned", "rotate_fft_small_plain",
+           "rotate_fft_batch", "rotate_fft_exact_pruned",
+           "rotate_fft_small_plain",
            "rotate_fft_fast_batch", "fourier_shift", "fourier_shift_batch",
            "cyclic_fourier_shift"]
 
@@ -234,6 +236,38 @@ def rotate_fft_small_plain(cube, angles):
     z = _shear_lines(z, b, q, dim=1)
     z = _shear_lines(z, a, q, dim=2)
     return z.real.to(cube.dtype)
+
+
+def rotate_fft_batch(cube, angles):
+    """:func:`rotate_fft` of every frame of a (B, N, N) real tensor by its
+    own angle (vip_tpu fft.py:145, a vmapped ``rotate_fft``): three
+    unpruned shears over the whole canvas. A CUDA float32 batch of even
+    canvases that kernel H3's gate takes (N a multiple of 128, at most
+    2048) runs H3, which computes this function
+    (``ops.shear.rotate_fft_small_fused``); everything else takes the
+    plain batched ``torch.fft`` version, :func:`rotate_fft_small_plain` for
+    even N, the odd-canvas form of :func:`rotate_fft` for odd N."""
+    from .shear import fused_small_supported, rotate_fft_small_fused
+
+    B, N, _ = cube.shape
+    if N % 2 == 0:
+        if fused_small_supported(N, cube.dtype, cube.device):
+            return rotate_fft_small_fused(cube.contiguous(), angles)
+        return rotate_fft_small_plain(cube, angles)
+    real = _real_dtype(cube.dtype)
+    dev = cube.device
+    k, dangle = decompose_rotation(angles, real, dev)
+    work = _place_quadrants(cube, k, cube.new_empty((B, N, N)), 0, 0,
+                            shifted=False)[:, :-1, :-1]
+    a, b = _shear_coefs(angles, k, dangle)
+    q = torch.arange(N - 1, dtype=torch.float64, device=dev) - (N - 1) / 2
+    z = work.to(_complex_dtype(real))
+    z = _shear_lines(z, a, q, dim=2)
+    z = _shear_lines(z, b, q, dim=1)
+    z = _shear_lines(z, a, q, dim=2)
+    out = cube.new_zeros((B, N, N))
+    out[:, :-1, :-1] = z.real.to(cube.dtype)
+    return out
 
 
 def _packed_shear(z, c1, c2, ax, q0=None):

@@ -17,6 +17,7 @@ from ..config.device import as_tensor
 from ..preproc.derotation import _rotate_chunks
 from ..preproc.subsampling import collapse_jax
 from .fft import rotate_fft_fast_batch
+from .interp_rotation import rotate_interp_batch
 from .linalg import matrix_scaling_jax, svd_top
 from .median import nanmedian_axis0, nanmedian_plain, nanmedian_supported
 from .shear import (fused_small_supported, rotate_fft_small_fused,
@@ -37,19 +38,26 @@ def _small_shear_mode():
 def _derotate_frames(cube, angles, chunk=None, rot_mode="fft",
                      interpolation="bicubic"):
     """Derotate (rotate by -angles) a (n, y, x) tensor in chunks of
-    ``chunk`` frames. rot_mode='fft' is VIP's exact flux-preserving
-    rotation (``ops.shear.rotate_exact``); 'fft-small' the three-shear
-    rotation on a ≥1.25x canvas restricted to the inscribed circle (pixels
-    outside it come back 0): CUDA kernel H3 on a CUDA float32 tensor whose
-    128-multiple canvas passes ``fused_small_supported``, unless
+    ``chunk`` frames. rot_mode='interp' is vip_tpu's gather rotation
+    (bilinear or bicubic ``interpolation``,
+    ``ops.interp_rotation.rotate_interp_batch``); 'fft' is VIP's exact
+    flux-preserving rotation (``ops.shear.rotate_exact``); 'fft-small' the
+    three-shear rotation on a ≥1.25x canvas restricted to the inscribed
+    circle (pixels outside it come back 0): CUDA kernel H3 on a CUDA
+    float32 tensor whose 128-multiple canvas passes
+    ``fused_small_supported``, unless
     ``VIP_SMALL_SHEAR`` is "packed" (then the packed ``torch.fft`` path on
     an even-ceil canvas, as always on the CPU, as vip_tpu) or "fused3"
     (then CUDA kernel H4 on the same canvas as H3)."""
     angles = as_tensor(angles, cube.device, cube.dtype)
     if rot_mode == "interp":
-        raise NotImplementedError(
-            "rot_mode='interp' waits for the port of ops/interp_rotation.py "
-            "(ROADMAP Queue 1, slice 8)")
+        if chunk is None or chunk >= cube.shape[0]:
+            return rotate_interp_batch(cube, -angles, mode=interpolation)
+        out = torch.empty_like(cube)
+        for s in range(0, cube.shape[0], chunk):
+            out[s:s + chunk] = rotate_interp_batch(
+                cube[s:s + chunk], -angles[s:s + chunk], mode=interpolation)
+        return out
     if rot_mode == "fft":
         return _rotate_chunks(cube, -angles, chunk)
     if rot_mode != "fft-small":

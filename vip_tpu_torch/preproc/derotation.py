@@ -1,26 +1,29 @@
-"""Frame and cube derotation (port of the 'vip-fft' part of
-``vip_tpu.preproc.derotation``).
+"""Frame and cube derotation (port of ``vip_tpu.preproc.derotation``).
 
-VIP's exact rotation: the frame sits in a ~1.5x parity-preserving canvas
-inside a ~4x zero canvas, rotates by three FFT shears and is cropped back
-(vip_hci/preproc/derotation.py:129-217). Every exact rotation here goes
-through :func:`vip_tpu_torch.ops.shear.rotate_exact` (CUDA kernel H2 where
-its gate holds). The PA-threshold library selection helpers are host-side
-numpy, as in vip_tpu.
+VIP's exact rotation ('vip-fft'): the frame sits in a ~1.5x
+parity-preserving canvas inside a ~4x zero canvas, rotates by three FFT
+shears and is cropped back (vip_hci/preproc/derotation.py:129-217). Every
+exact rotation goes through :func:`vip_tpu_torch.ops.shear.rotate_exact`
+(CUDA kernel H2 where its gate holds). With ``edge_blend`` the ~1.5x
+canvas carries noise or a smooth extension of the frame, so the whole 4x
+canvas rotates (:func:`vip_tpu_torch.ops.fft.rotate_fft_batch`).
 
-The 'skimage' imlib with bilinear interpolation and a constant border
-(what VIP's greedy algorithms use to rotate their signal masks) is
-OpenCV's float64 ``warpAffine``, as vip_tpu calls it, computed on the
-tensor's device (:func:`_warp_bilinear`); its other interpolations and
-the 'opencv' imlib wait for ROADMAP Queue 1, slice 8.
+'opencv' and 'skimage' are OpenCV's ``warpAffine`` as vip_tpu calls it
+(float32 and float64 inputs take different OpenCV code paths), computed
+on the tensor's device by :mod:`vip_tpu_torch.ops.warp`; 'tpu-interp' is
+vip_tpu's own gather rotation (:mod:`vip_tpu_torch.ops.interp_rotation`).
+A cube is rotated in one batched call, never a loop over frames. The
+PA-threshold library selection helpers are host-side numpy, as in
+vip_tpu.
 """
 
 import numpy as np
 import torch
 
 from ..config.device import as_tensor
-from ..ops.fft import rotate_fft, rotate_fft_exact_pruned
+from ..ops.fft import rotate_fft, rotate_fft_batch, rotate_fft_exact_pruned
 from ..ops.shear import rotate_exact
+from ..ops.warp import VIP_INTERPOLATIONS, rotation_matrix, warp_affine
 from ..var.coords import frame_center
 
 __all__ = ["cube_derotate", "frame_rotate", "rotate_fft_pipeline",
@@ -143,99 +146,80 @@ def _rotate_chunks(cube, angles, chunk):
 
 def frame_rotate(array, angle, imlib="vip-fft", interpolation="lanczos4",
                  cxy=None, border_mode="constant", mask_val=np.nan,
-                 edge_blend=None, interp_zeros=False, ker=1):
+                 edge_blend=None, interp_zeros=False, ker=1, *, draws=None,
+                 generator=None):
     """Rotate a 2-d frame by ``angle`` degrees counter-clockwise (vip_tpu
-    derotation.py:172). Only 'vip-fft' without ``edge_blend`` is ported:
-    masked values (non-finite, or ``mask_val``) rotate as zeros and are
-    reset afterwards."""
+    derotation.py:172).
+
+    'vip-fft': VIP's exact rotation; masked values (non-finite, or
+    ``mask_val``) rotate as zeros and are reset afterwards. With
+    ``edge_blend`` ('noise', 'interp' or both) the frame is first set in a
+    blended ~1.5x canvas (:func:`_blend_rotate`); the noise is
+    ``draws`` (standard normal, the canvas's shape) or drawn from
+    ``generator`` (default: a ``torch.Generator`` seeded 0).
+    'opencv' / 'skimage': OpenCV's ``warpAffine`` about ``cxy`` (default
+    the frame center) as vip_tpu calls it, computed by
+    :func:`vip_tpu_torch.ops.warp.warp_affine` (float32 and float64 code
+    paths); ``mask_val`` and ``edge_blend`` do not apply there, as in
+    vip_tpu."""
     array = as_tensor(array)
     if array.ndim != 2:
         raise TypeError("Input array is not a frame or 2d array")
-    if _interp_supported(imlib, interpolation, border_mode, cxy):
-        return _warp_bilinear(array[None], [float(angle)])[0]
-    if imlib != "vip-fft" or edge_blend:
+    if imlib == "vip-fft":
+        if cxy is not None and tuple(cxy)[::-1] != frame_center(array):
+            raise ValueError("'vip-fft' imlib does not allow custom centers")
+        angles = np.asarray([float(angle)])
+        if edge_blend:
+            if draws is not None:
+                draws = as_tensor(draws, array.device, array.dtype)[None]
+            return _blend_rotate(array[None], angles, mask_val, edge_blend,
+                                 interp_zeros, ker, draws, generator)[0]
+        mask = _mask_of(array, mask_val)
+        work = torch.nan_to_num(array)
+        out = rotate_exact(work[None], torch.as_tensor(angles))[0]
+        return out.masked_fill(mask, mask_val)
+    if imlib in ("opencv", "skimage"):
+        return _warp_rotate(array[None], [float(angle)], imlib,
+                            interpolation, cxy, border_mode)[0]
+    raise ValueError(f"imlib {imlib!r} not supported (use 'vip-fft', "
+                     "'opencv' or 'skimage')")
+
+
+# vip_tpu's names of OpenCV's interpolations and borders for rotations
+# (derotation.py:214-222)
+_CV_INTERP = dict(VIP_INTERPOLATIONS, biquadratic="cubic",
+                  biquartic="lanczos4", biquintic="lanczos4")
+_CV_BORDER = {"constant": "constant", "edge": "replicate",
+              "symmetric": "reflect", "reflect": "reflect101",
+              "wrap": "wrap"}
+
+
+def _warp_rotate(cube, angles, imlib, interpolation, cxy, border_mode):
+    """Frame i of a (n, y, x) tensor rotated by ``angles[i]`` (degrees,
+    counter-clockwise) about ``cxy`` (default the frame center) as
+    vip_tpu's 'opencv' (float32: the frames are rounded to float32 first)
+    or 'skimage' (float64) imlib calls OpenCV's ``warpAffine``: one
+    batched :func:`~vip_tpu_torch.ops.warp.warp_affine`."""
+    if interpolation not in _CV_INTERP:
         raise NotImplementedError(
-            "frame_rotate: only imlib='vip-fft' without edge_blend is "
-            "ported (ROADMAP Queue 1, slice 8)")
-    if cxy is not None and tuple(cxy)[::-1] != frame_center(array):
-        raise ValueError("'vip-fft' imlib does not allow custom centers")
-    mask = _mask_of(array, mask_val)
-    work = torch.nan_to_num(array)
-    angles = torch.tensor([float(angle)], dtype=torch.float64)
-    out = rotate_exact(work[None], angles)[0]
-    return out.masked_fill(mask, mask_val)
-
-
-# frames a chunk of the bilinear warp: its int64 source coordinates take
-# about 40 bytes a pixel
-_WARP_CHUNK_BYTES = 1 << 30
-
-
-def _warp_bilinear(cube, angles):
-    """Each frame of a (n, y, x) tensor rotated by its angle (degrees,
-    counter-clockwise) about the frame center, as OpenCV's
-    ``warpAffine(frame, getRotationMatrix2D((cx, cy), angle, 1), (x, y),
-    INTER_LINEAR, BORDER_CONSTANT)`` computes it: the inverse map in
-    fixed point (1/1024 rounded to nearest even, then 1/32 steps), the
-    four taps weighted by the 1/32 fractions, zeros outside."""
+            f"imlib {imlib!r}: interpolation {interpolation!r} is not one of "
+            f"{sorted(_CV_INTERP)}")
+    if border_mode not in _CV_BORDER:
+        raise NotImplementedError(
+            f"imlib {imlib!r}: border mode {border_mode!r} is not one of "
+            f"{sorted(_CV_BORDER)}")
     n, y, x = cube.shape
-    cy, cx = frame_center((y, x))
-    t = np.deg2rad(np.asarray(angles, dtype=np.float64))
-    alpha, beta = np.cos(t), np.sin(t)
-    m02 = (1 - alpha) * cx - beta * cy
-    m12 = beta * cx + (1 - alpha) * cy
-    # cv2.invertAffineTransform of [[a, b, m02], [-b, a, m12]]
-    d = alpha * alpha + beta * beta
-    d = np.where(d != 0, 1.0 / d, 0.0)
-    a11, a12, a21, a22 = alpha * d, -beta * d, beta * d, alpha * d
-    b1 = -a11 * m02 - a12 * m12
-    b2 = -a21 * m02 - a22 * m12
-    scale, half = 1024, 1024 // 32 // 2
-    xs, ys = np.arange(x), np.arange(y)
-    adelta = np.rint(a11[:, None] * xs * scale).astype(np.int64)
-    bdelta = np.rint(a21[:, None] * xs * scale).astype(np.int64)
-    x0 = np.rint((a12[:, None] * ys + b1[:, None]) * scale).astype(
-        np.int64) + half
-    y0 = np.rint((a22[:, None] * ys + b2[:, None]) * scale).astype(
-        np.int64) + half
-    dev = cube.device
-    out = torch.empty_like(cube)
-    step = int(max(1, _WARP_CHUNK_BYTES // (40 * y * x)))
-    for s in range(0, n, step):
-        sl = slice(s, min(n, s + step))
-        X = (torch.as_tensor(x0[sl], device=dev)[:, :, None]
-             + torch.as_tensor(adelta[sl], device=dev)[:, None, :]) >> 5
-        Y = (torch.as_tensor(y0[sl], device=dev)[:, :, None]
-             + torch.as_tensor(bdelta[sl], device=dev)[:, None, :]) >> 5
-        fx = (X & 31).to(cube.dtype) / 32
-        fy = (Y & 31).to(cube.dtype) / 32
-        ix, iy = X >> 5, Y >> 5
-        flat = cube[sl].reshape(ix.shape[0], -1)
-
-        def tap(yy, xx):
-            ok = (yy >= 0) & (yy < y) & (xx >= 0) & (xx < x)
-            idx = (yy.clamp(0, y - 1) * x + xx.clamp(0, x - 1)).reshape(
-                ix.shape[0], -1)
-            v = flat.gather(1, idx).reshape(ix.shape)
-            return torch.where(ok, v, 0.0)
-
-        out[sl] = ((1 - fy) * (1 - fx) * tap(iy, ix)
-                   + (1 - fy) * fx * tap(iy, ix + 1)
-                   + fy * (1 - fx) * tap(iy + 1, ix)
-                   + fy * fx * tap(iy + 1, ix + 1))
-    return out
-
-
-def _interp_supported(imlib, interpolation, border_mode, cxy):
-    if imlib != "skimage":
-        return False
-    if interpolation != "bilinear" or border_mode != "constant" \
-            or cxy is not None:
-        raise NotImplementedError(
-            "imlib 'skimage': only bilinear interpolation with a constant "
-            "border about the frame center is ported (ROADMAP Queue 1, "
-            "slice 8)")
-    return True
+    if cxy is None:
+        cy, cx = frame_center((y, x))
+    else:
+        cx, cy = cxy
+    path = "float32" if imlib == "opencv" else "float64"
+    if path == "float32":
+        cube = cube.to(torch.float32).to(cube.dtype)
+    M = rotation_matrix(cx, cy, np.broadcast_to(
+        np.asarray(angles, np.float64), (n,)))
+    return warp_affine(cube, M, (y, x), _CV_INTERP[interpolation],
+                       _CV_BORDER[border_mode], path)
 
 
 def _mask_of(array, mask_val):
@@ -244,20 +228,175 @@ def _mask_of(array, mask_val):
     return array == mask_val
 
 
+def _nanstd_rows(v):
+    """np.std (ddof 0) of the finite values of each row of (B, P)."""
+    fin = torch.isfinite(v)
+    c = fin.sum(1)
+    z = torch.where(fin, v, 0.0)
+    m = z.sum(1) / c
+    d = torch.where(fin, v - m[:, None], 0.0)
+    return torch.sqrt((d * d).sum(1) / c)
+
+
+def _background_med_std(values, sigma=1.5, max_iter=5):
+    """Median and std of the finite values of each frame of (B, ...) after
+    iterative sigma clipping about the median (vip_tpu derotation.py:
+    249): a frame stops when a pass keeps all its values or none; frames
+    that stopped keep their values while the others go on. (B,) each."""
+    from ..ops.median import nanmedian_plain
+
+    v = values.reshape(values.shape[0], -1).clone()
+    active = torch.ones(v.shape[0], dtype=torch.bool, device=v.device)
+    for _ in range(max_iter):
+        med, std = nanmedian_plain(v, 1), _nanstd_rows(v)
+        fin = torch.isfinite(v)
+        keep = fin & ((v - med[:, None]).abs() < sigma * std[:, None])
+        stop = (keep == fin).all(1) | ~keep.any(1)
+        active = active & ~stop
+        if not bool(active.any()):
+            break
+        v = torch.where(active[:, None] & ~keep, float("nan"), v)
+    return nanmedian_plain(v, 1), _nanstd_rows(v)
+
+
+def _masked_gauss_smooth(sparse, fwhm):
+    """NaN-aware gaussian smoothing of (B, y, x) frames, one batched FFT
+    convolution each of the values and of their coverage (vip_tpu
+    derotation.py:308): (smooth, covered), ``covered`` False where the
+    valid pixels contribute negligible kernel weight (< 1e-8). The
+    convolutions run in float64 whatever the frames' dtype: a float32 FFT
+    leaves ~1e-7 of rounding in the coverage far beyond the kernel's
+    reach, which the 1e-8 threshold would take for weight."""
+    from ..var.filters import (GAUSSIAN_FWHM_TO_SIGMA, _fft_convolve_same,
+                               gaussian_kernel_2d)
+
+    sigma = fwhm * GAUSSIAN_FWHM_TO_SIGMA
+    kernel = torch.as_tensor(gaussian_kernel_2d(sigma, sigma),
+                             dtype=torch.float64, device=sparse.device)
+    finite = torch.isfinite(sparse)
+    values = torch.where(finite, sparse, 0.0).to(torch.float64)
+    num = _fft_convolve_same(values, kernel)
+    den = _fft_convolve_same(finite.to(torch.float64), kernel)
+    covered = den > 1e-8
+    smooth = torch.where(covered, num / torch.where(covered, den, 1.0), 0.0)
+    return smooth.to(sparse.dtype), covered
+
+
+def _edge_blend_canvas(frame_nan, mode, ker, draws, generator):
+    """The ~1.5x Gibbs-mitigation canvases of (B, y, x) frames carrying
+    NaN at every invalid pixel (vip_tpu derotation.py:263): 'noise' fills
+    the ring with sigma-clipped background noise (``level + std · z``, z
+    standard normal from ``draws`` or ``generator``), 'interp' extends the
+    frame smoothly into the ring with a NaN-aware gaussian convolution;
+    with both, the smooth halo rides on zero-mean noise. Returns the
+    canvases and the (y0, x0) of the frame in them."""
+    B, y_ori, x_ori = frame_nan.shape
+    new_y, new_x, y0, y1, x0, x1 = _prepad_placement(y_ori, x_ori)
+    dev, dt = frame_nan.device, frame_nan.dtype
+    holes = ~torch.isfinite(frame_nan)
+    with_noise = "noise" in mode
+    with_interp = "interp" in mode
+
+    if with_noise:
+        med, std = _background_med_std(frame_nan)
+        level = torch.zeros_like(med) if with_interp else med
+        if draws is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            draws = torch.randn((B, new_y, new_x), generator=generator,
+                                dtype=dt, device=generator.device)
+        z = torch.as_tensor(draws, dtype=dt).to(dev)
+        canvas = level[:, None, None] + std[:, None, None] * z
+    else:
+        canvas = frame_nan.new_zeros((B, new_y, new_x))
+    interior = canvas[:, y0:y1, x0:x1]
+    canvas[:, y0:y1, x0:x1] = torch.where(holes, interior, frame_nan)
+
+    if with_interp:
+        sparse = torch.full((B, new_y, new_x), float("nan"), dtype=dt,
+                            device=dev)
+        sparse[:, y0:y1, x0:x1] = frame_nan
+        halo, covered = _masked_gauss_smooth(sparse, ker if ker
+                                             else y_ori / 5)
+        ring = torch.ones((new_y, new_x), dtype=torch.bool, device=dev)
+        ring[y0:y1, x0:x1] = False
+        hole_canvas = torch.zeros((B, new_y, new_x), dtype=torch.bool,
+                                  device=dev)
+        hole_canvas[:, y0:y1, x0:x1] = holes
+        if with_noise:
+            local, local_cov = _masked_gauss_smooth(sparse, 1)
+            canvas = torch.where(hole_canvas,
+                                 torch.where(local_cov, local, 0.0), canvas)
+            # beyond the kernel's reach the reference ends at 0
+            canvas = torch.where(ring, torch.where(covered, canvas + halo,
+                                                   0.0), canvas)
+        else:
+            canvas = torch.where(ring | hole_canvas,
+                                 torch.where(covered, halo, 0.0), canvas)
+    canvas = torch.where(torch.isfinite(canvas), canvas, 0.0)
+    return canvas, (y0, x0)
+
+
+def _blend_rotate(frames, angles, mask_val, mode, interp_zeros, ker, draws,
+                  generator, chunk=None):
+    """'vip-fft' rotation of (B, y, x) frames by ``angles`` (degrees,
+    host) with the ``edge_blend`` prepad (vip_tpu derotation.py:320): the
+    blended ~1.5x canvases are set in the ~4x zero canvas and rotated whole
+    by :func:`vip_tpu_torch.ops.fft.rotate_fft_batch` (unpruned: the ring
+    is not zero), in chunks of ``chunk`` frames ('auto' or None:
+    :func:`_auto_chunk`); masked pixels get ``mask_val`` back."""
+    B, y, x = frames.shape
+    (pad_y, pad_x, place_y0, place_x0,
+     cy0, cy1, cx0, cx1) = _fft_rotate_geometry(y, x)
+    if chunk in (None, "auto"):
+        chunk = _auto_chunk(B, y, frames.element_size())
+    angles = np.broadcast_to(np.asarray(angles, np.float64), (B,))
+    if draws is None and "noise" in mode and generator is None:
+        generator = torch.Generator(device=frames.device).manual_seed(0)
+    out = torch.empty_like(frames)
+    for s in range(0, B, chunk):
+        e = min(B, s + chunk)
+        fr = frames[s:e]
+        mask = _mask_of(fr, mask_val)
+        fnan = fr.masked_fill(mask, float("nan"))
+        if interp_zeros:
+            fnan = fnan.masked_fill(fnan == 0, float("nan"))
+        canvas, (y0, x0) = _edge_blend_canvas(
+            fnan, mode, ker, None if draws is None else draws[s:e],
+            generator)
+        big = fr.new_zeros((e - s, pad_y, pad_x))
+        by0, bx0 = place_y0 - y0, place_x0 - x0
+        big[:, by0:by0 + canvas.shape[1], bx0:bx0 + canvas.shape[2]] = canvas
+        del canvas
+        rot = rotate_fft_batch(big, torch.tensor(angles[s:e]))
+        out[s:e] = rot[:, cy0:cy1, cx0:cx1].masked_fill(mask, mask_val)
+    return out
+
+
 def cube_derotate(array, angle_list, imlib="vip-fft",
                   interpolation="lanczos4", cxy=None, nproc=1,
                   border_mode="constant", mask_val=np.nan, edge_blend=None,
-                  interp_zeros=False, ker=1, chunk="auto"):
+                  interp_zeros=False, ker=1, chunk="auto", *, draws=None,
+                  generator=None):
     """Derotate an ADI cube: frame i is rotated by ``-angle_list[i]``
-    (vip_tpu derotation.py:344-422).
+    (vip_tpu derotation.py:344-422). Returns a tensor on the cube's device.
 
-    'vip-fft' runs the exact rotation on the cube's device in chunks of
-    ``chunk`` frames ('auto': :func:`_auto_chunk`); masked values
-    (non-finite, or ``mask_val``) rotate as zeros and are reset afterwards.
-    'vip-fft-small' is the packed speed mode on a 1.25x canvas restricted
-    to the inscribed circle (odd or non-square frames take 'vip-fft').
-    ``nproc`` is accepted for API parity and ignored. Returns a tensor.
+    - 'vip-fft': the exact rotation in chunks of ``chunk`` frames ('auto':
+      :func:`_auto_chunk`); masked values (non-finite, or ``mask_val``)
+      rotate as zeros and are reset afterwards. ``edge_blend`` blends each
+      frame's ~1.5x canvas first (:func:`frame_rotate`), all frames at
+      once: ``draws`` (n, canvas y, canvas x) or ``generator`` as there.
+    - 'vip-fft-small': the packed speed mode on a 1.25x canvas restricted
+      to the inscribed circle (odd or non-square frames take 'vip-fft').
+    - 'opencv' / 'skimage': OpenCV's ``warpAffine`` as vip_tpu calls it
+      (:func:`frame_rotate`), every frame in one batched warp.
+    - 'tpu-interp': vip_tpu's own bilinear ('bilinear') or bicubic (any
+      other ``interpolation``) rotation,
+      :func:`vip_tpu_torch.ops.interp_rotation.rotate_interp_batch`.
+
+    ``nproc`` is accepted for API parity and ignored.
     """
+    from ..ops.interp_rotation import rotate_interp_batch
     from ..ops.pipeline import _derotate_frames
 
     array = as_tensor(array)
@@ -267,13 +406,15 @@ def cube_derotate(array, angle_list, imlib="vip-fft",
         angles = angles.expand(n)
     if angles.shape[0] != n:
         raise ValueError("angle_list length must match the cube")
-    if edge_blend:
-        raise NotImplementedError(
-            "cube_derotate: edge_blend is not ported (ROADMAP Queue 1, "
-            "slice 8)")
     if imlib == "vip-fft-small" and (array.shape[-1] % 2 != 0
                                      or array.shape[-2] != array.shape[-1]):
         imlib = "vip-fft"  # speed mode needs even square frames
+    if edge_blend and imlib == "vip-fft":
+        host = -angles.detach().cpu().to(torch.float64).numpy()
+        if draws is not None:
+            draws = as_tensor(draws, array.device, array.dtype)
+        return _blend_rotate(array, host, mask_val, edge_blend, interp_zeros,
+                             ker, draws, generator, chunk)
 
     if imlib == "vip-fft":
         if chunk == "auto":
@@ -283,22 +424,23 @@ def cube_derotate(array, angle_list, imlib="vip-fft",
         work = array.masked_fill(mask, 0.0) if has_mask else array
         out = _rotate_chunks(work, -angles, chunk)
         return out.masked_fill(mask, mask_val) if has_mask else out
-    elif imlib == "vip-fft-small":
+    if imlib == "vip-fft-small":
         if chunk == "auto":
             chunk = min(n, max(1, 4 * _auto_chunk(n, array.shape[-1],
                                                   array.element_size())))
         work = torch.nan_to_num(array)
         return _derotate_frames(work, angles, chunk=chunk,
                                 rot_mode="fft-small")
-    elif _interp_supported(imlib, interpolation, border_mode, cxy):
-        host = angle_list.detach().cpu().numpy() \
-            if isinstance(angle_list, torch.Tensor) else angle_list
-        host = np.broadcast_to(np.asarray(host, np.float64), (n,))
-        return _warp_bilinear(array, -host)
-    raise NotImplementedError(
-        f"cube_derotate: imlib {imlib!r} is not ported (only 'vip-fft', "
-        "'vip-fft-small', and 'skimage' bilinear; the other interpolation "
-        "rotations wait for ROADMAP Queue 1, slice 8)")
+    if imlib == "tpu-interp":
+        mode = "bilinear" if interpolation == "bilinear" else "bicubic"
+        return rotate_interp_batch(torch.nan_to_num(array), -angles,
+                                   mode=mode)
+    if imlib in ("opencv", "skimage"):
+        host = -angles.detach().cpu().to(torch.float64).numpy()
+        return _warp_rotate(array, host, imlib, interpolation, cxy,
+                            border_mode)
+    raise ValueError(f"imlib {imlib!r} not supported (use 'vip-fft', "
+                     "'vip-fft-small', 'opencv', 'skimage' or 'tpu-interp')")
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,16 @@
 """Sub-pixel shifts and cube recentering (port of
 ``vip_tpu.preproc.recentering``): ``frame_shift`` and ``cube_shift``
-(imlibs 'vip-fft' and 'ndimage-fourier'), the DFT-upsampling
+(every imlib of vip_tpu), the DFT-upsampling
 registration, satellite spots, the Radon transform, 2-d fits and speckle
 cross-correlation.
 
 'vip-fft' runs ``ops.fft.fourier_shift_batch`` (VIP's padded shift),
 'ndimage-fourier' ``ops.fft.cyclic_fourier_shift`` (scipy's cyclic
 ``fourier_shift`` of the ``fftn``, no pad: the two give different
-pixels), both on the tensor's device (numpy input goes to the default
-device), and return tensors. The other imlibs (scipy's interpolating
-shift, OpenCV) wait for ROADMAP Queue 1, slice 8c.
+pixels), 'opencv' OpenCV's float32 ``warpAffine`` as vip_tpu calls it
+(``ops.warp.warp_affine``), all on the tensor's device (numpy input goes
+to the default device), and return tensors. 'ndimage-interp' is scipy's
+spline ``shift`` on the host, a frame at a time, as in vip_tpu.
 
 vip_tpu runs the recentering routines as host loops over frames, grid
 points and iterations, one host ``frame_shift`` each. Here every loop of
@@ -44,25 +45,26 @@ __all__ = ["frame_shift", "cube_shift", "frame_center_radon",
 _GRID_BYTES = 2 << 30
 
 
-def _only_fft(imlib):
-    if imlib not in ("vip-fft", "ndimage-fourier"):
-        raise NotImplementedError(
-            f"shifts with imlib {imlib!r} are not ported yet (only "
-            "'vip-fft' and 'ndimage-fourier'; ROADMAP.md, Queue 1, "
-            "slice 8c)")
+# vip_tpu's names of OpenCV's borders for shifts (recentering.py:61-63)
+# and of scipy's spline orders (:51)
+_CV_BORDER = {"mirror": "reflect101", "reflect": "reflect", "wrap": "wrap",
+              "constant": "constant", "nearest": "replicate"}
+_ORDER = {"nearneig": 0, "bilinear": 1, "biquadratic": 2, "bicubic": 3,
+          "biquartic": 4, "lanczos4": 4, "biquintic": 5}
+_IMLIBS = ("vip-fft", "ndimage-fourier", "ndimage-interp", "opencv")
 
 
 def frame_shift(array, shift_y, shift_x, imlib="vip-fft",
                 interpolation="lanczos4", border_mode="reflect"):
     """Shift a 2d frame by (shift_y, shift_x) px (vip_tpu
     recentering.py:26): 'vip-fft' with VIP's per-call pad margin
-    ceil(max|shift|), 'ndimage-fourier' cyclic."""
+    ceil(max|shift|), 'ndimage-fourier' cyclic, 'ndimage-interp' scipy's
+    spline shift on the host, 'opencv' OpenCV's float32 ``warpAffine``
+    computed on the frame's device."""
     check_array(array, dim=2)
-    _only_fft(imlib)
-    if imlib == "ndimage-fourier":
-        return cyclic_fourier_shift(array, float(shift_y), float(shift_x))
-    npad = int(np.ceil(np.amax(np.abs([float(shift_y), float(shift_x)]))))
-    return fourier_shift(as_tensor(array), shift_y, shift_x, npad)
+    return _grouped_shift(as_tensor(array)[None], [float(shift_y)],
+                          [float(shift_x)], imlib, interpolation,
+                          border_mode)[0]
 
 
 def cube_shift(cube, shift_y, shift_x, imlib="vip-fft",
@@ -71,19 +73,29 @@ def cube_shift(cube, shift_y, shift_x, imlib="vip-fft",
     (vip_tpu recentering.py:74). 'vip-fft': frames are grouped by their
     own pad margin ceil(max|shift|), as ``frame_shift`` pads each call,
     and each group is one batched shift; 'ndimage-fourier': one batched
-    cyclic shift."""
+    cyclic shift; 'opencv': one batched warp; 'ndimage-interp': scipy on
+    the host, a frame at a time, as vip_tpu."""
     check_array(cube, dim=3)
-    _only_fft(imlib)
-    return _grouped_shift(as_tensor(cube), shift_y, shift_x, imlib)
+    return _grouped_shift(as_tensor(cube), shift_y, shift_x, imlib,
+                          interpolation, border_mode)
 
 
-def _grouped_shift(cube, shift_y, shift_x, imlib):
+def _grouped_shift(cube, shift_y, shift_x, imlib, interpolation="lanczos4",
+                   border_mode="reflect"):
     """The shifts of :func:`cube_shift` of a (B, ny, nx) tensor."""
+    if imlib not in _IMLIBS:
+        raise ValueError("Image transformation library not recognized")
     n = cube.shape[0]
     shift_y = np.broadcast_to(np.asarray(shift_y, float), (n,)).copy()
     shift_x = np.broadcast_to(np.asarray(shift_x, float), (n,)).copy()
     if imlib == "ndimage-fourier":
         return cyclic_fourier_shift(cube, shift_y, shift_x)
+    if imlib == "opencv":
+        return _warp_shift(cube, shift_y, shift_x, interpolation,
+                           border_mode)
+    if imlib == "ndimage-interp":
+        return _spline_shift(cube, shift_y, shift_x, interpolation,
+                             border_mode)
     npads = np.ceil(np.maximum(np.abs(shift_y), np.abs(shift_x))).astype(int)
     out = None
     for npad in np.unique(npads):
@@ -96,7 +108,51 @@ def _grouped_shift(cube, shift_y, shift_x, imlib):
     return out
 
 
-def _shift_copies(frame, shift_y, shift_x, imlib="vip-fft"):
+def _warp_shift(cube, shift_y, shift_x, interpolation, border_mode):
+    """vip_tpu's 'opencv' shift (recentering.py:55-67): the frames rounded
+    to float32, the float32 matrix [[1, 0, dx], [0, 1, dy]], OpenCV's
+    float32 ``warpAffine``, every frame in one batched warp on the cube's
+    device."""
+    from ..ops.warp import VIP_INTERPOLATIONS, warp_affine
+
+    if interpolation not in VIP_INTERPOLATIONS:
+        raise NotImplementedError(
+            f"imlib 'opencv' shift: interpolation {interpolation!r} is not "
+            f"one of {sorted(VIP_INTERPOLATIONS)}")
+    if border_mode not in _CV_BORDER:
+        raise NotImplementedError(
+            f"imlib 'opencv' shift: border mode {border_mode!r} is not one "
+            f"of {sorted(_CV_BORDER)}")
+    n, ny, nx = cube.shape
+    M = np.zeros((n, 2, 3), np.float32)
+    M[:, 0, 0] = M[:, 1, 1] = 1
+    M[:, 0, 2], M[:, 1, 2] = shift_x, shift_y
+    work = cube.to(torch.float32).to(cube.dtype)
+    return warp_affine(work, M.astype(np.float64), (ny, nx),
+                       VIP_INTERPOLATIONS[interpolation],
+                       _CV_BORDER[border_mode],
+                       "float32")
+
+
+def _spline_shift(cube, shift_y, shift_x, interpolation, border_mode):
+    """vip_tpu's 'ndimage-interp' shift (recentering.py:49-53): scipy's
+    ``ndimage.shift`` of each frame on the host, in the frames' dtype,
+    copied back to the cube's device."""
+    from scipy.ndimage import shift as sp_shift
+
+    if interpolation not in _ORDER:
+        raise NotImplementedError(
+            f"imlib 'ndimage-interp': interpolation {interpolation!r} is not "
+            f"one of {sorted(_ORDER)}")
+    host = cube.detach().cpu().numpy()
+    out = np.stack([sp_shift(host[i], (shift_y[i], shift_x[i]),
+                             order=_ORDER[interpolation], mode=border_mode)
+                    for i in range(host.shape[0])])
+    return torch.as_tensor(out).to(cube.device)
+
+
+def _shift_copies(frame, shift_y, shift_x, imlib="vip-fft",
+                  interpolation="lanczos4"):
     """The ``cube_shift`` of len(shift_y) copies of one frame, in chunks
     whose padded canvases fit ``_GRID_BYTES``: a (G, ny, nx) tensor."""
     G = len(shift_y)
@@ -109,7 +165,7 @@ def _shift_copies(frame, shift_y, shift_x, imlib="vip-fft"):
     for s in range(0, G, chunk):
         e = min(G, s + chunk)
         out[s:e] = _grouped_shift(frame.expand(e - s, ny, nx), shift_y[s:e],
-                                  shift_x[s:e], imlib)
+                                  shift_x[s:e], imlib, interpolation)
     return out
 
 
@@ -552,7 +608,7 @@ def _ring_mask(shape, radint, cent, device, dtype):
 
 
 def _radon_costs(frame, cent, radint, coords, satspots_cfg=None, theta_0=0,
-                 delta_theta=5, imlib="vip-fft"):
+                 delta_theta=5, imlib="vip-fft", interpolation="lanczos4"):
     """:func:`_radon_costf` of every grid point of ``coords`` (G, 2) at
     once: the G shifted frames in one ``cube_shift`` (chunked), and of
     each angle's rotated image the column ``int(cent)`` alone, the one the
@@ -561,7 +617,8 @@ def _radon_costs(frame, cent, radint, coords, satspots_cfg=None, theta_0=0,
     frame = as_tensor(frame)
     n = frame.shape[0]
     coords = np.asarray(coords, dtype=float).reshape(-1, 2)
-    shifted = _shift_copies(frame, coords[:, 0], coords[:, 1], imlib)
+    shifted = _shift_copies(frame, coords[:, 0], coords[:, 1], imlib,
+                            interpolation)
     shifted = shifted * _ring_mask(tuple(frame.shape), radint, cent,
                                    frame.device, frame.dtype)
     theta = _radon_theta(n, satspots_cfg, theta_0, delta_theta)
@@ -612,7 +669,7 @@ def frame_center_radon(array, cropsize=None, hsize_ini=1., step_ini=0.1,
         frame = get_annulus_segments(frame, radint, cent - radint,
                                      mode="mask")[0]
         costf = _radon_costs(frame, cent, radint, coords, satspots_cfg,
-                             theta_0, delta_theta, imlib)
+                             theta_0, delta_theta, imlib, interpolation)
         cost_bound = costf.reshape(listyx.shape[0], listyx.shape[0])
 
         if plot:

@@ -15,9 +15,11 @@ uniform (dim, dim) operator of ``scale_fft_matrix`` is kept as the
 second form of the same zoom.
 
 Imlibs: 'vip-fft' on the device; 'ndimage' runs scipy on the host, frame
-by frame, as vip_tpu does; 'opencv' waits for ROADMAP Queue 1, slice 8
-(the card's machine has no OpenCV). ``find_scal_vector``'s simplex and
-``_find_indices_sdi`` are host numpy and scipy, as in vip_tpu.
+by frame, as vip_tpu does; 'opencv' is OpenCV's float32 ``warpAffine``
+and ``resize`` as vip_tpu calls them, computed on the device by
+:mod:`vip_tpu_torch.ops.warp` (the card's machine has no OpenCV).
+``find_scal_vector``'s simplex and ``_find_indices_sdi`` are host numpy
+and scipy, as in vip_tpu.
 """
 
 import numpy as np
@@ -51,13 +53,37 @@ def _host_vec(v):
 
 def _check_imlib(imlib):
     imlib = _str(imlib)
-    if imlib == "opencv":
-        raise NotImplementedError(
-            "imlib='opencv' rescaling is not ported yet (ROADMAP.md, Queue 1,"
-            " slice 8): use 'vip-fft' or 'ndimage'")
-    if imlib not in ("vip-fft", "ndimage"):
+    if imlib not in ("vip-fft", "ndimage", "opencv"):
         raise ValueError("Image transformation library not recognized")
     return imlib
+
+
+def _cv_interp(interpolation):
+    """OpenCV's interpolation of vip_tpu's name (rescaling.py:215, 507)."""
+    from ..ops.warp import VIP_INTERPOLATIONS
+
+    interpolation = _str(interpolation)
+    if interpolation not in VIP_INTERPOLATIONS:
+        raise NotImplementedError(
+            f"imlib 'opencv': interpolation {interpolation!r} is not one of "
+            f"{sorted(VIP_INTERPOLATIONS)}")
+    return VIP_INTERPOLATIONS[interpolation]
+
+
+def _cv_rescale(frames, scale_y, scale_x, ref_xy, interpolation):
+    """vip_tpu's 'opencv' ``frame_rescaling`` (rescaling.py:212-221) of a
+    (B, y, x) batch: the frames rounded to float32, OpenCV's float32
+    ``warpAffine`` with the scale matrix about ``ref_xy`` and a zero
+    border, divided by scale_y·scale_x; one batched warp."""
+    from ..ops.warp import warp_affine
+
+    ref_x, ref_y = ref_xy
+    M = np.array([[scale_x, 0, (1.0 - scale_x) * ref_x],
+                  [0, scale_y, (1.0 - scale_y) * ref_y]])
+    work = frames.to(torch.float32).to(frames.dtype)
+    out = warp_affine(work, M, tuple(frames.shape[-2:]),
+                      _cv_interp(interpolation), "constant", "float32")
+    return out / (scale_y * scale_x)
 
 
 def _kdkf(dim, scale):
@@ -238,11 +264,14 @@ def _rescale_batch(frames, scale, ref_xy, imlib, interpolation):
     scale, about ``ref_xy`` (the frame center for 'vip-fft')."""
     imlib = _check_imlib(imlib)
     frames, mask = _nan_prepare(frames)
-    if imlib == "ndimage":
+    if imlib in ("ndimage", "opencv"):
         if ref_xy is None:
             ref_xy = frame_center(frames[0])
-        out = _ndimage_rescale(frames, scale, scale, ref_xy,
-                               _ORDER[_str(interpolation)])
+        if imlib == "opencv":
+            out = _cv_rescale(frames, scale, scale, ref_xy, interpolation)
+        else:
+            out = _ndimage_rescale(frames, scale, scale, ref_xy,
+                                   _ORDER[_str(interpolation)])
     else:
         if frames.shape[-2] != frames.shape[-1]:
             raise ValueError("FFT scaling only supports square input arrays")
@@ -268,12 +297,16 @@ def frame_rescaling(array, ref_xy=None, scale=1.0, imlib="vip-fft",
             and tuple(ref_xy) != frame_center(array):
         raise ValueError("'vip-fft' imlib does not yet allow for custom "
                          "center to be provided")
-    if imlib == "ndimage":
+    if imlib in ("ndimage", "opencv"):
         frames, mask = _nan_prepare(array[None])
         if ref_xy is None:
             ref_xy = frame_center(array)
-        out = _ndimage_rescale(frames, scale_y, scale_x, ref_xy,
-                               _ORDER[_str(interpolation)])
+        if imlib == "opencv":
+            out = _cv_rescale(frames, scale_y, scale_x, ref_xy,
+                              interpolation)
+        else:
+            out = _ndimage_rescale(frames, scale_y, scale_x, ref_xy,
+                                   _ORDER[_str(interpolation)])
         if mask is not None:
             out = torch.where(mask >= 0.5, torch.nan, out)
         return out[0]
@@ -570,6 +603,17 @@ def _resample_batch(frames, scale_y, scale_x, imlib, interpolation):
                 np.stack([zoom(fr, zoom=(scale_y, scale_x), order=order)
                           for fr in m]), dtype=frames.dtype,
                 device=frames.device)
+    elif imlib == "opencv":
+        # vip_tpu rescaling.py:504-515: cv2.resize of the float32 frame
+        # (and of the float32 mask), then divided in float64
+        from ..ops.warp import resize
+
+        intp = _cv_interp(interpolation)
+        if mask is not None:
+            mask = resize(mask, scale_x, scale_y, intp)
+        out = resize(frames.to(torch.float32).to(frames.dtype), scale_x,
+                     scale_y, intp)
+        out = out.to(torch.float32).to(frames.dtype) / (scale_y * scale_x)
     else:
         if scale_x != scale_y:
             raise ValueError("FFT scaling only supports identical factors")
