@@ -19,8 +19,9 @@ PACO), slice 7 (the 4-d IFS paths), slice 8a (the bad-pixel filters,
 stats, subsampling, cosmetics, ``randomized_svd_gpu``, ``pca(smooth=)``),
 slice 8b (registration and recentering, bad-pixel correction,
 bad-frame detection), slice 8c (the interpolation imlibs, ``edge_blend``,
-``rot_mode="interp"``) and slice 9 (the scattered-light disk, its
-injection, NEGFD).
+``rot_mode="interp"``), slice 9 (the scattered-light disk, its
+injection, NEGFD) and slice 10 (the object layer, ``EvalRoc``, the
+native FITS codec).
 Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -171,7 +172,28 @@ Phases, one line each:
     float32 against float64), injected into all 1000 frames (H2), one
     ``chisquare_fd`` at full depth (pca ncomp 10, 'vip-fft': H1 and H2)
     and ``firstguess_fd`` ('skimage' / biquintic) on every 10th frame,
-    recovering the planted flux within 10%.
+    recovering the planted flux within 10%;
+22. slice 10 (run before the timings of 14) on the cube with the planted
+    companion: the native FITS codec on the whole cube (``write_fits``'s
+    data block against the plain encoder's bytes; ``open_fits``, the lazy
+    HDU's slices and a decode into pinned memory against the plain
+    decode, bit for bit; both encodes and decodes timed); phase 11's
+    streamed PCA through the codec and through the plain decode, in
+    turns, bit-equal; a ``Dataset`` of the whole cube (no copy) with
+    ``PPPCA`` classic and ``PPMedianSub`` (their H1/H2 launches) bit-equal
+    to direct calls of ``pca`` and ``median_sub`` and within PIPE_TOL of
+    the plain route, ``make_snrmap``, ``compute_significance`` and
+    ``Frame.detect_blobs`` at the companion, the sessions through
+    ``PPResult``'s FITS file and back; ``PPPCA`` grid (ncomp 1..10),
+    annulus and annular (phase 14's annuli), all at full width and
+    depth, bit-equal to their direct calls; the six other PP classes on
+    phases 15's and 17's cuts, bit-equal to those phases' frames
+    (annular NMF, LLSG and LOCI on fewer frames, held to direct calls
+    on them; NMF, ANDROMEDA and FMMF finding the companion); ``EvalRoc`` (4 injections on every 10th frame,
+    ``PPPCA`` and ``PPMedianSub``) with every injection found at
+    threshold 3; one host injection at full depth timed; ``Dataset.save``
+    and ``load`` of the first 100 frames, bit-equal, the cube back on the
+    card.
 
 Phase 13 also runs the F2 configuration pca_incr_adi in float64 on the
 card against the CPU's float64 frame (ROADMAP Q3-3), and phase 15
@@ -192,7 +214,8 @@ double-pass ``pca`` call.
 ``cube_correct_nan`` and ``randomized_svd_gpu``; ``--slice8b`` runs
 phase 20 alone, with torch.profiler tables of its two slowest steps;
 ``--slice8c9`` runs phase 21 alone, with torch.profiler tables of its two
-slowest warps.
+slowest warps; ``--slice10`` runs phase 22 alone (the PP classes'
+functions run there too).
 ``--seed N`` (with any of the above) makes phase 18's sequence from seed
 N (default 0).
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
@@ -436,6 +459,28 @@ S9_DIST, S9_PXSCALE, S9_SLICES, S9_DISK_TOL = 50.0, 0.01225, 25, 1e-4
 S9_PEAK, S9_FLUX, S9_MASK, S9_EVERY = 10.0, 3.0, (30, 110), 10
 S9_FLUX_TOL, S9_CHI_TOL = 0.1, 1e-3
 S9_SIMPLEX = {"xatol": 1e-3, "fatol": 1e-4, "maxiter": 60, "maxfev": 80}
+# Slice 10 (phase 22) on the cube with the planted companion: the FITS
+# codec on the whole cube; Dataset, PPPCA (classic, grid over GRID_PCS,
+# annulus S10_ANNULUS_WIDTH px wide at the companion, annular with
+# phase 14's annuli) and PPMedianSub at full width and depth (annular
+# PCA below 512 frames takes an eigh a frame and annulus, below 128 its
+# per-frame host branch: on an H100 80GB HBM3 at 700 W 23.7 s for every
+# 7th frame, 64.0 s for every 10th, against ~10 s for all 1000); the six
+# other PP classes on the cuts of phases 15 and 17 (held bit for bit to
+# those phases' frames, or, run alone, to the same calls here), annular
+# NMF and LLSG on every S10_SLICE4_EVERY-th frame of phase 15's crop and
+# LOCI on every S10_LOCI_EVERY-th (held to direct calls on the same
+# frames);
+# EvalRoc on every S10_EVERY-th frame with S10_ROC_INJECTIONS injections
+# of fluxes S10_ROC_FLUX (PSF normalized to a unit 1-FWHM aperture:
+# peaks of ~0.1 per unit flux, noise sigma 1), thresholds S10_ROC_THRESH,
+# each injection found at threshold 3 in a map; Dataset.save/load on the
+# first S10_SAVE_FRAMES frames
+S10_EVERY, S10_SLICE4_EVERY, S10_LOCI_EVERY = 10, 10, 20
+S10_ANNULUS_WIDTH, S10_SAVE_FRAMES = 12, 100
+S10_ROC_INJECTIONS, S10_ROC_FLUX, S10_ROC_THRESH = 4, ("uniform", 50, 150), \
+    (1, 2, 3, 4, 5)
+S10_PX_SCALE = 0.0272
 # Q3-2 (phase 15): ipca in float32 through the kernels may stand at most
 # Q32_RATIO times as far from its float64 run on the card as the float32
 # plain route does. Q3-3 (phase 13): pca_incr_adi in float64 on the card
@@ -536,14 +581,19 @@ def _rel_err(got, ref):
     return float((got - ref).abs().max()), scale
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import vip_tpu_torch
 
     _require(torch.cuda.is_available(), "CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"device: {smi}", flush=True)
     vip_tpu_torch.set_device(DEVICE)
     return smi
@@ -1511,30 +1561,42 @@ def _last_and_first(out):
     return out[0], out[1][0]
 
 
-def phase_slice4(pcube, angles_np, src):
+def _slice4_cuts(pcube, angles_np, every=SLICE4_EVERY,
+                 loci_every=LOCI_EVERY):
+    """Phase 15's cuts of the cube with the planted companion: the
+    central SLICE4_CROP², every ``every``-th frame of it (and shifted to
+    positive values, for annular NMF, which checks each library's median
+    for a sign before any handle_neg) and every ``loci_every``-th."""
+    lo, hi = SIZE // 2 - SLICE4_CROP // 2, SIZE // 2 + SLICE4_CROP // 2
+    crop = pcube[:, lo:hi, lo:hi].contiguous()
+    crop5, ang5 = crop[::every].contiguous(), angles_np[::every]
+    crop10, ang10 = crop[::loci_every].contiguous(), \
+        angles_np[::loci_every]
+    pos5 = (crop5 - pcube.min() + 1.0).contiguous()
+    return crop, crop5, ang5, crop10, ang10, pos5
+
+
+def phase_slice4(pcube, angles_np, src, keep=None):
     """Slice 4 at full width: each new entry point through the kernels
     (launches counted from 0 just before it), through the plain route
     (``_plain_route``: the plain derotation and median), the two within
     PIPE_TOL of max(|ref|, 1) (the greedy loops: their first pass, and
     their last within GREEDY_TOL); its warm time (median of 3, or the counted
     run alone for the long ones); the planted companion detected where
-    the frame keeps the full width. Returns {name: (counts, seconds)}."""
+    the frame keeps the full width. Returns {name: (counts, seconds)};
+    ``keep`` (a dict) receives {name: (frame, seconds)} of the counted
+    runs, which phase 22 holds its PP objects to."""
     from vip_tpu_torch import greedy, psfsub
     from vip_tpu_torch.metrics import detection
 
     t_phase = time.perf_counter()
-    lo, hi = SIZE // 2 - SLICE4_CROP // 2, SIZE // 2 + SLICE4_CROP // 2
-    crop = pcube[:, lo:hi, lo:hi].contiguous()
-    crop5, ang5 = crop[::SLICE4_EVERY].contiguous(), \
-        angles_np[::SLICE4_EVERY]
-    crop10, ang10 = crop[::LOCI_EVERY].contiguous(), angles_np[::LOCI_EVERY]
+    crop, crop5, ang5, crop10, ang10, pos5 = _slice4_cuts(pcube, angles_np)
     mid = float(np.mean(angles_np))
     low, high = angles_np <= mid, angles_np > mid
     rolls = np.where(low, angles_np[low].mean(), angles_np[high].mean())
-    # annular NMF and INMF check each library's median for a sign before
-    # any handle_neg: they take the cube shifted to positive values
+    # INMF checks each library's median for a sign before any handle_neg:
+    # it takes the cube shifted to positive values
     positive = pcube - pcube.min() + 1.0
-    pos5 = (crop5 - pcube.min() + 1.0).contiguous()
     iters = _nmf_iterations()
     # (name, run, timed reps (1: the counted run), whether the median
     # collapse runs H1, detect the companion)
@@ -1619,6 +1681,8 @@ def phase_slice4(pcube, angles_np, src):
             _require(found, f"{name}: the planted companion was missed")
         print(line, flush=True)
         out[name] = (counts, wall)
+        if keep is not None:
+            keep[name] = (frame, wall)
     print(f"slice 4 cuts: annular NMF, LLSG, frame differencing and LOCI "
           f"on the central {SLICE4_CROP}x{SLICE4_CROP} (annuli to 60 px); "
           f"annular NMF and LLSG on every {SLICE4_EVERY}th frame "
@@ -1893,7 +1957,26 @@ def _found(snr, fwhm, yx):
     return _near(ys, xs, (yx[1], yx[0]))
 
 
-def phase_invprob(pcube, angles_np, profile=False):
+def _invprob_full_width(pcube, angles_np):
+    """Phase 17's full-width inputs: every INV_EVERY-th frame of the cube
+    with the planted companion, its central INV_SIZE², the float64
+    angles, a 20² Gaussian PSF of FWHM COMP_FWHM, FMMF's keywords and the
+    companion's (y, x) there."""
+    c0 = (SIZE - INV_SIZE) // 2
+    cube_fw = pcube[::INV_EVERY, c0:c0 + INV_SIZE, c0:c0 + INV_SIZE] \
+        .contiguous()
+    angs_fw = angles_np[::INV_EVERY].astype(np.float64)
+    comp = (INV_SIZE // 2, INV_SIZE // 2 + COMP_SEP)
+    yy, xx = np.mgrid[:20, :20]
+    sig = COMP_FWHM / (2 * np.sqrt(2 * np.log(2)))
+    psf20 = np.exp(-((yy - 10.0) ** 2 + (xx - 10.0) ** 2) / (2 * sig ** 2))
+    fmmf_fw = dict(fwhm=COMP_FWHM, model="KLIP", var="FR",
+                   param=INV_FMMF_PARAM, crop=5, imlib="vip-fft",
+                   verbose=False)
+    return cube_fw, angs_fw, psf20, fmmf_fw, comp
+
+
+def phase_invprob(pcube, angles_np, profile=False, keep=None):
     """Slice 6: ANDROMEDA (lsq, l1), FMMF (KLIP, LOCI) and FastPACO.
 
     1. The NACO replica through float64 CUDA tensors against the goldens
@@ -1911,7 +1994,9 @@ def phase_invprob(pcube, angles_np, profile=False):
     4. bench.py's three invprob legs (bench.py:460-509) in float32, warm
        median of 3; FMMF's batched form on one annulus of the replica
        (warm median of 3) and its serial form once.
-    Returns {path: counts} and {name: seconds}."""
+    Returns {path: counts} and {name: seconds}; ``keep`` (a dict)
+    receives {name: (result, seconds)} of the full-width runs, which
+    phase 22 holds its PP objects to."""
     import vip_tpu_torch.invprob as ip
     from vip_tpu_torch.var.shapes import get_annulus_segments
 
@@ -2002,30 +2087,26 @@ def phase_invprob(pcube, angles_np, profile=False):
           flush=True)
 
     # full width: the cube with the planted companion, cut
-    c0 = (SIZE - INV_SIZE) // 2
-    cube_fw = pcube[::INV_EVERY, c0:c0 + INV_SIZE, c0:c0 + INV_SIZE] \
-        .contiguous()
-    angs_fw = angles_np[::INV_EVERY].astype(np.float64)
-    comp = (INV_SIZE // 2, INV_SIZE // 2 + COMP_SEP)
-    yy, xx = np.mgrid[:20, :20]
-    sig = COMP_FWHM / (2 * np.sqrt(2 * np.log(2)))
-    psf20 = np.exp(-((yy - 10.0) ** 2 + (xx - 10.0) ** 2) / (2 * sig ** 2))
-    fmmf_fw = dict(fwhm=COMP_FWHM, model="KLIP", var="FR",
-                   param=INV_FMMF_PARAM, crop=5, imlib="vip-fft",
-                   verbose=False)
+    cube_fw, angs_fw, psf20, fmmf_fw, comp = _invprob_full_width(
+        pcube, angles_np)
+    # (run, the index of its S/N map)
     full = {
-        "andromeda full width": lambda: ip.andromeda(
+        "andromeda full width": (lambda: ip.andromeda(
             cube=cube_fw, angle_list=angs_fw, psf=psf20,
-            oversampling_fact=2, iwa=2, opt_method="lsq", verbose=False)[2],
-        "fastpaco full width": lambda: ip.FastPACO(
+            oversampling_fact=2, iwa=2, opt_method="lsq", verbose=False),
+            2),
+        "fastpaco full width": (lambda: ip.FastPACO(
             cube=cube_fw, angles=angs_fw, psf=psf20, fwhm=COMP_FWHM,
-            pixscale=1.0).run()[0],
-        "fmmf full width": lambda: ip.fmmf(
+            pixscale=1.0).run(), 0),
+        "fmmf full width": (lambda: ip.fmmf(
             cube=cube_fw, angle_list=angs_fw, psf=psf20 / psf20.sum(),
-            min_r=INV_FW_WINDOW[0], max_r=INV_FW_WINDOW[1], **fmmf_fw)[1],
+            min_r=INV_FW_WINDOW[0], max_r=INV_FW_WINDOW[1], **fmmf_fw), 1),
     }
-    for name, fn in full.items():
-        snr = run(name, fn)
+    for name, (fn, pick) in full.items():
+        res = run(name, fn)
+        snr = res[pick]
+        if keep is not None:
+            keep[name] = (res, times[name])
         hit = _found(snr, COMP_FWHM, comp)
         print(f"invprob {name} ({cube_fw.shape[0]}x{INV_SIZE}^2): "
               f"{times[name]:.3f} s, launches {counts[name]}, max S/N "
@@ -3366,10 +3447,10 @@ def phase_slice8b(cube):
 # Slices 8c and 9 (phase 21): the interpolation imlibs, then the disks
 
 
-def _step21(name, fn, warm=True):
+def _step21(name, fn, warm=True, label="slice 8c/9"):
     """Run ``fn`` with the counts reset just before it, synchronized, and
     when it took under 1 s its warm median of 3: (result, counts,
-    seconds). Prints one line."""
+    seconds). Prints one line, headed ``label``."""
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3380,7 +3461,7 @@ def _step21(name, fn, warm=True):
     how = "once"
     if warm and wall < 1.0:
         wall, how = _sync_time(fn, reps=3), "warm median of 3"
-    print(f"slice 8c/9 {name}: {wall:.4f} s ({how}), launches H1 "
+    print(f"{label} {name}: {wall:.4f} s ({how}), launches H1 "
           f"{counts['H1']}, H2 {counts['H2']}, H3 {counts['H3']}",
           flush=True)
     return out, counts, wall
@@ -3643,6 +3724,431 @@ def slice8c9_only():
     print("slowest steps without a profile table (host-bound or "
           "once-only): " + ", ".join(f"{k} {times[k]:.4f} s"
                                      for k in others), flush=True)
+
+
+# Slice 10 (phase 22): the object layer and the native FITS codec
+
+
+class _PlainDecodeHDU:
+    """A lazy HDU read the way the port read it before the codec: each
+    slice of frames decoded by the plain numpy decode into a new array,
+    which ``pca_incremental`` then casts and copies into pinned memory."""
+
+    def __init__(self, lazy):
+        self.lazy, self.shape = lazy, lazy.shape
+
+    def __getitem__(self, key):
+        from vip_tpu_torch.fits import _native
+
+        lo, hi, _ = key.indices(self.shape[0])
+        hdu = self.lazy._hdu
+        frame_bytes = int(np.prod(self.shape[1:])) * abs(hdu["bitpix"]) // 8
+        return _native._decode_plain(
+            self.lazy._path, hdu["offset"] + lo * frame_bytes,
+            (hi - lo,) + tuple(self.shape[1:]), hdu["bitpix"], 1.0, 0.0,
+            np.float32)
+
+
+def _bits_equal(a, b):
+    """Whether two float32 arrays or tensors hold the same bits."""
+    a, b = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else
+            np.asarray(x) for x in (a, b))
+    return a.shape == b.shape and a.dtype == b.dtype \
+        and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def _s10_codec(pcube, tmpdir):
+    """The codec on the whole cube: ``write_fits`` (native encoder) and
+    its data block against the plain encoder's bytes; ``open_fits``, the
+    lazy HDU's slices and a decode into pinned memory against the plain
+    decode, bit for bit; the native and plain encode and decode timed.
+    Returns (path, lazy HDU, {name: seconds})."""
+    from vip_tpu_torch.fits import _native, open_fits, write_fits
+    from vip_tpu_torch.fits.fits import _scan_hdus
+
+    host = pcube.cpu().numpy()
+    path = os.path.join(tmpdir, "pcube.fits")
+    times = {"write_fits": _timed(lambda: write_fits(path, host,
+                                                     verbose=False))}
+    hdu = _scan_hdus(path)[0]
+    with open(path, "rb") as fh:
+        fh.seek(hdu["offset"])
+        block = np.frombuffer(fh.read(hdu["nbytes"]), np.uint8)
+    t0 = time.perf_counter()
+    plain_bytes = _native._encode_plain(host)
+    times["encode plain"] = time.perf_counter() - t0
+    _require(np.array_equal(block, plain_bytes),
+             "write_fits: the data block is not the plain encoder's bytes")
+    del block, plain_bytes
+    times["encode"] = _sync_time(lambda: _native.encode(host))
+    args = (path, hdu["offset"], hdu["shape"], hdu["bitpix"], 1.0, 0.0,
+            np.float32)
+    t0 = time.perf_counter()
+    plain = _native._decode_plain(*args)
+    times["decode plain"] = time.perf_counter() - t0
+    _require(_bits_equal(plain, host), "the plain decode is not the cube")
+    _require(_bits_equal(open_fits(path, verbose=False), plain),
+             "open_fits differs from the plain decode")
+    times["decode"] = _sync_time(lambda: _native.decode(*args))
+    lazy = open_fits(path, return_memmap=True)
+    for key in (slice(100, 300), slice(0, N_FRAMES, 7), N_FRAMES - 1):
+        _require(_bits_equal(lazy[key], plain[key]),
+                 f"the lazy HDU's [{key}] differs from the plain decode")
+    lo = N_FRAMES // 2
+    pinned = torch.empty((INC_BATCH, SIZE * SIZE), dtype=torch.float32,
+                         pin_memory=True)
+    lazy._read_frames(lo, lo + INC_BATCH, out=pinned)
+    _require(pinned.is_pinned() and _bits_equal(
+        pinned, plain[lo:lo + INC_BATCH].reshape(INC_BATCH, -1)),
+        "the decode into pinned memory differs from the plain decode")
+    gb = hdu["nbytes"] / 1e9
+    print(f"slice 10 FITS codec, {N_FRAMES}x{SIZE}x{SIZE} float32 "
+          f"({gb:.3f} GB): write_fits {times['write_fits']:.4f} s (once); "
+          f"encode {times['encode']:.4f} s (warm median of 3), plain "
+          f"{times['encode plain']:.4f} s (once); decode "
+          f"{times['decode']:.4f} s (warm median of 3, "
+          f"{gb / times['decode']:.2f} GB/s), plain "
+          f"{times['decode plain']:.4f} s (once); the file's block, "
+          f"open_fits, the lazy HDU's slices and the decode into pinned "
+          f"memory bit-equal to the plain versions", flush=True)
+    return path, lazy, times
+
+
+def _s10_streamed(lazy, angles_np):
+    """``pca_incremental`` of the FITS cube (phase 11's call) through the
+    codec's decode into pinned memory and through the plain decode then a
+    pinned copy (the route before the codec), in turns: the frames bit
+    for bit equal. Returns {route: seconds}."""
+    from vip_tpu_torch.psfsub.utils_pca import pca_incremental
+
+    routes = {"codec into pinned memory": lazy,
+              "numpy decode, pinned copy": _PlainDecodeHDU(lazy)}
+    pca_incremental(lazy, angles_np, batch=INC_BATCH, ncomp=NCOMP,
+                    verbose=False)                    # warm
+    frames, times = {}, {}
+    for route in (*routes, *reversed(routes)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = pca_incremental(routes[route], angles_np, batch=INC_BATCH,
+                                ncomp=NCOMP, verbose=False)
+        torch.cuda.synchronize()
+        times.setdefault(route, []).append(time.perf_counter() - t0)
+        frames.setdefault(route, []).append(frame)
+    first = frames["codec into pinned memory"][0]
+    _require(all(np.array_equal(f, first) for fs in frames.values()
+                 for f in fs), "pca_incremental: the routes' frames differ")
+    print(f"slice 10 pca_incremental {N_FRAMES}x{SIZE}x{SIZE} from FITS, "
+          f"batch {INC_BATCH} (two runs each, in turns): " + ", ".join(
+              f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " s"
+              for k, v in times.items())
+          + "; frames bit-equal",
+          flush=True)
+    return {k: float(np.mean(v)) for k, v in times.items()}
+
+
+def phase_slice10(pcube, angles_np, src, tmpdir, refs=None):
+    """Slice 10 at full width (see the module docstring, phase 22).
+    ``refs``: phases 15's and 17's {name: (result, seconds)}, which the
+    PP objects are held to; without them the same calls run here.
+    Returns ({name: counts}, {name: seconds})."""
+    from vip_tpu_torch import invprob as ip
+    from vip_tpu_torch import psfsub
+    from vip_tpu_torch.config.device import as_tensor
+    from vip_tpu_torch.fm import cube_inject_companions
+    from vip_tpu_torch.metrics import EvalRoc, detection
+    from vip_tpu_torch.objects import (AndroBuilder, Dataset, FMMFBuilder,
+                                       Frame, FrameDiffBuilder, LLSGBuilder,
+                                       LOCIBuilder, MedianBuilder,
+                                       NMFBuilder, PCABuilder, PPResult)
+
+    t_phase = time.perf_counter()
+    counts, times = {}, {}
+    refs = {} if refs is None else refs
+
+    def record(name, fn, warm=True):
+        out, c, wall = _step21(name, fn, warm, label="slice 10")
+        counts[name], times[name] = c, wall
+        return out
+
+    def held(name, got, ref):
+        _require(_bits_equal(got, ref), f"slice 10 {name}: the object's "
+                 f"frame is not its function's, bit for bit")
+
+    path, lazy, t_codec = _s10_codec(pcube, tmpdir)
+    times.update({f"FITS {k}": v for k, v in t_codec.items()})
+    times.update({f"pca_incremental {k}": v for k, v in
+                  _s10_streamed(lazy, angles_np).items()})
+    print(f"slice 10: {time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+
+    # the object layer at full width and depth
+    ds = Dataset(cube=pcube, angles=angles_np, psf=_gaussian_psf(39),
+                 fwhm=COMP_FWHM, px_scale=S10_PX_SCALE)
+    _require(ds.cube is pcube and ds.psf.device == pcube.device,
+             "Dataset: the cube was copied, or the PSF is not beside it")
+    _quiet(ds.normalize_psf)(fit_fwhm=COMP_FWHM, verbose=False)
+    _require(ds.psfn.device == pcube.device and ds.fwhm == COMP_FWHM,
+             "normalize_psf: psfn not beside the cube, or another fwhm")
+    pca_obj = PCABuilder(dataset=ds, ncomp=NCOMP, verbose=False).build()
+    record("PPPCA classic", lambda: _quiet(pca_obj.run)(verbose=False))
+
+    def pca_direct():
+        return psfsub.pca(cube=ds.cube, angle_list=ds.angles, ncomp=NCOMP,
+                          fwhm=ds.fwhm, full_output=True, verbose=False)
+
+    held("PPPCA classic", pca_obj.frame_final,
+         record("pca direct", pca_direct)[0])
+    med_obj = MedianBuilder(dataset=ds, verbose=False).build()
+    record("PPMedianSub", lambda: _quiet(med_obj.run)())
+
+    def med_direct():
+        return psfsub.median_sub(ds.cube, ds.angles, fwhm=ds.fwhm,
+                                 full_output=True, verbose=False)
+
+    held("PPMedianSub", med_obj.frame_final,
+         record("median_sub direct", med_direct)[2])
+    errs = {}
+    with _plain_route():
+        for name, obj, fn, i in (("PPPCA classic", pca_obj, pca_direct, 0),
+                                 ("PPMedianSub", med_obj, med_direct, 2)):
+            errs[name] = _rel_err(obj.frame_final, fn()[i])
+    for name in ("PPPCA classic", "PPMedianSub"):
+        c = counts[name]
+        _require(c["H1"] >= 1 and c["H2"] >= 1 and c["H3"] == c["H4"] == 0,
+                 f"slice 10 {name}: launches {c}")
+        err, scale = errs[name]
+        print(f"slice 10 {name}: bit-equal to its direct call; against the "
+              f"plain route {err:.3e} (bound {PIPE_TOL:.0e} x {scale:.3f})",
+              flush=True)
+        _require(err <= PIPE_TOL * scale, f"slice 10 {name}: plain route")
+
+    # S/N map, significance and blob detection; the sessions to FITS
+    results = PPResult()
+    pca_obj.results = med_obj.results = results
+    _quiet(pca_obj.run)(verbose=False)
+    record("make_snrmap", lambda: _quiet(pca_obj.make_snrmap)(), warm=False)
+    _quiet(pca_obj.compute_significance)(source_xy=src)
+    cy, cx = int(src[1]), int(src[0])
+    fr = _quiet(Frame)(pca_obj.frame_final, fwhm=ds.fwhm)
+    fr.detect_blobs(ds.psfn, bkg_sigma=5, plot=False, full_output=False)
+    ys, xs = fr.detection_results
+    found = _near(ys, xs, src)
+    print(f"slice 10 PPPCA classic: S/N at the companion "
+          f"{float(pca_obj.snr_map[cy, cx]):.3f}, significance "
+          f"{pca_obj.signf:.3f} sigma; Frame.detect_blobs (y, x) "
+          f"{list(zip(np.atleast_1d(ys).tolist(), np.atleast_1d(xs).tolist()))}"
+          f", planted at {(src[1], src[0])}: found {found}", flush=True)
+    _require(found and pca_obj.signf > 3, "slice 10: the companion missed")
+    _quiet(med_obj.run)()
+    fits = os.path.join(tmpdir, "sessions.fits")
+    _quiet(results.results_to_fits)(fits)
+    back = PPResult(load_from_path=fits)
+    _require(len(back.sessions) == len(results.sessions) == 2
+             and all(_bits_equal(b.frame, r.frame)
+                     and b.algo_name == r.algo_name
+                     for b, r in zip(back.sessions, results.sessions))
+             and _bits_equal(back.sessions[0].snr_map,
+                             results.sessions[0].snr_map)
+             and back.sessions[1].snr_map is None,
+             "PPResult: the FITS round trip changed the sessions")
+    print(f"slice 10 PPResult: {len(back.sessions)} sessions "
+          f"({', '.join(s.algo_name for s in back.sessions)}) through FITS "
+          f"and back, frames and S/N map bit-equal", flush=True)
+
+    # the other run modes
+    grid_obj = PCABuilder(dataset=ds, range_pcs=GRID_PCS,
+                          verbose=False).build()
+    record("PPPCA grid", lambda: _quiet(grid_obj.run)(runmode="grid",
+                                                      verbose=False))
+    grid = record("pca_grid direct", lambda: psfsub.pca_grid(
+        ds.cube, ds.angles, fwhm=ds.fwhm, range_pcs=GRID_PCS, plot=False,
+        full_output=True, verbose=False))
+    held("PPPCA grid", grid_obj.final_residuals_cube, grid[0])
+    ann_obj = PCABuilder(dataset=ds, ncomp=NCOMP,
+                         annulus_width=S10_ANNULUS_WIDTH, r_guess=COMP_SEP,
+                         verbose=False).build()
+    record("PPPCA annulus", lambda: _quiet(ann_obj.run)(runmode="annulus",
+                                                        verbose=False))
+    held("PPPCA annulus", ann_obj.frame_final, record(
+        "pca_annulus direct", lambda: psfsub.pca_annulus(
+            ds.cube, ds.angles, NCOMP, S10_ANNULUS_WIDTH, COMP_SEP)))
+    peak = np.unravel_index(int(ann_obj.frame_final.argmax()), (SIZE, SIZE))
+    _require(_near([peak[0]], [peak[1]], src),
+             f"PPPCA annulus: the frame's peak {peak} is not the companion")
+    annular = {k: v for k, v in ANN.items() if k != "fwhm"}
+    annular_obj = PCABuilder(dataset=ds, verbose=False, **annular).build()
+    record("PPPCA annular", lambda: _quiet(annular_obj.run)(
+        runmode="annular", verbose=False), warm=False)
+    held("PPPCA annular", annular_obj.frame_final, record(
+        "pca_annular direct", lambda: psfsub.pca_annular(
+            ds.cube, ds.angles, fwhm=ds.fwhm, full_output=True,
+            verbose=False, **annular), warm=False)[2])
+    annular_obj.cube_residuals = annular_obj.cube_residuals_der = None
+    print(f"slice 10 PPPCA grid ({GRID_PCS[0]}..{GRID_PCS[1]}), annulus "
+          f"(r {COMP_SEP:.0f}, {S10_ANNULUS_WIDTH} px; peak at (y, x) "
+          f"{tuple(int(v) for v in peak)}) and annular (phase 14's annuli, "
+          f"'vip-fft'): bit-equal to their direct calls"
+          f"{_at(t_phase)}", flush=True)
+
+    # the six other PP classes on phases 15's and 17's cuts, annular NMF,
+    # LLSG and LOCI on fewer of their frames
+    crop, crop5, ang5, crop10, ang10, pos5 = _slice4_cuts(
+        pcube, angles_np, S10_SLICE4_EVERY, S10_LOCI_EVERY)
+    sub = ("nmf_annular", "llsg", "xloci")
+    cube_fw, angs_fw, psf20, fmmf_fw, comp = _invprob_full_width(
+        pcube, angles_np)
+
+    def data(cube, angles, psfn=None):
+        return Dataset(cube=cube, angles=angles, psfn=psfn, fwhm=COMP_FWHM,
+                       px_scale=S10_PX_SCALE)
+
+    fmmf_kw = dict(fmmf_fw, min_r=INV_FW_WINDOW[0], max_r=INV_FW_WINDOW[1])
+    andro_kw = dict(oversampling_fact=2, iwa=2, opt_method="lsq",
+                    verbose=False)
+    # (phase key, builder, dataset, keywords, run keywords, the function,
+    # the result's (frame, S/N map) indices or None for a frame)
+    pp = [
+        ("nmf", NMFBuilder, data(pcube, angles_np), NMF4, {},
+         lambda: psfsub.nmf(pcube, angles_np, verbose=False, **NMF4), None),
+        ("nmf_annular", NMFBuilder, data(pos5, ang5), NMF_ANN4,
+         dict(runmode="annular"), lambda: psfsub.nmf_annular(
+             pos5, ang5, verbose=False, **NMF_ANN4), None),
+        ("llsg", LLSGBuilder, data(crop5, ang5), LLSG4, {},
+         lambda: psfsub.llsg(crop5, ang5, verbose=False, **LLSG4), None),
+        ("frame_diff", FrameDiffBuilder, data(crop, angles_np), FD4, {},
+         lambda: psfsub.frame_diff(crop, angles_np, verbose=False, **FD4),
+         None),
+        ("xloci", LOCIBuilder, data(crop10, ang10), LOCI4, {},
+         lambda: psfsub.xloci(crop10, ang10, verbose=False, **LOCI4), None),
+        ("andromeda full width", AndroBuilder,
+         data(cube_fw, angs_fw, psf20), andro_kw, {},
+         lambda: ip.andromeda(cube=cube_fw, angle_list=angs_fw, psf=psf20,
+                              **andro_kw), (0, 2)),
+        ("fmmf full width", FMMFBuilder,
+         data(cube_fw, angs_fw, psf20 / psf20.sum()), fmmf_kw, {},
+         lambda: ip.fmmf(cube=cube_fw, angle_list=angs_fw,
+                         psf=psf20 / psf20.sum(), **fmmf_kw), (0, 1)),
+    ]
+    for key, builder, dset, kw, run_kw, fn, pick in pp:
+        obj = builder(dataset=dset, **dict(kw, verbose=False)).build()
+        name = f"{type(obj).__name__} ({key})"
+        record(name, lambda: _quiet(obj.run)(**run_kw), warm=False)
+        if key in refs and key not in sub:
+            ref, t_ref = refs[key]
+            where = "its phase's"
+        else:
+            t0 = time.perf_counter()
+            ref = fn()
+            torch.cuda.synchronize()
+            t_ref, where = time.perf_counter() - t0, "this phase's"
+        if pick is None:
+            held(name, obj.frame_final, _last_and_first(ref)[0])
+        else:
+            held(name, obj.frame_final, ref[pick[0]])
+            held(name + " S/N", obj.snr_map, ref[pick[1]])
+        line = (f"slice 10 {name}: bit-equal to {where} function call "
+                f"({t_ref:.4f} s)")
+        if key == "nmf":
+            ys, xs = detection(obj.frame_final, fwhm=COMP_FWHM,
+                               mode="lpeaks", bkg_sigma=5, snr_thresh=5,
+                               full_output=False, plot=False, verbose=False)
+            line += f"; companion detected: {_near(ys, xs, src)}"
+            _require(_near(ys, xs, src), f"{name}: the companion missed")
+        elif pick is not None:
+            hit = _found(obj.snr_map, COMP_FWHM, comp)
+            line += f"; companion at {comp} found: {hit}"
+            _require(hit, f"{name}: the companion missed")
+        print(line + _at(t_phase), flush=True)
+
+    # EvalRoc on every S10_EVERY-th frame; one injection at full depth
+    roc_ds = Dataset(cube=pcube[::S10_EVERY].contiguous(),
+                     angles=angles_np[::S10_EVERY], psf=ds.psfn,
+                     fwhm=COMP_FWHM, px_scale=S10_PX_SCALE)
+    roc = EvalRoc(roc_ds, plsc=S10_PX_SCALE, n_injections=S10_ROC_INJECTIONS,
+                  dist_flux=S10_ROC_FLUX)
+    roc.add_algo("pca", PCABuilder(dataset=roc_ds, ncomp=NCOMP,
+                                   verbose=False).build(), "r", "o",
+                 list(S10_ROC_THRESH))
+    roc.add_algo("medsub", MedianBuilder(dataset=roc_ds,
+                                         verbose=False).build(), "b", "^",
+                 list(S10_ROC_THRESH))
+    record("EvalRoc inject_and_postprocess", lambda: _quiet(
+        roc.inject_and_postprocess)(rng=np.random.RandomState(10)),
+        warm=False)
+    t0 = time.perf_counter()
+    _quiet(roc.compute_tpr_fps)()
+    times["EvalRoc compute_tpr_fps"] = time.perf_counter() - t0
+    i3 = S10_ROC_THRESH.index(3)
+    dets = {m["name"]: [int(d[i3]) for d in m["detections"]]
+            for m in roc.methods}
+    found = [any(dets[k][i] for k in dets) for i in range(roc.n_injections)]
+    print(f"slice 10 EvalRoc ({roc_ds.n}x{SIZE}^2, {roc.n_injections} "
+          f"injections; compute_tpr_fps on the host "
+          f"{times['EvalRoc compute_tpr_fps']:.4f} s; fluxes {np.round(roc.fluxes, 1).tolist()} at "
+          f"{[round(float(d), 1) for d in roc.dists]} px, CEVR 0.9 -> "
+          f"{int(roc.optpcs)} PCs): detections at threshold 3 {dets}; "
+          f"false positives at 3 "
+          f"{ {m['name']: [int(f[i3]) for f in m['fps']] for m in roc.methods} }"
+          f"{_at(t_phase)}", flush=True)
+    _require(all(found), "EvalRoc: an injection was found in no map")
+    record("cube_inject_companions full depth", lambda: as_tensor(
+        cube_inject_companions(pcube, ds.psfn, angles_np, flevel=100,
+                               rad_dists=[30], plsc=S10_PX_SCALE, theta=45),
+        device=pcube.device, dtype=pcube.dtype), warm=False)
+
+    # Dataset.save / load on the first frames
+    ds_save = Dataset(cube=pcube[:S10_SAVE_FRAMES].contiguous(),
+                      angles=angles_np[:S10_SAVE_FRAMES], psf=ds.psf,
+                      psfn=ds.psfn, fwhm=ds.fwhm, px_scale=S10_PX_SCALE)
+    ds_save.injections_yx = [(src[1], src[0])]
+    npz = os.path.join(tmpdir, "dataset")
+    times["Dataset.save"] = _timed(lambda: ds_save.save(npz))
+    t0 = time.perf_counter()
+    loaded = Dataset.load(npz)
+    times["Dataset.load"] = time.perf_counter() - t0
+    _require(all(getattr(loaded, k).device == pcube.device
+                 and _bits_equal(getattr(loaded, k), getattr(ds_save, k))
+                 for k in ("cube", "psf", "psfn"))
+             and np.array_equal(loaded.angles, ds_save.angles)
+             and loaded.fwhm == ds_save.fwhm and loaded.cuberef is None
+             and [tuple(p) for p in loaded.injections_yx]
+             == ds_save.injections_yx
+             and (loaded.n, loaded.y, loaded.x) == (S10_SAVE_FRAMES, SIZE,
+                                                    SIZE),
+             "Dataset: the save/load round trip changed it")
+    print(f"slice 10 Dataset.save / load of {S10_SAVE_FRAMES}x{SIZE}^2: "
+          f"{times['Dataset.save']:.4f} s / {times['Dataset.load']:.4f} s "
+          f"(once), {os.path.getsize(npz + '.npz') / 1e6:.1f} MB; the cube "
+          f"back on the card, bit-equal", flush=True)
+    print(f"slice 10 cuts: EvalRoc on every {S10_EVERY}th frame "
+          f"({roc_ds.n} of {N_FRAMES}); the six other PP classes on "
+          f"phases 15's and 17's cuts (annular NMF and LLSG on every "
+          f"{S10_SLICE4_EVERY}th frame of the central {SLICE4_CROP}^2 and "
+          f"LOCI on every {S10_LOCI_EVERY}th, each held to its function on "
+          f"the same frames; frame differencing on all frames of it, "
+          f"ANDROMEDA and FMMF on every {INV_EVERY}th frame of the central "
+          f"{INV_SIZE}^2); Dataset.save on the first {S10_SAVE_FRAMES}; the "
+          f"phase took {time.perf_counter() - t_phase:.1f} s on {_card()}",
+          flush=True)
+    return counts, times
+
+
+def slice10_only():
+    """Phase 22 alone (``--slice10``): the build, the cube with the
+    planted companion, slice 10 (the PP classes' functions run here)."""
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    angles_np = np.linspace(0.0, 80.0, N_FRAMES).astype(np.float32)
+    pcube, src = _plant_companion(cube, angles_np)
+    del cube
+    with tempfile.TemporaryDirectory() as tmpdir:
+        counts, _ = phase_slice10(pcube, angles_np, src, tmpdir)
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()),
+          flush=True)
 
 
 def _timed(fn):
@@ -4154,13 +4660,19 @@ def main():
                                                cc_cols)
     stim_counts, run_stim = phase_stim(pcube, angles_np, src)
     phase_f2()
-    slice4 = phase_slice4(pcube, angles_np, src)
+    pp_refs = {}     # phases 15's and 17's results, for phase 22
+    slice4 = phase_slice4(pcube, angles_np, src, keep=pp_refs)
     negfc_counts, negfc_times = phase_negfc(pcube, angles_np, src)
-    invprob_counts, invprob_times = phase_invprob(pcube, angles_np)
+    invprob_counts, invprob_times = phase_invprob(pcube, angles_np,
+                                                  keep=pp_refs)
     ifs_counts, ifs_times = phase_ifs()
     s8a_counts, s8a_times = phase_slice8a(cube, angles_np, pcube, src)
     s8b_counts, s8b_times = phase_slice8b(cube)
     s89_counts, s89_times = phase_slice8c9(cube, angles_np)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        s10_counts, s10_times = phase_slice10(pcube, angles_np, src, tmpdir,
+                                              pp_refs)
+    del pp_refs
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
     new_paths.update({k: v[0] for k, v in slice4.items()})
@@ -4170,6 +4682,7 @@ def main():
     new_paths.update({f"8a {k}": v for k, v in s8a_counts.items()})
     new_paths.update({f"8b {k}": v for k, v in s8b_counts.items()})
     new_paths.update({f"8c/9 {k}": v for k, v in s89_counts.items()})
+    new_paths.update({f"10 {k}": v for k, v in s10_counts.items()})
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -4305,7 +4818,10 @@ def main():
           f"{t_ann_ms:.4f} s (once); snrmap {SIZE}^2 {t_snr:.4f} s, "
           f"snrmap_fast {t_snrf:.4f} s", flush=True)
     print(f"timing pca_incremental {N_FRAMES}x{SIZE}x{SIZE} from FITS, "
-          f"batch {INC_BATCH} (warm): " + ", ".join(
+          f"batch {INC_BATCH} (warm; the codec's decode into pinned memory;"
+          f" phase 22's numpy decode and pinned copy "
+          f"{s10_times['pca_incremental numpy decode, pinned copy']:.4f} s"
+          f"): " + ", ".join(
               f"{k} {_spread(v)} s" for k, v in t_inc.items())
           + f"; contrast curve (3 patterns + empty) {_spread(t_cc_runs)} s;"
           f" completeness (2 radii, once) {t_compl:.4f} s; "
@@ -4328,6 +4844,9 @@ def main():
           flush=True)
     print("timing slices 8c and 9 (s; see the phase 21 lines): "
           + ", ".join(f"{k} {v:.4f}" for k, v in s89_times.items()),
+          flush=True)
+    print("timing slice 10 (s; see the phase 22 lines): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in s10_times.items()),
           flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
@@ -4606,6 +5125,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--slice8c9":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         slice8c9_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--slice10":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        slice10_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

@@ -1551,3 +1551,107 @@ def test_slice9_chisquare_fd_on_the_card(cuda_device):
                        *args[2:], algo_options=opts, imlib="vip-fft")
     assert median.launches > before[0] and shear.launches > before[1]
     assert abs(got - ref) <= 1e-3 * ref
+
+
+@pytest.fixture
+def on_the_card(cuda_device):
+    """Numpy input to the card for one test (the module runs on the CPU)."""
+    vip_tpu_torch.set_device(cuda_device)
+    try:
+        yield cuda_device
+    finally:
+        vip_tpu_torch.set_device("cpu")
+
+
+def _s10_dataset(n=40, size=64, seed=41):
+    """A noise cube with a Gaussian PSF, as host numpy float64."""
+    rng = np.random.default_rng(seed)
+    cube = rng.standard_normal((n, size, size))
+    yy, xx = np.mgrid[:13, :13]
+    psf = np.exp(-((yy - 6) ** 2 + (xx - 6) ** 2) / (2 * (4 / 2.355) ** 2))
+    return cube, np.linspace(0, 70, n), psf
+
+
+def test_slice10_dataset_from_numpy_lands_on_the_card(on_the_card):
+    from vip_tpu_torch.objects import Dataset
+
+    cube, angles, psf = _s10_dataset()
+    ds = Dataset(cube=cube, angles=angles, psf=psf, fwhm=4, px_scale=0.027)
+    assert ds.cube.is_cuda and ds.cube.dtype == torch.float32
+    assert ds.psf.is_cuda and isinstance(ds.angles, np.ndarray)
+    ds.normalize_psf(fit_fwhm=True, verbose=False)
+    assert ds.psfn.is_cuda and ds.psfn.dtype == torch.float32
+    copy = ds.copy()
+    assert copy.cube.is_cuda and torch.equal(copy.cube, ds.cube)
+
+
+def test_slice10_pppca_classic_is_pca_through_h1_h2(on_the_card):
+    from vip_tpu_torch.objects import Dataset, MedianBuilder, PCABuilder
+    from vip_tpu_torch.psfsub import median_sub, pca
+
+    cube, angles, psf = _s10_dataset()
+    ds = Dataset(cube=cube, angles=angles, psf=psf, fwhm=4, px_scale=0.027)
+    before = (median.launches, shear.launches)
+    obj = PCABuilder(dataset=ds, ncomp=5, verbose=False).build()
+    obj.run(verbose=False)
+    assert median.launches > before[0] and shear.launches > before[1]
+    assert obj.frame_final.is_cuda
+    direct = pca(cube=ds.cube, angle_list=ds.angles, ncomp=5, fwhm=4,
+                 full_output=True, verbose=False)
+    assert torch.equal(obj.frame_final, direct[0])
+    obj = MedianBuilder(dataset=ds, verbose=False).build()
+    obj.run()
+    direct = median_sub(ds.cube, ds.angles, fwhm=4, full_output=True,
+                        verbose=False)
+    assert torch.equal(obj.frame_final, direct[2])
+
+
+def test_slice10_decode_into_pinned_memory(cuda_device, tmp_path):
+    """The lazy HDU decodes into a pinned tensor, bit for bit the plain
+    decode; ``pca_incremental`` through that route equals its float64
+    lazy HDU's (decoded, then cast to float32 and pinned) bit for bit."""
+    from vip_tpu_torch.fits import _native, open_fits, write_fits
+    from vip_tpu_torch.psfsub.utils_pca import pca_incremental
+
+    cube = np.random.default_rng(42).standard_normal((60, 64, 64))
+    path = str(tmp_path / "cube.fits")
+    write_fits(path, cube, verbose=False)
+    lazy = open_fits(path, return_memmap=True)
+    buf = torch.empty((20, 64 * 64), dtype=torch.float32, pin_memory=True)
+    lazy._read_frames(10, 30, out=buf)
+    hdu = lazy._hdu
+    want = _native._decode_plain(path, hdu["offset"], hdu["shape"],
+                                 hdu["bitpix"], 1.0, 0.0, np.float32)
+    assert buf.is_pinned()
+    assert buf.numpy().tobytes() == want[10:30].tobytes()
+    vip_tpu_torch.set_device(cuda_device)
+    try:
+        pinned = pca_incremental(lazy, np.linspace(0, 60, 60), batch=20,
+                                 ncomp=3, verbose=False)
+        other = pca_incremental(open_fits(path, return_memmap=True,
+                                          precision=np.float64),
+                                np.linspace(0, 60, 60), batch=20, ncomp=3,
+                                verbose=False)
+    finally:
+        vip_tpu_torch.set_device("cpu")
+    assert np.array_equal(pinned, other)
+
+
+def test_slice10_evalroc_on_the_card(on_the_card):
+    from vip_tpu_torch.metrics import EvalRoc
+    from vip_tpu_torch.objects import Dataset, MedianBuilder, PCABuilder
+
+    cube, angles, psf = _s10_dataset(n=20)
+    ds = Dataset(cube=cube, angles=angles, psf=psf / psf.sum(), fwhm=4,
+                 px_scale=0.1)
+    roc = EvalRoc(ds, plsc=0.1, n_injections=2, inrad=8, outrad=14,
+                  dist_flux=("uniform", 40, 60))
+    roc.add_algo("medsub", MedianBuilder(dataset=ds, verbose=False).build(),
+                 "-", "b", thresholds=[1, 2, 3])
+    roc.add_algo("pca", PCABuilder(dataset=ds, ncomp=3, verbose=False)
+                 .build(), "-", "r", thresholds=[1, 2, 3])
+    roc.inject_and_postprocess(rng=np.random.RandomState(0))
+    roc.compute_tpr_fps()
+    for m in roc.methods:
+        assert all(f.is_cuda for f in m["frames"])
+        assert len(m["detections"]) == 2

@@ -66,7 +66,9 @@ names = [m.name for m in pkgutil.walk_packages(vip_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 from vip_tpu_torch import _build
+from vip_tpu_torch.fits import _native
 assert _build._lib is None            # nothing was built or loaded
+assert _native._lib is None
 print(len(names))
 """
 

@@ -16,20 +16,28 @@ import pytest
 import vip_tpu_torch
 
 SHARED = ("config", "var", "preproc", "ops", "psfsub", "metrics", "fm",
-          "fits", "greedy", "invprob", "stats")
+          "fits", "greedy", "invprob", "stats", "objects")
 
 # {subpackage: {slice: names}}: vip_tpu's public names the port has not
 # ported yet (ROADMAP Queue 1)
 STILL_TO_PORT = {
     "config": {
-        "10": {"Progressbar", "Saveable", "make_chunks", "redirect_output",
-               "time_fin", "vip_figdpi", "vip_figsize", "device_trace",
-               "annotate_trace", "GPI_IFS", "KECK_NIRC2", "LBT",
-               "VLT_NACO", "VLT_SINFONI", "VLT_SPHERE_IFS",
-               "VLT_SPHERE_IRDIS"},
         "11": {"chunked_vmap", "device_put_sharded_frames", "frame_mesh",
                "shard_cube", "sharded_frame_map"}},
-    "metrics": {"10": {"EvalRoc"}},
+}
+
+# slice 10's names (ROADMAP Queue 1): none may be left
+SLICE_10 = {
+    "config": {"Progressbar", "Saveable", "make_chunks", "redirect_output",
+               "time_fin", "vip_figdpi", "vip_figsize", "device_trace",
+               "annotate_trace", "GPI_IFS", "KECK_NIRC2", "LBT", "VLT_NACO",
+               "VLT_SINFONI", "VLT_SPHERE_IFS", "VLT_SPHERE_IRDIS"},
+    "metrics": {"EvalRoc"},
+    "objects": {"Dataset", "Frame", "PostProc", "PPResult", "ALL_SESSIONS",
+                "LAST_SESSION", "PCABuilder", "PPPCA", "MedianBuilder",
+                "PPMedianSub", "AndroBuilder", "PPAndromeda", "FMMFBuilder",
+                "PPFMMF", "FrameDiffBuilder", "PPFrameDiff", "LLSGBuilder",
+                "PPLLSG", "LOCIBuilder", "PPLOCI", "NMFBuilder", "PPNMF"},
 }
 
 # slice 9's names (ROADMAP Queue 1): none may be left
@@ -115,3 +123,21 @@ def test_no_slice_9_name_is_still_to_port():
     assert len(SLICE_9) == 11
     assert SLICE_9 <= _public("vip_tpu_torch.fm"), \
         sorted(SLICE_9 - _public("vip_tpu_torch.fm"))
+
+
+def test_no_slice_10_name_is_still_to_port():
+    waiting = set().union(*(_waiting(s) for s in SHARED))
+    for sub, names in SLICE_10.items():
+        assert not waiting & names, sorted(waiting & names)
+        assert names <= _public(f"vip_tpu_torch.{sub}"), \
+            sorted(names - _public(f"vip_tpu_torch.{sub}"))
+    # every name of vip_tpu.objects is one of slice 10's
+    assert _public("vip_tpu.objects") == SLICE_10["objects"]
+    # slice 11's names are all that is left
+    assert set(STILL_TO_PORT) == {"config"} \
+        and set(STILL_TO_PORT["config"]) == {"11"}
+    from vip_tpu.vip_ds9 import Ds9Window as Theirs
+    from vip_tpu_torch.vip_ds9 import Ds9Window
+
+    public = {n for n in dir(Theirs) if not n.startswith("_")}
+    assert public <= {n for n in dir(Ds9Window) if not n.startswith("_")}

@@ -4,8 +4,11 @@ Every public top-level function that the port has under the same module
 and name as vip_tpu must bind a call in vip_tpu's positional order the
 same way: vip_tpu's positional parameter names are a prefix of the
 port's (a port may add trailing ones), with one documented rename: the
-random ``key`` of ``ops.linalg`` is the port's ``omega`` sketch. Both
-packages are parsed with ``ast``, not imported. Then the two calls that
+random ``key`` of ``ops.linalg`` is the port's ``omega`` sketch. The
+public methods (and constructors) of the object layer's classes
+(``objects``, ``metrics.roc.EvalRoc``, ``vip_ds9.Ds9Window``) are held
+the same way. Both packages are parsed with ``ast``, not imported. Then
+the two calls that
 the old order bound wrongly (ROADMAP Queue 3, F1) run against vip_tpu on
 the CPU at float64.
 """
@@ -54,6 +57,57 @@ def _positional(package):
                     args = node.args.posonlyargs + node.args.args
                     out[(module, node.name)] = [a.arg for a in args]
     return out
+
+
+# the modules whose classes' methods are held to vip_tpu's order
+CLASS_MODULES = ("objects.", "metrics.roc", "vip_ds9")
+
+
+def _methods(package):
+    """{(module, class.method): positional parameter names} of the public
+    methods and constructors of the classes of CLASS_MODULES."""
+    top = os.path.join(ROOT, package)
+    out = {}
+    for dirpath, _, files in os.walk(top):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            module = os.path.relpath(path, top)[:-3].replace(os.sep, ".")
+            if not name.endswith(".py") or not module.startswith(
+                    CLASS_MODULES):
+                continue
+            with open(path) as fh:
+                tree = ast.parse(fh.read())
+            for node in tree.body:
+                if not isinstance(node, ast.ClassDef):
+                    continue
+                for fn in node.body:
+                    if isinstance(fn, ast.FunctionDef) and (
+                            fn.name == "__init__"
+                            or not fn.name.startswith("_")):
+                        args = fn.args.posonlyargs + fn.args.args
+                        out[(module, f"{node.name}.{fn.name}")] = \
+                            [a.arg for a in args]
+    return out
+
+
+def _common_methods():
+    ours, theirs = _methods("vip_tpu_torch"), _methods("vip_tpu")
+    return [(k, theirs[k], ours[k]) for k in sorted(set(ours) & set(theirs))]
+
+
+def test_shared_methods_are_many():
+    # Dataset, Frame, PostProc, the PP classes, PPResult, EvalRoc and
+    # Ds9Window: every method of vip_tpu's is the port's too
+    theirs = _methods("vip_tpu")
+    assert len(theirs) >= 80
+    assert set(theirs) <= set(_methods("vip_tpu_torch")), \
+        sorted(set(theirs) - set(_methods("vip_tpu_torch")))
+
+
+@pytest.mark.parametrize("key,theirs,ours", _common_methods(),
+                         ids=[".".join(k) for k, _, _ in _common_methods()])
+def test_method_positional_order_of_vip_tpu(key, theirs, ours):
+    assert ours[:len(theirs)] == theirs, f"{key}: {ours} against {theirs}"
 
 
 def _common():

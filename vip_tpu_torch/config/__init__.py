@@ -1,7 +1,9 @@
-"""Config layer of the port: enums, parameter plumbing, device policy."""
+"""Config layer of the port: enums, parameter plumbing, device policy,
+runtime utilities and the telescope constants."""
 
 from .device import *
 from .mem import *
+from .param import *
 from .paramenum import *
 from .timing import *
 from .utils_conf import *

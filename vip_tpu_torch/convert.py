@@ -11,8 +11,11 @@
   ops/linalg.py:65) into the ``omega`` argument of
   ``ops.linalg.randomized_svd``/``svd_top``/``project_subtract``, so two
   implementations can be compared on the same draw.
+- :func:`dataset_from_numpy` turns a vip_tpu ``Dataset`` (or any object
+  with its fields) into the port's ``objects.Dataset``, its cubes and
+  PSFs on the device.
 
-Neither imports vip_tpu or jax: the objects are read by their fields.
+None imports vip_tpu or jax: the objects are read by their fields.
 """
 
 import dataclasses
@@ -23,7 +26,7 @@ import numpy as np
 from .config import paramenum
 from .config.device import as_tensor
 
-__all__ = ["params_from_numpy", "draws_from_numpy"]
+__all__ = ["params_from_numpy", "draws_from_numpy", "dataset_from_numpy"]
 
 
 def _convert(value, device, dtype):
@@ -65,3 +68,31 @@ def draws_from_numpy(draw, device=None, dtype=None):
     """A random draw (numpy array) as the ``omega`` tensor of the port's
     randomized SVD, on ``device`` in ``dtype`` (device policy defaults)."""
     return as_tensor(np.array(draw), device, dtype)
+
+
+def dataset_from_numpy(ds, device=None, dtype=None):
+    """The port's ``Dataset`` with the fields of ``ds`` (``cube``,
+    ``cuberef``, ``angles``, ``wavelengths``, ``psf``, ``psfn``, ``fwhm``,
+    ``px_scale``, ``injections_yx``; a missing field is None).
+
+    The cube, the reference cube and the PSFs go to ``device`` (default:
+    the device of ``vip_tpu_torch.set_device``) in ``dtype`` (default: the
+    device policy's working dtype); the angles and wavelengths stay host
+    numpy, and the injections a list."""
+    from .objects.dataset import Dataset
+
+    def field(name):
+        return getattr(ds, name, None)
+
+    def placed(name):
+        value = field(name)
+        return None if value is None else as_tensor(np.asarray(value),
+                                                    device, dtype)
+
+    out = Dataset(cube=placed("cube"), angles=field("angles"),
+                  wavelengths=field("wavelengths"), fwhm=field("fwhm"),
+                  px_scale=field("px_scale"), psf=placed("psf"),
+                  psfn=placed("psfn"), cuberef=placed("cuberef"))
+    if field("injections_yx") is not None:
+        out.injections_yx = list(field("injections_yx"))
+    return out

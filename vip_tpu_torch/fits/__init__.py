@@ -1,5 +1,5 @@
-"""FITS I/O of the port: a numpy-only copy of ``vip_tpu.fits`` (the C++
-decoder stays with slice 10)."""
+"""FITS I/O of the port: a copy of ``vip_tpu.fits`` with its native
+codec (``fits_io.cpp``, built with g++ at its first use)."""
 
 from .fits import *
 from .headers import *

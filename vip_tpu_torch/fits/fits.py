@@ -3,12 +3,12 @@ copy and imports nothing of vip_tpu).
 
 Self-contained reader/writer for the FITS standard (primary + IMAGE
 extensions): 2880-byte blocks, 80-char header cards, big-endian data with
-BSCALE/BZERO. The data blocks decode with numpy alone (``np.fromfile`` at
-the block's offset, then a cast); vip_tpu's multithreaded C++ decoder
-(``fits_io.cpp``) is not carried over. ``open_fits(...,
+BSCALE/BZERO. The data blocks go through the native codec
+(``_native.py``: ``fits_io.cpp``, a multithreaded mmap decoder and
+encoder, built with g++ at its first use). ``open_fits(...,
 return_memmap=True)`` returns a lazy HDU whose frame slices decode only
-the frames asked for, the contract ``psfsub.pca_incremental`` streams
-on.
+the frames asked for, the contract ``psfsub.pca_incremental`` streams on;
+its ``_read_frames`` decodes into a caller's buffer (pinned memory).
 """
 
 from os import remove
@@ -16,15 +16,13 @@ from os.path import exists, isfile
 
 import numpy as np
 
+from . import _native
 from .headers import BLOCK, CARD, Header
 
 __all__ = ["open_fits", "info_fits", "write_fits", "verify_fits",
            "byteswap_array"]
 
 ALL_FITS = -2
-
-_BITPIX_DTYPE = {8: np.uint8, 16: ">i2", 32: ">i4", 64: ">i8",
-                 -32: ">f4", -64: ">f8"}
 
 
 def _read_header_blocks(fh):
@@ -73,25 +71,20 @@ def _scan_hdus(path):
     return hdus
 
 
-def _read_hdu_data(path, hdu, precision=np.float32):
-    """Decode the data block of one scanned HDU into a native float array."""
+def _read_hdu_data(path, hdu, precision=np.float32, out=None):
+    """Decode the data block of one scanned HDU into a native float array
+    (into ``out`` when given: see ``_native.decode``)."""
     shape = hdu["shape"]
     if not shape or hdu["nbytes"] == 0:
         return None
     header = hdu["header"]
     bscale = float(header.get("BSCALE", 1.0))
     bzero = float(header.get("BZERO", 0.0))
-    if hdu["bitpix"] not in _BITPIX_DTYPE:
+    if hdu["bitpix"] not in _native._BITPIX_DTYPE:
         raise ValueError("Unsupported BITPIX value {} in FITS header of {}"
                          .format(hdu["bitpix"], path))
-    dt = _BITPIX_DTYPE[hdu["bitpix"]]
-    raw = np.fromfile(path, dtype=dt,
-                      count=int(np.prod(shape)),
-                      offset=hdu["offset"]).reshape(shape)
-    data = raw.astype(precision)
-    if bscale != 1.0 or bzero != 0.0:
-        data = (bscale * data + bzero).astype(precision)
-    return data
+    return _native.decode(path, hdu["offset"], shape, hdu["bitpix"], bscale,
+                          bzero, precision, out=out)
 
 
 def open_fits(fitsfilename, n=0, header=False, ignore_missing_end=False,
@@ -172,8 +165,10 @@ class _LazyHDU:
     def data(self):
         return _read_hdu_data(self._path, self._hdu, self._precision)
 
-    def _read_frames(self, start, stop):
-        """Decode frames [start, stop) of the leading axis only."""
+    def _read_frames(self, start, stop, out=None):
+        """Decode frames [start, stop) of the leading axis only (into
+        ``out``, a contiguous CPU buffer of the lazy HDU's precision, when
+        given)."""
         n = self.shape[0]
         start = max(0, min(start, n))
         stop = max(start, min(stop, n))
@@ -183,7 +178,7 @@ class _LazyHDU:
         sub["offset"] = self._hdu["offset"] + start * per_frame * itemsize
         sub["shape"] = (stop - start,) + tuple(self.shape[1:])
         sub["nbytes"] = (stop - start) * per_frame * itemsize
-        return _read_hdu_data(self._path, sub, self._precision)
+        return _read_hdu_data(self._path, sub, self._precision, out=out)
 
     def __getitem__(self, key):
         if isinstance(key, (int, np.integer)):
@@ -276,9 +271,9 @@ def _write_hdu(fh, array, header, primary, precision):
     fh.write(text.encode("ascii") + b" " * pad)
 
     if array is not None:
-        be = array.astype(array.dtype.newbyteorder(">")).tobytes()
+        be = _native.encode(array)
         fh.write(be)
-        fh.write(b"\x00" * ((-len(be)) % BLOCK))
+        fh.write(b"\x00" * ((-be.size) % BLOCK))
 
 
 def write_fits(fitsfilename, array, header=None, output_verify="exception",

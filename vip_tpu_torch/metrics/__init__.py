@@ -1,6 +1,6 @@
 """Metrics (port of ``vip_tpu.metrics``: S/N, S/N maps and detection;
-contrast and completeness curves, STIM maps and the ROC detection maps).
-``EvalRoc`` waits for ROADMAP Queue 1, slice 10."""
+contrast and completeness curves, STIM maps, and the ROC curves of
+``EvalRoc`` with their detection maps)."""
 
 from .completeness import *
 from .contrcurve import *

@@ -504,6 +504,7 @@ def pca_incremental(cube, angle_list, batch=0.25, ncomp=1, collapse="median",
             "pca_incremental: pixel_mesh (several devices) is not ported yet "
             "(ROADMAP.md, Queue 1, slice 11)")
     from ..fits import open_fits
+    from ..fits.fits import _LazyHDU
 
     if isinstance(cube, str):
         cube = open_fits(cube, n=0, return_memmap=True, verbose=False)
@@ -539,10 +540,22 @@ def pca_incremental(cube, angle_list, batch=0.25, ncomp=1, collapse="median",
     wire = _wire_dtype(wire_dtype, work)
     work_np = np.float32 if work == torch.float32 else np.float64
 
+    # a float32 lazy HDU bound for a card with a float32 wire decodes each
+    # block straight into pinned memory (the same decode, so the same bits)
+    decode_pinned = (isinstance(cube, _LazyHDU) and dev.type == "cuda"
+                     and wire == torch.float32
+                     and np.dtype(cube._precision) == np.float32)
+
     def read_batch(b):
         """Host (or the tensor's) block ``b`` in the wire dtype, pinned
         when it will cross to a card."""
-        blk = cube[b * batch_size:min(n, (b + 1) * batch_size)]
+        lo, hi = b * batch_size, min(n, (b + 1) * batch_size)
+        if decode_pinned:
+            blk = torch.empty((hi - lo, npx), dtype=torch.float32,
+                              pin_memory=True)
+            cube._read_frames(lo, hi, out=blk)
+            return blk
+        blk = cube[lo:hi]
         if isinstance(blk, torch.Tensor):
             return blk.reshape(blk.shape[0], npx).to(wire)
         blk = torch.from_numpy(np.ascontiguousarray(
