@@ -20,8 +20,9 @@ stats, subsampling, cosmetics, ``randomized_svd_gpu``, ``pca(smooth=)``),
 slice 8b (registration and recentering, bad-pixel correction,
 bad-frame detection), slice 8c (the interpolation imlibs, ``edge_blend``,
 ``rot_mode="interp"``), slice 9 (the scattered-light disk, its
-injection, NEGFD) and slice 10 (the object layer, ``EvalRoc``, the
-native FITS codec).
+injection, NEGFD), slice 10 (the object layer, ``EvalRoc``, the
+native FITS codec) and slice 11 (several devices: the sharded steps on a
+one-rank NCCL group, and in 4 gloo ranks sharing the card).
 Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -194,6 +195,25 @@ Phases, one line each:
     threshold 3; one host injection at full depth timed; ``Dataset.save``
     and ``load`` of the first 100 frames, bit-equal, the cube back on the
     card.
+23. slice 11, several devices (run before the timings of 14): (a) a
+    one-rank NCCL group in this process and, at full width, the sharded
+    PCA-ADI (mean, median) and median-ADI against ``pca_adi_pipeline``
+    and ``median_adi_pipeline``, the sharded annular PCA on every 10th
+    frame against ``pca_annular(svd_mode="eigen")``, the sharded S/N map
+    of the median frame against ``snrmap_fast``, ``contrast_curve(pattern_mesh=)`` against phase 12's
+    curve, ``pca_incremental(pixel_mesh=)`` of phase 11's FITS batches
+    against ``pixel_mesh=None``, ``sharded_pca_sdi_single`` of phase 18's
+    sequence against ``pca(adimsdi="single", svd_mode="eigen")``, in
+    float32 (H1, H2) and in float64 on every 10th frame, the sharded walker
+    likelihood (16 walkers) and 2 steps of ``mcmc_negfc_sampling(
+    walker_mesh=)`` on phase 16's cut against the unsharded ones, bit for
+    bit; each with its time and its H1/H2 launches; (b) 4 gloo ranks
+    spawned on the same card (``vip_tpu_torch.dryrun.run_ranks``), each
+    checking that neither jax nor vip_tpu is loaded, every entry point of
+    (a) on the first 200 frames (the SDI on 36 channels and 8 frames)
+    against the same call at world size 1, the ranks' results equal; the
+    float32 PCAs whose last PCs turn with the order of the sums (the SDI
+    pass, the streamed PCA) again in float64.
 
 Phase 13 also runs the F2 configuration pca_incr_adi in float64 on the
 card against the CPU's float64 frame (ROADMAP Q3-3), and phase 15
@@ -215,7 +235,8 @@ double-pass ``pca`` call.
 phase 20 alone, with torch.profiler tables of its two slowest steps;
 ``--slice8c9`` runs phase 21 alone, with torch.profiler tables of its two
 slowest warps; ``--slice10`` runs phase 22 alone (the PP classes'
-functions run there too).
+functions run there too); ``--slice11`` runs phase 23 alone (phase 12's
+contrast curve and phase 18's sequence made there too).
 ``--seed N`` (with any of the above) makes phase 18's sequence from seed
 N (default 0).
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
@@ -232,8 +253,10 @@ Any failed phase raises, and the script exits non-zero without that line;
 so does a host with no CUDA card.
 """
 
+import concurrent.futures
 import contextlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -304,8 +327,11 @@ F2_CONFIGS = (("pca_adi", "pca", dict(svd_mode="lapack")),
 # cuSOLVER call a frame and segment (eigh of a 200² Gram: 4.0 ms) or an
 # SVD a segment and iteration (gesvd of (200, 3200): 20.3 ms; both on an
 # H100 80GB HBM3 at 700 W, ``--svd``); the roll
-# angles are the cube's angles split at their mean into two rolls
-SLICE4_CROP, SLICE4_EVERY, LOCI_EVERY = 120, 5, 10
+# angles are the cube's angles split at their mean into two rolls. Halved
+# (every 10th and 20th frame, from every 5th and 10th: the phase 54.0 s
+# against 103.0 s on an H100 80GB HBM3 at 700 W) when phase 23 took the
+# full script to 1122.6 s, past the 1100 s it keeps to of its 1200 s
+SLICE4_CROP, SLICE4_EVERY, LOCI_EVERY = 120, 10, 20
 # The greedy loops against their plain route, after their first pass: a
 # change of 1e-7 in the frame fed back (the derotations differ by that)
 # redraws the float32 rounding of the next PCA's residuals (~1e-5 of the
@@ -481,6 +507,59 @@ S10_ANNULUS_WIDTH, S10_SAVE_FRAMES = 12, 100
 S10_ROC_INJECTIONS, S10_ROC_FLUX, S10_ROC_THRESH = 4, ("uniform", 50, 150), \
     (1, 2, 3, 4, 5)
 S10_PX_SCALE = 0.0272
+# Slice 11 (phase 23), several devices. (a) NCCL at world size 1 in this
+# process, at full width: the sharded PCA-ADI (mean and median) and
+# median-ADI of the cube against the port's pipelines; the sharded annular
+# PCA on every S11_ANN_EVERY-th frame against pca_annular(svd_mode=
+# "eigen") (S11_ANN: asize 32 for bench.py's 4, each annulus costing one
+# cuSOLVER eigh a frame: 2.99 s for asize 16 on an H100 80GB HBM3 at
+# 700 W); the sharded S/N map of the median frame
+# against snrmap_fast; the contrast curve with pattern_mesh against
+# phase 12's; pca_incremental with pixel_mesh against pixel_mesh=None
+# (phase 11's batches of a FITS file); the walker likelihood of
+# S11_WALKERS walkers and S11_MCMC_STEPS steps of the MCMC of
+# S11_MCMC_WALKERS walkers (draws from seed 23) on phase 16's cut against
+# the unsharded ones, bit for bit; the
+# ADI+mSDI single pass on phase 18's sequence against pca(adimsdi=
+# "single", svd_mode="eigen"): in float32 (H1, H2) within S11_SDI_F32_TOL
+# and, on every S11_SDI64_EVERY-th frame, in float64 within PIPE_TOL, the
+# bound of tests/test_sharding.py:306 (pca's zoom keeps vip_tpu's float32
+# canvas, the sharded pass rounds through float32 once: 1.372e-07 on the
+# CPU, 3.447e-09 on an H100 80GB HBM3 at 700 W). In float32 the two
+# zooms' roundings differ by float32's epsilon, and the residual is a
+# small part of the halo-dominated frames it is cut from, so the frames
+# differ by more: 8.235e-04 and 8.413e-04 of max(|ref|, 1) in two runs
+# (before and after the sharded zoom took one channel at a time; an H100
+# 80GB HBM3 at 700 W); S11_SDI_F32_TOL is three times the larger.
+# (b) gloo at world size S11_RANKS, every rank on cuda:0, spawned through
+# vip_tpu_torch.dryrun: on the first S11_B_FRAMES frames (the annular PCA
+# on every S11_ANN_EVERY-th of them, the contrast curve on their central
+# S11_B_CC_CROP² pixels: its first call in a process builds cuFFT plans
+# for each companion's shift of the map: phase 12's curve took 34.70 s
+# in phase 23 run alone against 2.36 s after phase 12, and 20.5 s at
+# 256² in four fresh ranks at once, on an H100 80GB HBM3 at 700 W), an
+# S/N map of the cube's first frame, the SDI on the first S11_B_SDI
+# (channels, frames) of phase 18's sequence (39 channels do not divide by
+# 4), the likelihood and the MCMC on (a)'s inputs; each entry point
+# against the same call at world size 1 here within PIPE_TOL of
+# max(|ref|, 1), except the float32 streamed PCA, whose merge sums the
+# ranks' Grams of their pixel slabs in another order than one Gram: the
+# top PCs of white noise turn with that order (3.777e-04 of max(|ref|, 1)
+# in each of six runs on an H100 80GB HBM3 at 700 W), so it is held to
+# S11_INC_F32_TOL, three times that reading, beside a float64 twin held
+# to Q33_TOL
+S11_ANN_EVERY, S11_WALKERS, S11_MCMC_STEPS, S11_RANKS = 10, 16, 2, 4
+S11_MCMC_WALKERS = 8
+S11_ANN = dict(ncomp=NCOMP, fwhm=4.0, asize=32, delta_rot=0.5, n_segments=1)
+S11_B_FRAMES, S11_B_SDI, S11_B_CC_CROP, S11_B_TIMEOUT = 200, (36, 8), 128, \
+    300.0
+S11_SDI64_EVERY, S11_SDI_F32_TOL, S11_INC_F32_TOL = 10, 2.5e-3, 1.2e-3
+# (b)'s ranks share the card with this process, which keeps to
+# S11_MAIN_MEMORY of it meanwhile (its cache otherwise grows to the whole
+# card and a rank runs out); the float64 twin of the streamed PCA takes
+# the plain rotation (up to 8 GiB of canvases a rank at 512²), so it
+# runs on the central S11_B_INC64_CROP² pixels
+S11_MAIN_MEMORY, S11_B_INC64_CROP = 0.6, 128
 # Q3-2 (phase 15): ipca in float32 through the kernels may stand at most
 # Q32_RATIO times as far from its float64 run on the card as the float32
 # plain route does. Q3-3 (phase 13): pca_incr_adi in float64 on the card
@@ -1687,7 +1766,8 @@ def phase_slice4(pcube, angles_np, src, keep=None):
           f"on the central {SLICE4_CROP}x{SLICE4_CROP} (annuli to 60 px); "
           f"annular NMF and LLSG on every {SLICE4_EVERY}th frame "
           f"({crop5.shape[0]} of {N_FRAMES}), LOCI on every {LOCI_EVERY}th "
-          f"({crop10.shape[0]}); the phase took "
+          f"({crop10.shape[0]}), halved from every 5th and 10th to keep the "
+          f"script within 1100 s; the phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
@@ -2221,7 +2301,7 @@ def _ifs_cube(seed=None):
     return cube_t, angles, scal, psfn, (c + IFS_SEP, float(c))
 
 
-def phase_ifs(profile=False):
+def phase_ifs(profile=False, keep=None):
     """Slice 7, the 4-d IFS paths, on the synthetic sequence of
     ``_ifs_cube``: ``pca`` single pass (ncomp 10, crop_ifs), double pass
     (ncomp (2, 10)), per-channel ADI and an ncomp grid with scale_list;
@@ -2234,7 +2314,8 @@ def phase_ifs(profile=False):
     (median of 3), the rest once; the single pass, the double pass and
     the 4-d median_sub find the companion within 3 px. With ``profile``
     also torch.profiler tables of one single-pass and one double-pass
-    call. Returns {path: counts} and {name: seconds}."""
+    call. ``keep`` receives the sequence under "ifs" (phase 23 runs on
+    it). Returns {path: counts} and {name: seconds}."""
     import vip_tpu_torch.fm as tfm
     import vip_tpu_torch.invprob as ip
     import vip_tpu_torch.psfsub as tps
@@ -2242,6 +2323,8 @@ def phase_ifs(profile=False):
 
     t_phase = time.perf_counter()
     cube, angles, scal, psfn, src = _ifs_cube()
+    if keep is not None:
+        keep["ifs"] = (cube, angles, scal)
     t_make = time.perf_counter() - t_phase
     print(f"ifs cube {tuple(cube.shape)} float32 "
           f"({cube.numel() * 4 / 1e9:.2f} GB on the card), scale_list "
@@ -4151,6 +4234,331 @@ def slice10_only():
           flush=True)
 
 
+def _s11_negfc_inputs(pcube, angles_np):
+    """Phase 16's cut (every NEGFC_EVERY-th frame of the cube with the
+    planted companion), its normalized PSF, S11_WALKERS walkers about the
+    truth, the likelihood's arguments and the MCMC's draws (seed 23)."""
+    from vip_tpu_torch.fm import normalize_psf
+
+    ncube = pcube[::NEGFC_EVERY].contiguous()
+    nangs = angles_np[::NEGFC_EVERY].astype(np.float64)
+    psfn = normalize_psf(_gaussian_psf(), fwhm=COMP_FWHM, verbose=False)
+    rng = np.random.default_rng(23)
+    truth = np.array([COMP_SEP, 0.0, 2.0 * np.pi * COMP_PEAK])
+    walkers = truth + rng.uniform(-1, 1, (S11_WALKERS, 3)) * [0.5, 0.5, 1.0]
+    bounds = [(COMP_SEP - 2, COMP_SEP + 2), (-5.0, 5.0), (0.0, 50.0)]
+    lnp_args = (ncube, nangs, psfn, 1, 8, COMP_SEP, 0.0, 1, COMP_FWHM, 0.0,
+                1.0, bounds)
+    half = S11_MCMC_WALKERS // 2
+    table = [(rng.random(half), rng.integers(0, half, half),
+              rng.random(half)) for _ in range(2 * S11_MCMC_STEPS)]
+    mcmc = dict(kind="mcmc", cube=ncube, angles=nangs, psfn=psfn,
+                initial_state=(COMP_SEP, 360.0, float(truth[2])),
+                draws_table=table, nwalkers=S11_MCMC_WALKERS,
+                niteration_min=S11_MCMC_STEPS,
+                niteration_limit=S11_MCMC_STEPS, conv_test="gb",
+                verbosity=0)
+    return walkers, lnp_args, mcmc
+
+
+def _s11_err(label, name, got, ref):
+    """The worst error of the arrays of ``got`` (an array, a tuple or a
+    dict of columns) against ``ref``'s, of max(|ref|, 1); raises on a
+    shape that differs or a value that is not finite."""
+    if isinstance(got, dict):
+        pairs = [(got[k], ref[k]) for k in ref]
+    elif isinstance(got, tuple):
+        pairs = list(zip(got, ref))
+    else:
+        pairs = [(got, ref)]
+    worst = 0.0
+    for g, r in pairs:
+        g, r = torch.as_tensor(np.asarray(g)), torch.as_tensor(np.asarray(r))
+        _require(g.shape == r.shape and bool(torch.isfinite(g).all()),
+                 f"slice 11 {label} {name}: shape {tuple(g.shape)} (want "
+                 f"{tuple(r.shape)}) or values not finite")
+        err, scale = _rel_err(g, r)
+        worst = max(worst, err / scale)
+    return worst
+
+
+def phase_slice11(cube, angles_np, pcube, ifs, tmpdir, refs=None):
+    """Slice 11, several devices (see the module docstring, phase 23):
+    (a) NCCL at world size 1 at full width, each sharded entry point
+    against its single-device counterpart; (b) S11_RANKS gloo ranks on
+    cuda:0, started first so that they reach the card while (a) runs and
+    computing once it has ended, each entry point against world size 1
+    on the same inputs.
+    ``ifs``: phase 18's (cube, angles, scale_list); ``refs``: phase 12's
+    contrast columns under "contrast" (computed here without it).
+    Returns ({name: counts}, {name: seconds})."""
+    import torch.distributed as dist
+
+    from vip_tpu_torch.config import frame_mesh
+    from vip_tpu_torch.dryrun import entry_points, run_ranks
+    from vip_tpu_torch.fits import write_fits
+    from vip_tpu_torch.fm import mcmc_negfc_sampling
+    from vip_tpu_torch.metrics import snrmap_fast
+    from vip_tpu_torch.metrics.contrcurve import _contrast_curve
+    from vip_tpu_torch.ops.negfc_model import make_batched_lnprob
+    from vip_tpu_torch.ops.pipeline import (median_adi_pipeline,
+                                            pca_adi_pipeline)
+    from vip_tpu_torch.psfsub import pca, pca_annular
+    from vip_tpu_torch.psfsub.utils_pca import pca_incremental
+
+    refs = {} if refs is None else refs
+    t_phase = time.perf_counter()
+    counts, times = {}, {}
+    ifs_cube, ifs_angles, scal = ifs
+    walkers, lnp_args, mcmc = _s11_negfc_inputs(pcube, angles_np)
+    # phase 12's contrast curve (its PSF is phase 16's)
+    psfn = lnp_args[2]
+    cc_kw = dict(nbranch=1, fc_rad_sep=3, fc_snr=100, student=True,
+                 plot=False, verbose=False, **CC_ALGO)
+    cc = dict(psf=psfn, fwhm=COMP_FWHM, pxscale=CC_PXSCALE,
+              starphot=CC_STARPHOT, **cc_kw)
+
+    # (b)'s inputs to files, and its ranks started: they share the card
+    # with this process, so the card gets back the blocks earlier phases
+    # left in this process's cache
+    torch.cuda.empty_cache()
+    b, (zb, nb), cb, ci = S11_B_FRAMES, S11_B_SDI, S11_B_CC_CROP, \
+        S11_B_INC64_CROP
+    c0, c1 = (SIZE - cb) // 2, (SIZE - ci) // 2
+    files = {}
+    for key, arr in (("cube", cube[:b]), ("ann", cube[:b:S11_ANN_EVERY]),
+                     ("ifs", ifs_cube[:zb, :nb]), ("negfc", mcmc["cube"]),
+                     ("cc", cube[:b, c0:c0 + cb, c0:c0 + cb]),
+                     ("inc64", cube[:b, c1:c1 + ci, c1:c1 + ci])):
+        files[key] = os.path.join(tmpdir, f"s11_{key}.npy")
+        np.save(files[key], arr.contiguous().cpu().numpy())
+    ang_b = angles_np[:b]
+    sdi_b = dict(kind="sdi", cube=files["ifs"], angles=ifs_angles[:nb],
+                 scal_list=scal[:zb], ncomp=IFS_NCOMP, crop_ifs=True)
+    specs_b = {
+        "pca_adi": dict(kind="pca_adi", cube=files["cube"], angles=ang_b,
+                        ncomp=NCOMP),
+        "pca_adi median": dict(kind="pca_adi", cube=files["cube"],
+                               angles=ang_b, ncomp=NCOMP, collapse="median"),
+        "median_adi": dict(kind="median_adi", cube=files["cube"],
+                           angles=ang_b),
+        "pca_annular": dict(kind="pca_annular", cube=files["ann"],
+                            angles=angles_np[:b:S11_ANN_EVERY], **S11_ANN),
+        "snrmap": dict(kind="snrmap", frame=cube[0].cpu().numpy(),
+                       fwhm=COMP_FWHM),
+        "contrast": dict(cc, kind="contrast", cube=files["cc"],
+                         angles=ang_b),
+        "incremental": dict(kind="incremental", cube=files["cube"],
+                            angles=ang_b, batch=INC_BATCH, ncomp=NCOMP),
+        "incremental float64": dict(kind="incremental",
+                                    cube=files["inc64"], angles=ang_b,
+                                    batch=INC_BATCH, ncomp=NCOMP,
+                                    float64=True),
+        "lnprob": dict(kind="lnprob", walkers=walkers,
+                       args=(files["negfc"],) + lnp_args[1:], kwargs={}),
+        "mcmc": dict(mcmc, cube=files["negfc"]),
+        "sdi": sdi_b,
+        "sdi float64": dict(sdi_b, float64=True),
+    }
+    print(f"slice 11 (b) cuts: {b} of {N_FRAMES} frames (the annular PCA on "
+          f"every {S11_ANN_EVERY}th of them, the contrast curve on their "
+          f"central {cb}² pixels, the streamed PCA's float64 twin on the "
+          f"central {ci}²), the SDI on {zb} of {ifs_cube.shape[0]} "
+          f"channels and {nb} of {ifs_cube.shape[1]} frames; inputs written "
+          f"in {time.perf_counter() - t_phase:.2f} s", flush=True)
+    t_b = time.perf_counter()
+    # this process keeps to S11_MAIN_MEMORY of the card while the ranks run
+    torch.cuda.set_per_process_memory_fraction(S11_MAIN_MEMORY)
+    # the ranks start now (~8 s each to reach the card) and wait for (a)
+    # to end before they compute: four processes time-slicing the card
+    # with (a)'s kernels ran both slower (the phase 66.0 s against (a)'s
+    # 34.4 s, on an H100 80GB HBM3 at 700 W)
+    go = multiprocessing.get_context("spawn").Event()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    spawned = pool.submit(run_ranks, "entry_points", S11_RANKS,
+                          backend="gloo", device="cuda:0", args=(specs_b,),
+                          timeout=S11_B_TIMEOUT, wait_for=go)
+    try:
+        # (a) full width, world size 1
+        t0 = time.perf_counter()
+        mesh = frame_mesh()
+        _require(dist.get_backend(mesh.get_group()) == "nccl"
+                 and mesh.size() == 1, "slice 11: not a one-rank NCCL mesh")
+        print(f"slice 11 (a): a one-rank NCCL group on "
+              f"{torch.cuda.current_device()} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        fits_path = os.path.join(tmpdir, "s11.fits")
+        write_fits(fits_path, cube.cpu().numpy(), verbose=False)
+        # the SDI pass in float64 on every S11_SDI64_EVERY-th frame
+        ifs64 = ifs_cube[:, ::S11_SDI64_EVERY].double()
+        ifs_angles64 = ifs_angles[::S11_SDI64_EVERY]
+        specs = {
+            "pca_adi": dict(kind="pca_adi", cube=cube, angles=angles_np,
+                            ncomp=NCOMP),
+            "pca_adi median": dict(kind="pca_adi", cube=cube,
+                                   angles=angles_np, ncomp=NCOMP,
+                                   collapse="median"),
+            "median_adi": dict(kind="median_adi", cube=cube,
+                               angles=angles_np),
+            "pca_annular": dict(kind="pca_annular",
+                                cube=cube[::S11_ANN_EVERY].contiguous(),
+                                angles=angles_np[::S11_ANN_EVERY],
+                                **S11_ANN),
+            "contrast": dict(kind="contrast", cube=cube, angles=angles_np,
+                             **cc),
+            "incremental": dict(kind="incremental", cube=fits_path,
+                                angles=angles_np, batch=INC_BATCH,
+                                ncomp=NCOMP),
+            "lnprob": dict(kind="lnprob", walkers=walkers, args=lnp_args,
+                           kwargs={}),
+            "mcmc": mcmc,
+            "sdi": dict(kind="sdi", cube=ifs_cube, angles=ifs_angles,
+                        scal_list=scal, ncomp=IFS_NCOMP, crop_ifs=True),
+            "sdi float64": dict(kind="sdi", cube=ifs64,
+                                angles=ifs_angles64, scal_list=scal,
+                                ncomp=IFS_NCOMP, crop_ifs=True),
+        }
+        res = entry_points(dict(list(specs.items())[:4]))
+        res.update(entry_points({"snrmap": dict(
+            kind="snrmap", frame=res["pca_adi median"]["out"],
+            fwhm=COMP_FWHM)}))
+        res.update(entry_points(dict(list(specs.items())[4:])))
+        cc_ref = refs.get("contrast")
+        if cc_ref is None:
+            cc_ref = _contrast_curve(cube, angles_np, psfn, COMP_FWHM,
+                                     CC_PXSCALE, CC_STARPHOT, pca,
+                                     **cc_kw)[0]
+        mcmc_kw = {k: v for k, v in mcmc.items()
+                   if k not in ("kind", "cube", "angles", "psfn",
+                                "initial_state", "draws_table")}
+        table = mcmc["draws_table"]
+        single = {
+            "pca_adi": lambda: pca_adi_pipeline(
+                cube, angles_np, ncomp=NCOMP, method="eigen",
+                collapse="mean"),
+            "pca_adi median": lambda: pca_adi_pipeline(
+                cube, angles_np, ncomp=NCOMP, method="eigen",
+                collapse="median"),
+            "median_adi": lambda: median_adi_pipeline(cube, angles_np),
+            "pca_annular": lambda: pca_annular(
+                specs["pca_annular"]["cube"], specs["pca_annular"]["angles"],
+                svd_mode="eigen", verbose=False, **S11_ANN),
+            "snrmap": lambda: snrmap_fast(res["pca_adi median"]["out"],
+                                          COMP_FWHM),
+            "incremental": lambda: pca_incremental(
+                fits_path, angles_np, batch=INC_BATCH, ncomp=NCOMP,
+                verbose=False),
+            "sdi": lambda: pca(
+                ifs_cube, ifs_angles, scale_list=scal, ncomp=IFS_NCOMP,
+                adimsdi="single", crop_ifs=True, svd_mode="eigen",
+                verbose=False),
+            "sdi float64": lambda: pca(
+                ifs64, ifs_angles64, scale_list=scal, ncomp=IFS_NCOMP,
+                adimsdi="single", crop_ifs=True, svd_mode="eigen",
+                verbose=False),
+            "lnprob": lambda: make_batched_lnprob(*lnp_args)(walkers),
+            "mcmc": lambda: mcmc_negfc_sampling(
+                mcmc["cube"], mcmc["angles"], mcmc["psfn"],
+                mcmc["initial_state"],
+                draws=lambda s, h, ns0, n1: table[2 * s + h], **mcmc_kw),
+            "contrast": lambda: cc_ref,
+        }
+        tols = {"sdi": S11_SDI_F32_TOL, "contrast": 1e-4, "lnprob": 0.0,
+                "mcmc": 0.0}
+        fails = []       # every comparison prints before the phase fails
+
+        def held(label, name, err, tol):
+            if err > tol:
+                fails.append(f"{label} {name}: {err:.3e} of max(|ref|, 1) "
+                             f"(bound {tol:.1e})")
+
+        for name, r in res.items():
+            if name == "device":
+                continue
+            counts[name], times[name] = r["counts"], r["s"]
+            t0 = time.perf_counter()
+            ref = single[name]()
+            t_ref = time.perf_counter() - t0
+            if isinstance(ref, torch.Tensor):
+                ref = ref.cpu().numpy()
+            err = _s11_err("(a)", name, r["out"], ref)
+            held("(a)", name, err, tols.get(name, PIPE_TOL))
+            print(f"slice 11 (a) {name}: {r['s']:.4f} s, launches "
+                  f"{r['counts']}; against its single-device call "
+                  f"{err:.3e} of max(|ref|, 1) (bound "
+                  f"{tols.get(name, PIPE_TOL):.1e}; the call {t_ref:.4f} s)",
+                  flush=True)
+        for name in ("pca_adi median", "median_adi", "pca_annular",
+                     "incremental", "sdi", "lnprob", "mcmc"):
+            _require(counts[name]["H1"] > 0 and counts[name]["H2"] > 0,
+                     f"slice 11 (a) {name}: launches {counts[name]}")
+        t_a = time.perf_counter() - t_phase
+        del ifs64
+
+        # (b): the ranks, and world size 1 here on their inputs
+        go.set()
+        one = entry_points(specs_b)
+        ranks = spawned.result()
+    finally:
+        go.set()
+        pool.shutdown(wait=True)
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    t_b = time.perf_counter() - t_b
+    _require(all(r["device"] == "cuda:0" for r in ranks),
+             f"slice 11 (b): ranks on {[r['device'] for r in ranks]}")
+    # the streamed PCA's merge sums its Grams in another order than one
+    # Gram: S11_INC_F32_TOL in float32, Q33_TOL for its float64 twin
+    tols_b = {"sdi float64": Q33_TOL, "incremental": S11_INC_F32_TOL,
+              "incremental float64": Q33_TOL}
+    for name in specs_b:
+        for r in ranks[1:]:
+            held("(b) ranks", name, _s11_err("(b) ranks", name,
+                                              r[name]["out"],
+                                              ranks[0][name]["out"]), 0.0)
+        err = _s11_err("(b)", name, ranks[0][name]["out"], one[name]["out"])
+        held("(b)", name, err, tols_b.get(name, PIPE_TOL))
+        h = {k: sum(r[name]["counts"][k] for r in ranks)
+             for k in ("H1", "H2", "H3", "H4")}
+        slow = max(r[name]["s"] for r in ranks)
+        print(f"slice 11 (b) {name}: {slow:.4f} s on the slowest of "
+              f"{S11_RANKS} ranks (world size 1: {one[name]['s']:.4f} s), "
+              f"launches over the ranks {h}; against world size 1 "
+              f"{err:.3e} of max(|ref|, 1) (bound "
+              f"{tols_b.get(name, PIPE_TOL):.1e})", flush=True)
+        times[f"(b) {name}"] = slow
+    _require(not fails, "slice 11: " + "; ".join(fails))
+    total = {k: sum(c[k] for c in counts.values())
+             for k in ("H1", "H2", "H3", "H4")}
+    print(f"slice 11: (a) {t_a:.1f} s, with (b)'s {S11_RANKS} ranks "
+          f"starting beside it; (b) from the spawn to the last rank's result "
+          f"{t_b:.1f} s; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s; launches of (a) {total}",
+          flush=True)
+    return counts, times
+
+
+def slice11_only():
+    """Phase 23 alone (``--slice11``): the build, the cube with the
+    planted companion, phase 18's sequence, slice 11 (phase 12's contrast
+    curve runs here)."""
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    angles_np = np.linspace(0.0, 80.0, N_FRAMES).astype(np.float32)
+    pcube, _ = _plant_companion(cube, angles_np)
+    ifs_cube, ifs_angles, scal, _, _ = _ifs_cube()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        counts, _ = phase_slice11(cube, angles_np, pcube,
+                                  (ifs_cube, ifs_angles, scal), tmpdir)
+    print("launches: " + "; ".join(f"{k} {v}" for k, v in counts.items()),
+          flush=True)
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4660,18 +5068,22 @@ def main():
                                                cc_cols)
     stim_counts, run_stim = phase_stim(pcube, angles_np, src)
     phase_f2()
-    pp_refs = {}     # phases 15's and 17's results, for phase 22
+    pp_refs = {}     # phases 15's, 17's and 18's results, for 22 and 23
     slice4 = phase_slice4(pcube, angles_np, src, keep=pp_refs)
     negfc_counts, negfc_times = phase_negfc(pcube, angles_np, src)
     invprob_counts, invprob_times = phase_invprob(pcube, angles_np,
                                                   keep=pp_refs)
-    ifs_counts, ifs_times = phase_ifs()
+    ifs_counts, ifs_times = phase_ifs(keep=pp_refs)
     s8a_counts, s8a_times = phase_slice8a(cube, angles_np, pcube, src)
     s8b_counts, s8b_times = phase_slice8b(cube)
     s89_counts, s89_times = phase_slice8c9(cube, angles_np)
     with tempfile.TemporaryDirectory() as tmpdir:
         s10_counts, s10_times = phase_slice10(pcube, angles_np, src, tmpdir,
                                               pp_refs)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        s11_counts, s11_times = phase_slice11(
+            cube, angles_np, pcube, pp_refs["ifs"], tmpdir,
+            {"contrast": cc_cols})
     del pp_refs
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
@@ -4683,6 +5095,8 @@ def main():
     new_paths.update({f"8b {k}": v for k, v in s8b_counts.items()})
     new_paths.update({f"8c/9 {k}": v for k, v in s89_counts.items()})
     new_paths.update({f"10 {k}": v for k, v in s10_counts.items()})
+    new_paths["slice11"] = {k: sum(c[k] for c in s11_counts.values())
+                            for k in ("H1", "H2", "H3", "H4")}
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -4847,6 +5261,9 @@ def main():
           flush=True)
     print("timing slice 10 (s; see the phase 22 lines): "
           + ", ".join(f"{k} {v:.4f}" for k, v in s10_times.items()),
+          flush=True)
+    print("timing slice 11 (s, one run each; see the phase 23 lines): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in s11_times.items()),
           flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
@@ -5129,6 +5546,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--slice10":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         slice10_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--slice11":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        slice11_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

@@ -119,9 +119,15 @@ def test_contrast_curve_without_student_and_4d_raises(data):
                                 1e4, jps.pca, **kw)
     assert _err(ours4["sensitivity_gaussian"],
                 theirs4["sensitivity_gaussian"]) <= 1e-6
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tm.throughput(cube, angles, psf, 4.0, tps.pca, pattern_mesh=object(),
-                      verbose=False)
+    # pattern_mesh: the patterns over a one-rank mesh (a gloo group of
+    # this process) give the curve without it
+    from vip_tpu_torch.config import frame_mesh
+
+    on_mesh = _contrast_curve(cube, angles, psf, 4.0, 0.1, 1e4, tps.pca,
+                              pattern_mesh=frame_mesh(axis_name="patterns"),
+                              **kw)[0]
+    for col in ours:
+        assert _err(on_mesh[col], ours[col]) <= TOL, col
 
 
 def test_stim_maps_vs_vip_tpu(data):

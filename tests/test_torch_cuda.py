@@ -1655,3 +1655,62 @@ def test_slice10_evalroc_on_the_card(on_the_card):
     for m in roc.methods:
         assert all(f.is_cuda for f in m["frames"])
         assert len(m["detections"]) == 2
+
+
+@pytest.fixture
+def nccl_mesh(on_the_card):
+    """A one-rank NCCL group of this process on the card, and its mesh;
+    the group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from vip_tpu_torch.config import frame_mesh
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    mesh = frame_mesh()
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def test_slice11_nccl_world_one_sharded_pca_adi(nccl_mesh):
+    """The sharded PCA-ADI on a one-rank NCCL mesh against the port's
+    pipeline on the same card, mean and median, through H1 and H2."""
+    import torch.distributed as dist
+
+    from vip_tpu_torch.psfsub.sharded import (make_sharded_median_adi,
+                                              make_sharded_pca_adi,
+                                              sharded_pca_adi)
+
+    assert dist.get_backend(nccl_mesh.get_group()) == "nccl"
+    assert nccl_mesh.size() == 1
+    cube, angles, _ = _s10_dataset()
+    cube_t = torch.as_tensor(cube, dtype=torch.float32, device="cuda")
+    for collapse in ("mean", "median"):
+        before = (median.launches, shear.launches)
+        if collapse == "mean":
+            got = torch.as_tensor(sharded_pca_adi(cube, angles, ncomp=5,
+                                                  mesh=nccl_mesh))
+        else:
+            got = make_sharded_pca_adi(nccl_mesh, 5, collapse="median")(
+                cube, angles).cpu()
+        assert shear.launches > before[1]
+        assert (median.launches > before[0]) == (collapse == "median")
+        ref = pipeline.pca_adi_pipeline(cube_t, angles, ncomp=5,
+                                        method="eigen",
+                                        collapse=collapse).cpu()
+        assert (got - ref).abs().max() <= 1e-5 * max(ref.abs().max(), 1.0)
+    got = make_sharded_median_adi(nccl_mesh)(cube, angles).cpu()
+    ref = pipeline.median_adi_pipeline(cube_t, angles).cpu()
+    assert (got - ref).abs().max() <= 1e-5 * max(ref.abs().max(), 1.0)
+
+
+def test_slice11_dryrun_two_gloo_ranks_on_the_card(cuda_device):
+    """``dryrun_multichip`` with 2 gloo ranks sharing the card: every
+    sharded entry point, with H1 and H2 launched in the ranks."""
+    from vip_tpu_torch.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(2, backend="gloo", device="cuda:0")
+    assert out["device"] == "cuda:0"
+    assert out["pca_adi median"]["H1"] > 0 and out["pca_adi"]["H2"] > 0

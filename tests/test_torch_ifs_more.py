@@ -218,9 +218,17 @@ def test_contrast_curve_4d_checks(cc_data):
     with pytest.raises(TypeError, match="cube"):
         tm.contrast_curve(cube, angles, psf[0], 4.0, 0.0125, 1e4, tps.pca,
                           plot=False, verbose=False, scale_list=scal)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tm.throughput(cube, angles, psf, 4.0, tps.pca, pattern_mesh=object(),
-                      verbose=False, scale_list=scal)
+    # a 4-d cube is not shardable over pattern_mesh: vip_tpu's route runs
+    # its patterns as without a mesh
+    from vip_tpu_torch.config import frame_mesh
+
+    kw = dict(nbranch=1, verbose=False, scale_list=scal, **CC)
+    on_mesh = tm.throughput(cube, angles, psf, 4.0, tps.pca,
+                            pattern_mesh=frame_mesh(axis_name="patterns"),
+                            **kw)
+    plain = tm.throughput(cube, angles, psf, 4.0, tps.pca, **kw)
+    for a, b in zip(on_mesh, plain):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_completeness_curve_4d(cc_data):

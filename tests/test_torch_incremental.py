@@ -183,9 +183,19 @@ def test_pca_batch_is_pca_incremental(fits_cube):
     assert pcs.shape == (3,) + cube.shape[1:] and medians.shape[0] == 3
     with pytest.raises(ValueError):
         tps.pca(cube, angs, batch=8, cube_ref=cube[:6], verbose=False)
-    with pytest.raises(NotImplementedError):
-        pca_incremental(path, angs, batch=8, pixel_mesh=object(),
-                        verbose=False)
+    # pixel_mesh: a one-rank mesh (a gloo group of this process) gives the
+    # frame without it; a host-route configuration refuses the mesh with
+    # vip_tpu's error
+    from vip_tpu_torch.config import frame_mesh
+
+    mesh = frame_mesh(axis_name="px")
+    np.testing.assert_allclose(
+        pca_incremental(path, angs, batch=8, ncomp=3, verbose=False,
+                        pixel_mesh=mesh), ref, rtol=0,
+        atol=TOL * max(np.abs(ref).max(), 1.0))
+    with pytest.raises(ValueError, match="pixel_mesh"):
+        pca_incremental(path, angs, batch=8, pixel_mesh=mesh,
+                        imlib="skimage", verbose=False)
 
 
 def test_golden_pca_incr_adi():

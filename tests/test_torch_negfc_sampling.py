@@ -142,9 +142,20 @@ def test_mcmc_theta_zero_and_not_ported(data):
     ref = jfm.mcmc_negfc_sampling(cube, angles, psfn, (R, 0.0, FLUX), **kw)
     assert np.max(np.abs(got - ref) / np.abs(ref)) <= CHAIN_TOL
     assert np.all(np.abs(got[:, :, 1] - 360) < 20)
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    # walker_mesh: a one-rank mesh (a gloo group of this process) gives
+    # the same chain; a host-route configuration refuses the mesh with
+    # vip_tpu's error
+    from vip_tpu_torch.config import frame_mesh
+
+    mesh = frame_mesh(axis_name="walkers")
+    on_mesh = tfm.mcmc_negfc_sampling(cube, angles, psfn, (R, 0.0, FLUX),
+                                      draws=jax_draws(3, 8, 2),
+                                      walker_mesh=mesh, **kw)
+    np.testing.assert_array_equal(on_mesh, got)
+    with pytest.raises(ValueError, match="walker_mesh"):
         tfm.mcmc_negfc_sampling(cube, angles, psfn, (R, THETA, FLUX),
-                                walker_mesh=object(), **kw)
+                                walker_mesh=mesh, radial_gradient=True,
+                                **kw)
 
 
 def test_nested_sampling_same_samples(data):

@@ -19,12 +19,13 @@ SHARED = ("config", "var", "preproc", "ops", "psfsub", "metrics", "fm",
           "fits", "greedy", "invprob", "stats", "objects")
 
 # {subpackage: {slice: names}}: vip_tpu's public names the port has not
-# ported yet (ROADMAP Queue 1)
-STILL_TO_PORT = {
-    "config": {
-        "11": {"chunked_vmap", "device_put_sharded_frames", "frame_mesh",
-               "shard_cube", "sharded_frame_map"}},
-}
+# ported yet (ROADMAP Queue 1); slice 11 ported the last ones
+STILL_TO_PORT = {}
+
+# slice 11's names (ROADMAP Queue 1): config's, and the sharded modules'
+SLICE_11 = {"chunked_vmap", "device_put_sharded_frames", "frame_mesh",
+            "shard_cube", "sharded_frame_map"}
+SHARDED = ("psfsub.sharded", "metrics.sharded", "fm.sharded")
 
 # slice 10's names (ROADMAP Queue 1): none may be left
 SLICE_10 = {
@@ -133,11 +134,28 @@ def test_no_slice_10_name_is_still_to_port():
             sorted(names - _public(f"vip_tpu_torch.{sub}"))
     # every name of vip_tpu.objects is one of slice 10's
     assert _public("vip_tpu.objects") == SLICE_10["objects"]
-    # slice 11's names are all that is left
-    assert set(STILL_TO_PORT) == {"config"} \
-        and set(STILL_TO_PORT["config"]) == {"11"}
+    # nothing is left to port
+    assert STILL_TO_PORT == {}
     from vip_tpu.vip_ds9 import Ds9Window as Theirs
     from vip_tpu_torch.vip_ds9 import Ds9Window
 
     public = {n for n in dir(Theirs) if not n.startswith("_")}
     assert public <= {n for n in dir(Ds9Window) if not n.startswith("_")}
+
+
+def test_no_slice_11_name_is_still_to_port():
+    assert STILL_TO_PORT == {}
+    assert SLICE_11 <= _public("vip_tpu_torch.config"), \
+        sorted(SLICE_11 - _public("vip_tpu_torch.config"))
+    theirs = importlib.import_module("vip_tpu.config.parallel")
+    ours = importlib.import_module("vip_tpu_torch.config.parallel")
+    assert ours.__all__ == theirs.__all__
+
+
+@pytest.mark.parametrize("module", SHARDED)
+def test_sharded_modules_export_vip_tpus_names(module):
+    theirs = importlib.import_module(f"vip_tpu.{module}")
+    ours = importlib.import_module(f"vip_tpu_torch.{module}")
+    assert ours.__all__ == theirs.__all__
+    for name in ours.__all__:
+        assert callable(getattr(ours, name)), name

@@ -16,7 +16,10 @@ callable (``ops.negfc_model``'s convention), or else from a
 ``torch.Generator`` seeded with ``rng_seed`` (vip_tpu draws them from
 jax's threefry, which the port does not have). A 4-d cube samples (r,
 theta, f_1, ..., f_z) with the batched model's channel loop.
-``walker_mesh`` waits for ROADMAP Queue 1, slice 11; matplotlib is
+With ``walker_mesh`` (a 1-D mesh, ``config.frame_mesh``) each batch's
+walkers are laid over the mesh's ranks (``fm.sharded.
+make_sharded_batched_lnprob``); every rank runs the same host loop on the
+same draws and reads the same gathered log-probabilities. matplotlib is
 imported only to draw.
 """
 
@@ -154,14 +157,12 @@ def mcmc_negfc_sampling(cube, angs, psfn, initial_state, algo=pca_annulus,
     ``draws``: the stretch moves' draws, ``draws(step, half, ns0, n1) ->
     (u_z, partners, u_accept)`` (``ops.negfc_model``); None draws them
     from a ``torch.Generator`` seeded with ``rng_seed``. ``walker_mesh``
-    (vip_tpu's sharding of the walkers over devices) raises until slice
-    11. A 4-d cube takes a (channels, y, x) ``psfn`` and
-    ``initial_state`` (r, theta, f_1, ..., f_z)."""
+    lays the walkers of each batch over a mesh's ranks (vip_tpu's
+    sharding of the walkers over devices): ``nwalkers`` and
+    ``nwalkers // 2`` must divide over it, and it needs the batched
+    likelihood's configuration. A 4-d cube takes a (channels, y, x)
+    ``psfn`` and ``initial_state`` (r, theta, f_1, ..., f_z)."""
     _check_cube(cube)
-    if walker_mesh is not None:
-        raise NotImplementedError(
-            "mcmc_negfc_sampling: walker_mesh is not ported yet (fm/sharded"
-            ".py; ROADMAP.md, Queue 1, slice 11)")
     if verbosity > 0:
         start_time = time_ini()
         print("        MCMC sampler for the NEGFC technique       ")
@@ -260,14 +261,35 @@ def mcmc_negfc_sampling(cube, angs, psfn, initial_state, algo=pca_annulus,
             dev_mu, dev_sig2 = mu_sigma[0], mu_sigma[1] ** 2
         else:
             dev_mu, dev_sig2 = float(mu_sigma), 0.0
-        lnprob_batched = make_batched_lnprob(
-            cube, angs, psfn, opt["ncomp"], annulus_width, initial_state[0],
-            initial_state[1], aperture_radius, fwhm, dev_mu, dev_sig2,
-            bounds, svd_method=MODE_TO_METHOD.get(opt["svd_mode"], "lapack"),
+        lnp_args = (cube, angs, psfn, opt["ncomp"], annulus_width,
+                    initial_state[0], initial_state[1], aperture_radius,
+                    fwhm, dev_mu, dev_sig2, bounds)
+        lnp_kwargs = dict(
+            svd_method=MODE_TO_METHOD.get(opt["svd_mode"], "lapack"),
             collapse=opt["collapse"], sigma=sigma, force_rPA=force_rPA,
             weights=weights, transmission=transmission, cube_ref=cube_ref,
             scaling=opt["scaling"], collapse_ifs=opt["collapse_ifs"],
             mu_sigma_is_tuple=isinstance(mu_sigma, tuple), fmerit=fmerit)
+        if walker_mesh is not None:
+            from .sharded import make_sharded_batched_lnprob
+
+            n_dev = walker_mesh.size()
+            if nwalkers % n_dev or (nwalkers // 2) % n_dev:
+                raise ValueError(
+                    f"nwalkers ({nwalkers}) and nwalkers//2 must divide "
+                    f"evenly over the {n_dev} walker_mesh devices")
+            if verbosity > 0:
+                print(f"Sharding walker batches over {n_dev} devices")
+            lnprob_batched = make_sharded_batched_lnprob(
+                walker_mesh, *lnp_args,
+                axis=walker_mesh.mesh_dim_names[0], **lnp_kwargs)
+        else:
+            lnprob_batched = make_batched_lnprob(*lnp_args, **lnp_kwargs)
+    elif walker_mesh is not None:
+        raise ValueError(
+            "walker_mesh requires the on-device likelihood fast path "
+            "(algo=pca_annulus without radial_gradient/custom "
+            "algo_options); got a host-fallback configuration")
     else:
         def _lnprob_one(p):
             return lnprob(tuple(p), bounds, cube, angs, psfn, fwhm,

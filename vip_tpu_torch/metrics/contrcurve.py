@@ -23,8 +23,18 @@ vip_tpu's 4-d branch: each pattern's companions are injected on the host
 by ``fm.cube_inject_companions`` (4-d), the azimuth stepping with the
 radius, and each injected cube is reduced by the 4-d algo (the port's
 ``pca`` with ``scale_list``, or any other); the injected flux is the
-mean over the channels of each channel's aperture. ``pattern_mesh``
-(several devices) waits for ROADMAP Queue 1, slice 11.
+mean over the channels of each channel's aperture.
+
+With ``pattern_mesh`` (a 1-D mesh, ``config.frame_mesh``) the patterns
+are laid over the mesh's ranks, as vip_tpu lays them over its devices:
+on the device route above each rank injects and reduces its share of
+the ladders; otherwise the patterns are built on the host and reduced by
+``metrics.sharded.sharded_pattern_frames`` (vip_tpu's route, which
+builds host cubes a companion at a time: 41.2 s for phase 12's 3
+patterns of 1000x512² on an H100 80GB HBM3 at 700 W) when ``algo`` and
+its parameters qualify (the port's ``pca`` with pipeline parameters and
+no scaling), and vip_tpu's "not shardable" route runs them as without a
+mesh.
 """
 
 from enum import Enum
@@ -51,13 +61,6 @@ __all__ = ["contrast_curve", "throughput", "noise_per_annulus",
 
 def _value(v):
     return v.value if isinstance(v, Enum) else v
-
-
-def _no_mesh(pattern_mesh):
-    if pattern_mesh is not None:
-        raise NotImplementedError(
-            "pattern_mesh (several devices) is not ported yet (ROADMAP.md, "
-            "Queue 1, slice 11)")
 
 
 def aperture_flux(array, yc, xc, fwhm, ap_factor=1, mean=False,
@@ -263,11 +266,50 @@ def _batched_pca_frames_lazy(base_cube, psf_stamp, parangles, specs, algo,
             for r, f, a in specs]
 
 
+def _sharded_pca_frames_lazy(base_cube, psf_stamp, parangles, specs, algo,
+                             algo_dict, mesh):
+    """:func:`_batched_pca_frames_lazy` with the patterns laid over the
+    ranks of ``mesh``: each rank injects and reduces its share of
+    ``specs`` (padded to a multiple of the mesh with the last) on its
+    device, and one all_gather hands every rank all the frames. Host
+    frames, or None when the algo or its parameters do not qualify."""
+    from ..config.parallel import all_gather
+
+    W, r = mesh.size(), mesh.get_local_rank()
+    per = -(-len(specs) // W)
+    mine = [specs[min(i, len(specs) - 1)] for i in range(r * per,
+                                                          (r + 1) * per)]
+    frames = _batched_pca_frames_lazy(base_cube, psf_stamp, parangles, mine,
+                                      algo, algo_dict)
+    if frames is None:
+        return None
+    out = all_gather(as_tensor(np.stack(frames)), mesh)[:len(specs)]
+    return list(out.cpu().numpy())
+
+
 def _process_patterns(cubes_fc, algo, argl, parangles, fwhm_med, algo_dict,
-                      batch_patterns, verbose, start_time):
+                      batch_patterns, verbose, start_time, pattern_mesh=None):
     """``algo`` over every injected pattern cube (vip_tpu
-    contrcurve.py:147): the pipeline loop for the port's ``pca``, else
-    one black-box call each."""
+    contrcurve.py:147): over the ranks of ``pattern_mesh`` when the algo
+    qualifies, else the pipeline loop for the port's ``pca``, else one
+    black-box call each."""
+    if pattern_mesh is not None:
+        parsed = _parse_batchable_pca(tuple(cubes_fc[0].shape), algo,
+                                      algo_dict)
+        if parsed is not None and parsed["scaling"] is None:
+            from .sharded import sharded_pattern_frames
+
+            out = sharded_pattern_frames(
+                cubes_fc, np.asarray(parangles, float), mesh=pattern_mesh,
+                ncomp=parsed["ncomp"], method=parsed["method"],
+                collapse=parsed["collapse"], rot_mode=parsed["rot_mode"])
+            if verbose:
+                print(f"{len(cubes_fc)} patterns processed sharded over "
+                      f"{pattern_mesh.size()} devices")
+                timing(start_time)
+            return list(out)
+        if verbose:
+            print("pattern_mesh: algo/params not shardable, falling back")
     if batch_patterns:
         frames = _batched_pca_frames(cubes_fc, parangles, algo, algo_dict)
         if frames is not None:
@@ -302,8 +344,9 @@ def throughput(cube, angle_list, psf_template, fwhm, algo, nbranch=1,
     of fake companions (vip_tpu contrcurve.py:365; same parameters and
     returns, host numpy). With ``batch_patterns`` and the port's ``pca``
     the patterns are injected and reduced on the device (see the module
-    docstring); the loop of black-box calls gives the same frames."""
-    _no_mesh(pattern_mesh)
+    docstring); the loop of black-box calls gives the same frames. With
+    ``pattern_mesh`` the patterns are reduced over the mesh's ranks (see
+    the module docstring)."""
     array = cube
     parangles = np.asarray(_host(angle_list))
     imlib = _value(algo_dict.get("imlib", "vip-fft"))
@@ -461,7 +504,15 @@ def throughput(cube, angle_list, psf_template, fwhm, algo, nbranch=1,
                   f"(pattern {irad + 1}/{fc_rad_sep})")
             timing(start_time)
 
-    if lazy:
+    if lazy and pattern_mesh is not None:
+        frames_fc = _sharded_pca_frames_lazy(
+            array if base_dev is None else base_dev, psf_template,
+            parangles, [b[0] for b in built], algo, algo_dict, pattern_mesh)
+        if verbose:
+            print(f"{len(built)} patterns injected and reduced over the "
+                  "mesh")
+            timing(start_time)
+    elif lazy:
         frames_fc = _batched_pca_frames_lazy(
             array if base_dev is None else base_dev, psf_template,
             parangles, [b[0] for b in built], algo, algo_dict)
@@ -472,7 +523,8 @@ def throughput(cube, angle_list, psf_template, fwhm, algo, nbranch=1,
     else:
         frames_fc = _process_patterns(
             [b[0] for b in built], algo, argl, parangles, fwhm_med,
-            algo_dict, batch_patterns, verbose, start_time)
+            algo_dict, batch_patterns, verbose, start_time,
+            pattern_mesh=pattern_mesh)
 
     fcys = [b[2] for b in built]
     fcxs = [b[3] for b in built]
@@ -515,7 +567,6 @@ def _contrast_curve(cube, angle_list, psf_template, fwhm, pxscale, starphot,
     """``contrast_curve`` without pandas: (columns, frame_fc_all,
     frame_nofc, fc_map_all), the columns a dict of host numpy arrays
     under the names of vip_tpu's table (vip_tpu contrcurve.py:717-888)."""
-    _no_mesh(pattern_mesh)
     if cube.ndim != 3 and cube.ndim != 4:
         raise TypeError("The input array is not a 3d or 4d cube")
     angle_list = np.asarray(_host(angle_list))
@@ -546,7 +597,8 @@ def _contrast_curve(cube, angle_list, psf_template, fwhm, pxscale, starphot,
                             fc_rad_sep=fc_rad_sep, wedge=wedge, fc_snr=fc_snr,
                             noise_sep=noise_sep, full_output=True,
                             verbose=verbose == 2, algo_class=algo_class,
-                            batch_patterns=batch_patterns, **algo_dict)
+                            batch_patterns=batch_patterns,
+                            pattern_mesh=pattern_mesh, **algo_dict)
     vector_radd = res_throug[3]
     if res_throug[0].shape[0] > 1:
         thruput_mean = np.nanmean(res_throug[0], axis=0)

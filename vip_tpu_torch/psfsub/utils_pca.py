@@ -494,15 +494,29 @@ def pca_incremental(cube, angle_list, batch=0.25, ncomp=1, collapse="median",
     ``wire_dtype="bfloat16"`` casts each block on the host with
     ``torch.bfloat16`` and upcasts it on the device: half the bytes over
     the link, at ~4e-3 of the cube's dynamic range (see vip_tpu).
-    ``pixel_mesh`` (several devices) waits for ROADMAP Queue 1, slice 11.
+
+    ``pixel_mesh``: a 1-D mesh (``config.frame_mesh``) over which every
+    block's PIXEL axis is split (vip_tpu's multi-device streamed PCA):
+    each rank holds 1/n_dev of every block, of the basis and of the mean,
+    the merge all_reduces one small Gram a block, and pass 2 reshards
+    pixels → frames for the local derotation
+    (``psfsub.sharded.make_sharded_incremental_merge``). It needs the
+    device tail (``imlib='vip-fft'``, no weights or rotation options,
+    collapse 'median', 'mean' or 'sum', ``return_residuals=False``), as
+    vip_tpu's; the block cache is scaled by the mesh.
     """
     from ..config.mem import get_available_hbm, get_available_memory
     from ..preproc.derotation import cube_derotate
 
-    if pixel_mesh is not None:
-        raise NotImplementedError(
-            "pca_incremental: pixel_mesh (several devices) is not ported yet "
-            "(ROADMAP.md, Queue 1, slice 11)")
+    if pixel_mesh is not None and (
+            return_residuals or _value(imlib) != "vip-fft"
+            or weights is not None or rot_options
+            or str(_value(collapse)) not in ("median", "mean", "sum")):
+        raise ValueError(
+            "pixel_mesh requires the device-resident tail: imlib='vip-fft',"
+            " no weights/rot_options, collapse in ('median','mean','sum')"
+            " and return_residuals=False — drop pixel_mesh to use the"
+            " host-fallback path")
     from ..fits import open_fits
     from ..fits.fits import _LazyHDU
 
@@ -576,6 +590,12 @@ def pca_incremental(cube, angle_list, batch=0.25, ncomp=1, collapse="median",
                     nxt = pool.submit(read_batch, b + 1)
                 yield b, blk
 
+    if pixel_mesh is not None:
+        return _run_incremental_sharded(
+            pixel_mesh, prefetched_blocks, angle_list, y, x, npx,
+            batch_size, n_batches, int(ncomp), dev, work, collapse,
+            verbose, start_time, full_output)
+
     # pass 1: streaming mean and merge-and-truncate SVD of the centred data
     k = int(ncomp)
     mean = torch.zeros(npx, dtype=work, device=dev)
@@ -632,4 +652,83 @@ def pca_incremental(cube, angle_list, batch=0.25, ncomp=1, collapse="median",
         timing(start_time)
     if full_output:
         return frame, None, V.reshape(-1, y, x).cpu().numpy(), medians
+    return frame
+
+
+def _run_incremental_sharded(mesh, blocks, angle_list, y, x, npx, batch_size,
+                             n_batches, k, dev, work, collapse, verbose,
+                             start_time, full_output):
+    """``pca_incremental(pixel_mesh=...)``: the pixel-sharded merge and
+    the resharded pass 2 (vip_tpu utils_pca.py:663). ``blocks`` is the
+    prefetching generator of host blocks; it runs again for pass 2 when
+    the blocks are not cached on the device. Every block is zero-padded
+    to one (m_pad, npx_pad) shape that divides over the mesh (exact: the
+    pad rows are masked and the pad pixels add nothing), and each rank
+    moves only its pixel columns to its device."""
+    from ..config.mem import get_available_hbm
+    from ..config.parallel import all_gather, from_local
+    from .sharded import (make_sharded_incremental_merge,
+                          make_sharded_incremental_normalize,
+                          make_sharded_incremental_pass2)
+
+    W, r = mesh.size(), mesh.get_local_rank()
+    npx_pad = -(-npx // W) * W
+    m_pad = -(-batch_size // W) * W
+    pl = npx_pad // W
+    lo_px, hi_px = r * pl, min((r + 1) * pl, npx)
+
+    def put_block(blk):
+        """This rank's pixel columns of a block, zero-padded to (m_pad,
+        pl), in the work dtype on the device, as a pixel-sharded
+        DTensor; and the block's number of frames."""
+        m_b = blk.shape[0]
+        loc = blk.new_zeros((m_pad, pl))
+        if hi_px > lo_px:
+            loc[:m_b, :hi_px - lo_px] = blk.reshape(m_b, npx)[:, lo_px:hi_px]
+        return from_local(loc.to(dev, non_blocking=True).to(work), mesh,
+                          1), m_b
+
+    basis = from_local(torch.zeros((k, pl), dtype=work, device=dev), mesh, 1)
+    mean = from_local(torch.zeros(pl, dtype=work, device=dev), mesh, 0)
+    count = 0.0
+    # the card's block cache of the single-device path, scaled by the
+    # mesh: each rank holds 1/n_dev of every cached block
+    budget = _CACHE_FRACTION * get_available_hbm(dev) * W
+    cache_on_device = (n_batches * m_pad * npx_pad
+                       * torch.finfo(work).bits // 8) <= budget
+    cache = []
+
+    merge = make_sharded_incremental_merge(mesh, k, m_pad)
+    for b, blk in blocks():
+        blk_d, m_b = put_block(blk)
+        if cache_on_device:
+            cache.append((blk_d, m_b))
+        basis, mean, count = merge(basis, blk_d, mean, count, m_b)
+        if verbose:
+            print(f"Batch {b + 1}/{n_batches} processed")
+    V = make_sharded_incremental_normalize(mesh)(basis)
+    pass2 = make_sharded_incremental_pass2(mesh, (y, x), npx,
+                                           collapse=str(collapse))
+
+    def pass2_blocks():
+        if cache_on_device:
+            yield from enumerate(cache)
+        else:
+            for b, blk in blocks():
+                yield b, put_block(blk)
+
+    medians = []
+    for b, (blk_d, m_b) in pass2_blocks():
+        lo = b * batch_size
+        ang = np.zeros(m_pad, np.float64)
+        ang[:m_b] = angle_list[lo:lo + m_b]
+        medians.append(pass2(blk_d, mean, V, ang, m_b).cpu().numpy())
+    medians = np.array(medians)
+    frame = np.median(medians, axis=0)
+    if verbose:
+        timing(start_time)
+    if full_output:
+        V_all = all_gather(V.to_local().T.contiguous(), mesh).T
+        return (frame, None, V_all[:, :npx].reshape(-1, y, x).cpu().numpy(),
+                medians)
     return frame
