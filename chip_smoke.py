@@ -21,8 +21,9 @@ slice 8b (registration and recentering, bad-pixel correction,
 bad-frame detection), slice 8c (the interpolation imlibs, ``edge_blend``,
 ``rot_mode="interp"``), slice 9 (the scattered-light disk, its
 injection, NEGFD), slice 10 (the object layer, ``EvalRoc``, the
-native FITS codec) and slice 11 (several devices: the sharded steps on a
-one-rank NCCL group, and in 4 gloo ranks sharing the card).
+native FITS codec), slice 11 (several devices: the sharded steps on a
+one-rank NCCL group, and in 4 gloo ranks sharing the card) and slice 12
+(the last public functions of vip_tpu's modules).
 Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -79,8 +80,8 @@ Phases, one line each:
     H1; H1's bisection body at 1800 frames; the cuFFT yardstick
     (``torch.fft.fft`` then ``ifft`` over the line batches one H2 chunk
     and one H3 chunk shear); torch.profiler tables of one ``pca_annular``
-    run and one ``median_sub`` (H2 route, so that the x- and y-shear
-    kernels show apart);
+    run (its kernels by device time) and one ``median_sub`` (its
+    operators, H2 route, so that the x- and y-shear kernels show apart);
 15. slice 4 on the cube with the planted companion (run before the
     timings of 14, printed with them): ``psfsub.nmf``, ``nmf_annular``,
     ``llsg``, ``frame_diff`` (two configurations), ``xloci``,
@@ -88,8 +89,8 @@ Phases, one line each:
     the kernels with its H1/H2 launches, against the plain route, timed,
     and the companion detected on the full-width frames (the cuts are
     printed);
-16. slice 5, NEGFC, on every 5th frame of the cube with the planted
-    companion (200 x 512²; run before the timings of 14): ``firstguess``
+16. slice 5, NEGFC, on every 10th frame of the cube with the planted
+    companion (100 x 512²; run before the timings of 14): ``firstguess``
     (a 12-value flux grid, then the simplex) and ``mcmc_negfc_sampling``
     (100 walkers, Gelman-Rubin test, 5 to 10 iterations) with their H1/H2
     launches, held to the companion's (r, theta, flux); ``confidence`` of
@@ -102,7 +103,7 @@ Phases, one line each:
     FastPACO on the NACO replica through float64 CUDA tensors (held to
     VIP's golden maps at 1e-5) and in float32 (each map's companions found
     by ``detection``, FastPACO within 1e-3 of its float64 map); the three
-    at full width (every 10th frame of the cube with the planted
+    at full width (every 20th frame of the cube with the planted
     companion, its central 256²: each finds the companion, FMMF through
     H2); FMMF through H2 against the plain route; bench.py's three invprob
     legs and FMMF's serial and batched forms timed;
@@ -166,9 +167,9 @@ Phases, one line each:
     each against its per-frame loop and in float32 against float64 on the
     card; ``pca_adi_pipeline(rot_mode="interp")`` (ncomp 10, H1) against
     the plain median; ``cube_shift`` 'opencv' lanczos4 (reflect) of all
-    frames, 'ndimage-interp' biquintic of 100 (host scipy);
+    frames, 'ndimage-interp' biquintic of 50 (host scipy);
     ``cube_px_resampling`` 'opencv' at 0.5 and 1.37; ``edge_blend=
-    "noise+interp"`` on 100 frames (the blended 2048² canvases through
+    "noise+interp"`` on 50 frames (the blended 2048² canvases through
     H3, held to the plain rotation); a 512² ``ScatteredLightDisk`` (HG,
     float32 against float64), injected into all 1000 frames (H2), one
     ``chisquare_fd`` at full depth (pca ncomp 10, 'vip-fft': H1 and H2)
@@ -189,11 +190,12 @@ Phases, one line each:
     annulus and annular (phase 14's annuli), all at full width and
     depth, bit-equal to their direct calls; the six other PP classes on
     phases 15's and 17's cuts, bit-equal to those phases' frames
-    (annular NMF, LLSG and LOCI on fewer frames, held to direct calls
-    on them; NMF, ANDROMEDA and FMMF finding the companion); ``EvalRoc`` (4 injections on every 10th frame,
+    (annular NMF, LLSG and LOCI held to direct calls on the same frames;
+    NMF, ANDROMEDA and FMMF finding the companion); ``EvalRoc``
+    (4 injections on every 10th frame,
     ``PPPCA`` and ``PPMedianSub``) with every injection found at
     threshold 3; one host injection at full depth timed; ``Dataset.save``
-    and ``load`` of the first 100 frames, bit-equal, the cube back on the
+    and ``load`` of the first 50 frames, bit-equal, the cube back on the
     card.
 23. slice 11, several devices (run before the timings of 14): (a) a
     one-rank NCCL group in this process and, at full width, the sharded
@@ -214,6 +216,18 @@ Phases, one line each:
     against the same call at world size 1, the ranks' results equal; the
     float32 PCAs whose last PCs turn with the order of the sums (the SDI
     pass, the streamed PCA) again in float64.
+24. slice 12 on the main path's cube, each step's synchronized wall time
+    on its own line beside the card's name and power limit:
+    ``get_pca_coeffs`` of the 1000x512² cube with phase 7's 10 PCs, and
+    VIP's torch rotation ``tensor_rotate_fft`` of a 512² and a 511²
+    frame at 0, 30, 60, 135 and 300 degrees, each in float32 within
+    PIPE_TOL of max(|ref|, 1) of the same call in float64 on the card;
+    ``tree_to_numpy`` of a nested structure of card tensors; the FITS
+    codec's ``available()``.
+
+Every phase ends with a line of its wall time (phase 14's timings run
+last); the cuts of an earlier path to a smaller depth are printed by
+their phases.
 
 Phase 13 also runs the F2 configuration pca_incr_adi in float64 on the
 card against the CPU's float64 frame (ROADMAP Q3-3), and phase 15
@@ -236,7 +250,8 @@ phase 20 alone, with torch.profiler tables of its two slowest steps;
 ``--slice8c9`` runs phase 21 alone, with torch.profiler tables of its two
 slowest warps; ``--slice10`` runs phase 22 alone (the PP classes'
 functions run there too); ``--slice11`` runs phase 23 alone (phase 12's
-contrast curve and phase 18's sequence made there too).
+contrast curve and phase 18's sequence made there too); ``--slice12``
+runs phase 24 alone.
 ``--seed N`` (with any of the above) makes phase 18's sequence from seed
 N (default 0).
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
@@ -330,8 +345,12 @@ F2_CONFIGS = (("pca_adi", "pca", dict(svd_mode="lapack")),
 # angles are the cube's angles split at their mean into two rolls. Halved
 # (every 10th and 20th frame, from every 5th and 10th: the phase 54.0 s
 # against 103.0 s on an H100 80GB HBM3 at 700 W) when phase 23 took the
-# full script to 1122.6 s, past the 1100 s it keeps to of its 1200 s
-SLICE4_CROP, SLICE4_EVERY, LOCI_EVERY = 120, 10, 20
+# full script to 1122.6 s, past the 1100 s it keeps to of its 1200 s.
+# LOCI on every 40th since the script took 1018.4 s with phase 24 (the
+# build cached): its time follows its frames (3.73 s on 50, 0.27 s on 25),
+# where annular NMF's and LLSG's do not (LLSG 5.29 s on 100 frames, 6.13 s
+# on 50, on two H100 80GB HBM3 at 700 W; PERF.md)
+SLICE4_CROP, SLICE4_EVERY, LOCI_EVERY = 120, 10, 40
 # The greedy loops against their plain route, after their first pass: a
 # change of 1e-7 in the frame fed back (the derotations differ by that)
 # redraws the float32 rounding of the next PCA's residuals (~1e-5 of the
@@ -339,14 +358,16 @@ SLICE4_CROP, SLICE4_EVERY, LOCI_EVERY = 120, 10, 20
 # at 700 W, PERF.md), and can flip a pixel of a STIM mask thresholded at 0
 GREEDY_TOL = 1e-2
 # NEGFC (phase 16): firstguess and the MCMC on every NEGFC_EVERY-th frame
-# of the cube with the planted companion (200 x 512²): each walker's
-# likelihood takes one cuSOLVER gesvd of its (200, ~3000) annulus matrix
+# of the cube with the planted companion (100 x 512²): each walker's
+# likelihood takes one cuSOLVER gesvd of its (100, ~3000) annulus matrix
 # (19-20 ms at (200, 3200), ``--svd``, an H100 80GB HBM3 at 700 W) beside
-# the derotation of its 200 frames (H2); the likelihood once at full depth
+# the derotation of its 100 frames (H2); every 10th frame since the
+# script took 1018.4 s with phase 24 and the build cached (phase 16 59.9 s
+# at every 5th; PERF.md); the likelihood once at full depth
 # (1000 frames) for NEGFC_FULL_WALKERS walkers; bench.py's NEGFC leg shape (50x64x64, 16
 # walkers, ncomp 5, bench.py:289-312). The acceptance bounds (px, degrees,
 # relative flux) of the first guess and of the posterior median
-NEGFC_EVERY, NEGFC_FULL_WALKERS = 5, 16
+NEGFC_EVERY, NEGFC_FULL_WALKERS = 10, 16
 NEGFC_MCMC = dict(nwalkers=100, conv_test="gb", niteration_min=5,
                   niteration_limit=10)
 NEGFC_FG_TOL, NEGFC_MCMC_TOL = (0.5, 2.0, 0.2), (1.0, 3.0, 0.3)
@@ -369,8 +390,10 @@ PACO_F32_TOL = 1e-3
 # Full width: every INV_EVERY-th frame of the cube with the planted
 # companion, its central INV_SIZE² (PACO's statistics hold n·H·W·A
 # values), a 20² Gaussian PSF of FWHM COMP_FWHM (ANDROMEDA needs an even
-# PSF); FMMF over INV_FW_WINDOW around the companion's 60 px
-INV_EVERY, INV_SIZE, INV_FW_WINDOW = 10, 256, (58, 62)
+# PSF); FMMF over INV_FW_WINDOW around the companion's 60 px. Every 20th
+# frame since the script took 1018.4 s with phase 24 (every 10th: the
+# three 7.88 s, FMMF 4.55 s of it, on an H100 80GB HBM3 at 700 W; PERF.md)
+INV_EVERY, INV_SIZE, INV_FW_WINDOW = 20, 256, (58, 62)
 INV_FMMF_PARAM = {"ncomp": 10, "tolerance": 0.005, "delta_rot": 0.5}
 # Slice 7 (phase 18): one synthetic SPHERE-IFS sequence (YJ band,
 # 0.95-1.35 µm in IFS_Z channels, scale_list = λmax/λ up to 1.42; the
@@ -412,7 +435,9 @@ IFS_CC_TOL, CC_THR_MIN = 1e-3, 0.05
 IFS_PXSCALE, IFS_STARPHOT = 0.00746, 1e5      # SPHERE-IFS's 7.46 mas/px
 IFS_PROFILE_EVERY = 10
 # FastPACO's rescaling on every IFS_PACO_EVERY-th frame of the replica
-IFS_PACO_EVERY = 2
+# (every 2nd until the script took 1018.4 s with phase 24: 4.46 s a run on
+# an H100 80GB HBM3 at 700 W; PERF.md)
+IFS_PACO_EVERY = 4
 # Slice 8a (phase 19) on the full cube: NaN damage made on the card (a
 # fraction S8A_SINGLE of single pixels, S8A_CLUMPS clumps of 3x3 to 5x5 px
 # a frame: ~0.1% in all); the host loops on S8A_HOST_FRAMES frames;
@@ -478,8 +503,11 @@ S8B_PLAIN_CUBE, S8B_PLAIN_FRAMES, S8B_FFT64_FRAMES, S8B_RADON_GRID = \
 # every S9_EVERY-th frame within S9_FLUX_TOL of the flux (the bound of
 # tests/test_fm_negfd.py:86, 0.3 on 3.0), its simplex cut to S9_SIMPLEX;
 # the χ² at the planted flux within S9_CHI_TOL of the noise cube's
+# (S8C_HOST_FRAMES 100 until the script took 1018.4 s with phase 24:
+# the 'ndimage-interp' shift of 100 frames 5.42 s on an H100 80GB HBM3 at
+# 700 W, PERF.md)
 S8C_LOOP_FRAMES, S8C_LOOP_TOL, S8C_F32_TOL = 4, 1e-6, 1e-4
-S8C_HOST_FRAMES, S8C_RESAMPLE = 100, (0.5, 1.37)
+S8C_HOST_FRAMES, S8C_RESAMPLE = 50, (0.5, 1.37)
 S9_G, S9_ITILT, S9_A, S9_AIN, S9_AOUT = 0.4, 70.0, 40.0, 10.0, -5.0
 S9_DIST, S9_PXSCALE, S9_SLICES, S9_DISK_TOL = 50.0, 0.01225, 25, 1e-4
 S9_PEAK, S9_FLUX, S9_MASK, S9_EVERY = 10.0, 3.0, (30, 110), 10
@@ -496,14 +524,14 @@ S9_SIMPLEX = {"xatol": 1e-3, "fatol": 1e-4, "maxiter": 60, "maxfev": 80}
 # those phases' frames, or, run alone, to the same calls here), annular
 # NMF and LLSG on every S10_SLICE4_EVERY-th frame of phase 15's crop and
 # LOCI on every S10_LOCI_EVERY-th (held to direct calls on the same
-# frames);
+# frames: phase 15's cuts);
 # EvalRoc on every S10_EVERY-th frame with S10_ROC_INJECTIONS injections
 # of fluxes S10_ROC_FLUX (PSF normalized to a unit 1-FWHM aperture:
 # peaks of ~0.1 per unit flux, noise sigma 1), thresholds S10_ROC_THRESH,
 # each injection found at threshold 3 in a map; Dataset.save/load on the
-# first S10_SAVE_FRAMES frames
-S10_EVERY, S10_SLICE4_EVERY, S10_LOCI_EVERY = 10, 10, 20
-S10_ANNULUS_WIDTH, S10_SAVE_FRAMES = 12, 100
+# first S10_SAVE_FRAMES frames (5.61 s for the save of 100, PERF.md)
+S10_EVERY, S10_SLICE4_EVERY, S10_LOCI_EVERY = 10, 10, 40
+S10_ANNULUS_WIDTH, S10_SAVE_FRAMES = 12, 50
 S10_ROC_INJECTIONS, S10_ROC_FLUX, S10_ROC_THRESH = 4, ("uniform", 50, 150), \
     (1, 2, 3, 4, 5)
 S10_PX_SCALE = 0.0272
@@ -560,6 +588,13 @@ S11_SDI64_EVERY, S11_SDI_F32_TOL, S11_INC_F32_TOL = 10, 2.5e-3, 1.2e-3
 # the plain rotation (up to 8 GiB of canvases a rank at 512²), so it
 # runs on the central S11_B_INC64_CROP² pixels
 S11_MAIN_MEMORY, S11_B_INC64_CROP = 0.6, 128
+# Slice 12 (phase 24) on the main path's cube: get_pca_coeffs with the
+# NCOMP PCs of phase 7's main path, and VIP's torch rotation
+# tensor_rotate_fft of an even SIZE² and an odd (SIZE - 1)² frame at
+# S12_ANGLES (each quadrant's branch of its rot90 split, a residual of
+# either sign); each in float32 on the card within PIPE_TOL of max(|ref|,
+# 1) of the same call in float64 on the card
+S12_ANGLES = (0.0, 30.0, 60.0, 135.0, 300.0)
 # Q3-2 (phase 15): ipca in float32 through the kernels may stand at most
 # Q32_RATIO times as far from its float64 run on the card as the float32
 # plain route does. Q3-3 (phase 13): pca_incr_adi in float64 on the card
@@ -1766,8 +1801,9 @@ def phase_slice4(pcube, angles_np, src, keep=None):
           f"on the central {SLICE4_CROP}x{SLICE4_CROP} (annuli to 60 px); "
           f"annular NMF and LLSG on every {SLICE4_EVERY}th frame "
           f"({crop5.shape[0]} of {N_FRAMES}), LOCI on every {LOCI_EVERY}th "
-          f"({crop10.shape[0]}), halved from every 5th and 10th to keep the "
-          f"script within 1100 s; the phase took "
+          f"({crop10.shape[0]}), cut from every 5th and 10th, then LOCI from "
+          f"every 20th, to keep the script within its time limit; the "
+          f"phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
@@ -3659,6 +3695,8 @@ def phase_slice8c9(cube, angles_np):
         sub, sy[:S8C_HOST_FRAMES], sx[:S8C_HOST_FRAMES],
         imlib="ndimage-interp", interpolation="biquintic"), warm=False)
     _require(bool(torch.isfinite(out).all()), "ndimage-interp: output")
+    print(f"slice 8c cube_shift ndimage-interp biquintic (host scipy) on the "
+          f"first {S8C_HOST_FRAMES} frames: finite{_at(t_phase)}", flush=True)
     for scale_f in S8C_RESAMPLE:
         name = f"cube_px_resampling opencv x{scale_f}"
         out = record(name, lambda: cube_px_resampling(
@@ -4559,6 +4597,111 @@ def slice11_only():
           flush=True)
 
 
+def phase_slice12(cube):
+    """Slice 12 (see the module docstring, phase 24): the last public
+    functions of vip_tpu's modules on the main path's cube, each float32
+    call on the card against the same call in float64 on the card, each
+    step's synchronized wall time on its own line beside the card's name
+    and power limit. Returns {step: seconds}."""
+    from vip_tpu_torch.config.parallel import tree_to_numpy
+    from vip_tpu_torch.fits import _native
+    from vip_tpu_torch.ops.linalg import svd_top
+    from vip_tpu_torch.preproc.derotation import tensor_rotate_fft
+    from vip_tpu_torch.psfsub.pca_fullfr import get_pca_coeffs
+
+    head = f"slice 12 (card: {_card()})"
+    times = {}
+
+    def step(name, fn):
+        out, _, times[name] = _step21(name, fn, warm=False, label=head)
+        return out
+
+    def held(name, got, ref):
+        got, ref = torch.as_tensor(got), torch.as_tensor(ref)
+        _require(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                 f"slice 12 {name}: shape {tuple(got.shape)} (want "
+                 f"{tuple(ref.shape)}) or values not finite")
+        err, scale = _rel_err(got, ref)
+        print(f"slice 12 {name}: max abs err vs float64 on the card "
+              f"{err:.3e}; bound {PIPE_TOL:.0e} x {scale:.3f}", flush=True)
+        _require(err <= PIPE_TOL * scale,
+                 f"slice 12 {name}: float32 disagrees with float64")
+        return err / scale
+
+    n = cube.shape[0]
+    # phase 7's PCs: the main path's eigh of the frames' Gram matrix
+    pcs = svd_top(cube.reshape(n, -1), NCOMP, method="eigen")
+    coeffs = step(f"get_pca_coeffs {n}x{SIZE}^2 ncomp {NCOMP} float32",
+                  lambda: get_pca_coeffs(cube, pcs, NCOMP, verbose=False))
+    cube64 = cube.double()
+    ref = step(f"get_pca_coeffs {n}x{SIZE}^2 ncomp {NCOMP} float64",
+               lambda: get_pca_coeffs(cube64, pcs.double(), NCOMP,
+                                      verbose=False))
+    del cube64
+    _require(coeffs.shape == (NCOMP, n), f"get_pca_coeffs: shape "
+             f"{coeffs.shape}, want {(NCOMP, n)}")
+    worst = {"get_pca_coeffs": held("get_pca_coeffs", coeffs, ref)}
+
+    rotated = {}
+    for size in (SIZE, SIZE - 1):
+        frame = cube[:1, :size, :size].contiguous()
+        frame64 = frame.double()
+        for angle in S12_ANGLES:
+            label = f"tensor_rotate_fft {size}^2 at {angle:g} deg"
+            got = step(f"{label} float32",
+                       lambda: tensor_rotate_fft(frame, angle))
+            ref = step(f"{label} float64",
+                       lambda: tensor_rotate_fft(frame64, angle))
+            _require(got.dtype == torch.float32 and got.is_cuda
+                     and tuple(got.shape) == (1, size, size),
+                     f"{label}: {got.dtype} {tuple(got.shape)} on "
+                     f"{got.device}")
+            worst[label] = held(label, got, ref)
+            rotated[(size, angle)] = got
+
+    tree = {"coeffs": pcs[:, :8], "frames": [rotated[(SIZE, 30.0)],
+            (rotated[(SIZE - 1, 135.0)], "odd", SIZE - 1)], "none": None}
+    host = step("tree_to_numpy", lambda: tree_to_numpy(tree))
+    _require(isinstance(host["coeffs"], np.ndarray)
+             and isinstance(host["frames"][1], tuple)
+             and host["frames"][1][1:] == ("odd", SIZE - 1)
+             and host["none"] is None, "tree_to_numpy: structure changed")
+    for got, t in ((host["coeffs"], tree["coeffs"]),
+                   (host["frames"][0], tree["frames"][0]),
+                   (host["frames"][1][0], tree["frames"][1][0])):
+        _require(isinstance(got, np.ndarray)
+                 and np.array_equal(got, t.cpu().numpy()),
+                 "tree_to_numpy: a leaf differs from its tensor")
+    ok = step("fits._native.available", _native.available)
+    _require(ok is True, "fits._native.available() is not True")
+    print("slice 12: worst error of max(|ref|, 1): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+    return times
+
+
+def slice12_only():
+    """Phase 24 alone (``--slice12``): the build and slice 12 on the main
+    path's cube."""
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(0)
+    cube = torch.as_tensor(
+        rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
+        device=DEVICE)
+    _phase(24, "slice 12", phase_slice12, cube)
+
+
+def _phase(number, name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then one line with the phase's wall time
+    (the card synchronized)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    print(f"phase {number} ({name}) wall time: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4908,6 +5051,34 @@ def _profile_table(fn, rows=15):
     return wall, table
 
 
+def _kernel_table(fn, rows=15):
+    """torch.profiler over one call of ``fn``, the card's activity alone:
+    wall seconds, the seconds of device time in kernels and copies, and
+    the top rows of that time summed by kernel name from the profiler's
+    raw events. ``_profile_table`` attributes each kernel to its operator
+    through the tree of every host and device event, which the profiler
+    builds in Python: for one ``pca_annular`` of 1000x512² that took
+    minutes (phase 14, PERF.md)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total, calls = {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            name = ev.name()
+            total[name] = total.get(name, 0) + ev.duration_ns()
+            calls[name] = calls.get(name, 0) + 1
+    top = sorted(total, key=total.get, reverse=True)[:rows]
+    table = "\n".join([f"{'device ms':>12} {'calls':>8}  kernel"] + [
+        f"{total[k] / 1e6:12.3f} {calls[k]:8d}  {k[:100]}" for k in top])
+    return wall, sum(total.values()) / 1e9, table
+
+
 def _h2_split(frames, angles, geom, reps=3):
     """H2 on one chunk, each step timed apart with CUDA events (median of
     ``reps`` warm runs, ms): the wrapper's set-up (quadrants and shear
@@ -5033,8 +5204,8 @@ def _cufft_lines_ms(lines, N):
 
 def main():
     t_start = time.perf_counter()
-    smi = phase_device()
-    phase_build()
+    smi = _phase(1, "device", phase_device)
+    _phase(2, "build", phase_build)
 
     rng = np.random.default_rng(0)
     cube_np = rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32)
@@ -5042,49 +5213,84 @@ def main():
     cube = torch.as_tensor(cube_np, device=DEVICE)
     del cube_np
 
-    h1_err, cube_bisect = phase_median(cube)
+    h1_err, cube_bisect = _phase(3, "H1", phase_median, cube)
     (frames, rot_angles, geom, frames160, angles160, geom160,
-     h2_err) = phase_rotation()
-    canvas, small_angles, h3_err = phase_small_rotation()
-    h4_err, h4s_err = phase_fused3(frames, rot_angles, geom, frames160,
-                                   angles160, geom160, canvas, small_angles)
-    counts, run_kernel, run_plain = phase_main_path(cube, angles_np)
-    run_small = phase_small_pipeline(cube, angles_np)
-    h4s_counts, run_small3 = phase_small_pipeline_fused3(run_small)
-    ann_counts, run_annular = phase_annular(cube, angles_np)
-    phase_small_reference()
-    phase_small_annular_reference()
-    pcube, src = _plant_companion(cube, angles_np)
-    h4_counts, search_runs, ms_frame = phase_companion_search(
-        pcube, angles_np, src)
-    t_ann_ms = phase_annular_median(pcube, angles_np, src)
-    phase_small_companion_reference()
-    with tempfile.TemporaryDirectory() as tmpdir:
-        inc_counts, inc_runs = phase_incremental(cube, angles_np, tmpdir)
-        t_inc = {k: _sync_times(fn, reps=3 if k == "cache on" else 1)
-                 for k, fn in inc_runs.items()}
-    cc_counts, cc_cols, run_cc, psfn = phase_contrast(cube, angles_np)
-    compl_counts, t_compl = phase_completeness(cube, angles_np, psfn,
-                                               cc_cols)
-    stim_counts, run_stim = phase_stim(pcube, angles_np, src)
-    phase_f2()
+     h2_err) = _phase(4, "H2", phase_rotation)
+    canvas, small_angles, h3_err = _phase(5, "H3", phase_small_rotation)
+    h4_err, h4s_err = _phase(6, "H4", phase_fused3, frames, rot_angles, geom,
+                             frames160, angles160, geom160, canvas,
+                             small_angles)
+    counts, run_kernel, run_plain = _phase(7, "main path, exact",
+                                           phase_main_path, cube, angles_np)
+
+    def phase8():
+        run_small = phase_small_pipeline(cube, angles_np)
+        return (run_small,) + phase_small_pipeline_fused3(run_small) \
+            + phase_annular(cube, angles_np)
+
+    (run_small, h4s_counts, run_small3, ann_counts,
+     run_annular) = _phase(8, "main path, fft-small and annular", phase8)
+
+    def phase9():
+        phase_small_reference()
+        phase_small_annular_reference()
+
+    _phase(9, "small inputs against the CPU", phase9)
+
+    def phase10():
+        pcube, src = _plant_companion(cube, angles_np)
+        h4_counts, search_runs, ms_frame = phase_companion_search(
+            pcube, angles_np, src)
+        t_ann_ms = phase_annular_median(pcube, angles_np, src)
+        phase_small_companion_reference()
+        return pcube, src, h4_counts, search_runs, ms_frame, t_ann_ms
+
+    (pcube, src, h4_counts, search_runs, ms_frame,
+     t_ann_ms) = _phase(10, "companion search", phase10)
+
+    def phase11():
+        with tempfile.TemporaryDirectory() as tmpdir:
+            inc_counts, inc_runs = phase_incremental(cube, angles_np, tmpdir)
+            t_inc = {k: _sync_times(fn, reps=3 if k == "cache on" else 1)
+                     for k, fn in inc_runs.items()}
+        return inc_counts, t_inc
+
+    inc_counts, t_inc = _phase(11, "streamed PCA", phase11)
+
+    def phase12():
+        cc_counts, cc_cols, run_cc, psfn = phase_contrast(cube, angles_np)
+        compl_counts, t_compl = phase_completeness(cube, angles_np, psfn,
+                                                   cc_cols)
+        stim_counts, run_stim = phase_stim(pcube, angles_np, src)
+        return (cc_counts, cc_cols, run_cc, compl_counts, t_compl,
+                stim_counts, run_stim)
+
+    (cc_counts, cc_cols, run_cc, compl_counts, t_compl, stim_counts,
+     run_stim) = _phase(12, "contrast, completeness, STIM", phase12)
+    _phase(13, "F2", phase_f2)
     pp_refs = {}     # phases 15's, 17's and 18's results, for 22 and 23
-    slice4 = phase_slice4(pcube, angles_np, src, keep=pp_refs)
-    negfc_counts, negfc_times = phase_negfc(pcube, angles_np, src)
-    invprob_counts, invprob_times = phase_invprob(pcube, angles_np,
-                                                  keep=pp_refs)
-    ifs_counts, ifs_times = phase_ifs(keep=pp_refs)
-    s8a_counts, s8a_times = phase_slice8a(cube, angles_np, pcube, src)
-    s8b_counts, s8b_times = phase_slice8b(cube)
-    s89_counts, s89_times = phase_slice8c9(cube, angles_np)
+    slice4 = _phase(15, "slice 4", phase_slice4, pcube, angles_np, src,
+                    keep=pp_refs)
+    negfc_counts, negfc_times = _phase(16, "NEGFC", phase_negfc, pcube,
+                                       angles_np, src)
+    invprob_counts, invprob_times = _phase(17, "slice 6", phase_invprob,
+                                           pcube, angles_np, keep=pp_refs)
+    ifs_counts, ifs_times = _phase(18, "slice 7", phase_ifs, keep=pp_refs)
+    s8a_counts, s8a_times = _phase(19, "slice 8a", phase_slice8a, cube,
+                                   angles_np, pcube, src)
+    s8b_counts, s8b_times = _phase(20, "slice 8b", phase_slice8b, cube)
+    s89_counts, s89_times = _phase(21, "slices 8c and 9", phase_slice8c9,
+                                   cube, angles_np)
     with tempfile.TemporaryDirectory() as tmpdir:
-        s10_counts, s10_times = phase_slice10(pcube, angles_np, src, tmpdir,
-                                              pp_refs)
+        s10_counts, s10_times = _phase(22, "slice 10", phase_slice10, pcube,
+                                       angles_np, src, tmpdir, pp_refs)
     with tempfile.TemporaryDirectory() as tmpdir:
-        s11_counts, s11_times = phase_slice11(
-            cube, angles_np, pcube, pp_refs["ifs"], tmpdir,
-            {"contrast": cc_cols})
+        s11_counts, s11_times = _phase(
+            23, "slice 11", phase_slice11, cube, angles_np, pcube,
+            pp_refs["ifs"], tmpdir, {"contrast": cc_cols})
     del pp_refs
+    s12_times = _phase(24, "slice 12", phase_slice12, cube)
+    t14 = time.perf_counter()
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
     new_paths.update({k: v[0] for k, v in slice4.items()})
@@ -5172,7 +5378,9 @@ def main():
     t_cc_runs = _sync_times(run_cc)
     t_stim = _sync_time(run_stim)
     t_ann = _sync_time(run_annular, reps=2)
-    prof_wall, table = _profile_table(run_annular)
+    t0 = time.perf_counter()
+    prof_wall, busy, table = _kernel_table(run_annular)
+    t_prof = time.perf_counter() - t0
     with _env("VIP_EXACT_SHEAR", "auto"):
         ms_wall, ms_table = _profile_table(search_runs["H2"][0], rows=10)
     split = _h2_split(frames, rot_angles, geom)
@@ -5265,9 +5473,14 @@ def main():
     print("timing slice 11 (s, one run each; see the phase 23 lines): "
           + ", ".join(f"{k} {v:.4f}" for k, v in s11_times.items()),
           flush=True)
+    print("timing slice 12 (s, one run each; see the phase 24 lines): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in s12_times.items()),
+          flush=True)
     print(f"timing pca_annular {N_FRAMES}x{SIZE}x{SIZE} vip-fft-small "
           f"(ncomp 10, fwhm 4, asize 4): {t_ann:.4f} s; under the profiler "
-          f"{prof_wall:.4f} s; top ops by device time:\n{table}", flush=True)
+          f"(the card's activity) {prof_wall:.4f} s, {busy:.4f} s of it in "
+          f"kernels and copies, the profile with its table {t_prof:.1f} s; "
+          f"top kernels by device time:\n{table}", flush=True)
     print(f"timing H2 {CHUNK}x{SIZE}^2 by launch (CUDA events, median of "
           f"3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()),
           flush=True)
@@ -5338,6 +5551,8 @@ def main():
               "vip_tpu/ops/pallas_shear.py:890", h4s_counts["H4"], h4s_err,
               t_h4s * 1e3, t_h3p * 1e3, small_bound),
     ]
+    print(f"phase 14 (timings) wall time: {time.perf_counter() - t14:.1f} s",
+          flush=True)
     print(f"wall time of chip_smoke.py: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -5550,6 +5765,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--slice11":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         slice11_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--slice12":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        slice12_only()
         sys.exit(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     main()

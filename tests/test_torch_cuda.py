@@ -731,6 +731,36 @@ def test_negfc_firstguess_on_the_card(cuda_device):
     assert counts[0] > 13 and counts[1] == 3 * counts[0]
 
 
+def test_negfc_mcmc_on_the_card(cuda_device):
+    """``mcmc_negfc_sampling`` on the card, the small shape of
+    chip_smoke.py's phase 16 sampler (cut to every 10th frame there): the
+    stretch moves' draws come from a CPU generator seeded with
+    ``rng_seed``, so the float32 chain through H1 and H2 takes the same
+    steps as the CPU float64 mode's, and the float64 chain on the card
+    (the plain routes) equals it."""
+    import vip_tpu_torch.fm as tfm
+
+    r, theta, f = NEGFC_TRUTH
+    start = (r + 0.3, theta + 1.0, f * 1.1)
+    kw = dict(ncomp=1, annulus_width=8, aperture_radius=1, fwhm=4,
+              nwalkers=8, niteration_min=3, niteration_limit=3,
+              conv_test="gb", rng_seed=3, verbosity=0)
+    cube, angles, psfn = _negfc_inputs()
+    ref = tfm.mcmc_negfc_sampling(cube, angles, psfn, start, **kw)
+    chain, counts = _negfc_on_the_card(
+        lambda c, a, p: tfm.mcmc_negfc_sampling(c, a, p, start, **kw))
+    f64 = tfm.mcmc_negfc_sampling(torch.as_tensor(cube, device=cuda_device),
+                                  angles, psfn, start, **kw)
+    print(f"NEGFC MCMC on the card: chain {chain.shape}; H1 {counts[0]}, "
+          f"H2 {counts[1]}")
+    assert chain.shape == ref.shape and ref.shape[1] == 3
+    assert np.all(np.isfinite(chain))
+    assert counts[0] > 0 and counts[1] > 0
+    assert np.any(chain[:, -1] != chain[:, 0])      # proposals accepted
+    assert np.max(np.abs(chain - ref) / np.abs(ref)) <= 1e-6
+    assert np.max(np.abs(np.asarray(f64) - ref) / np.abs(ref)) <= 1e-8
+
+
 def test_negfc_nested_sampling_on_the_card(cuda_device):
     import vip_tpu_torch.fm as tfm
 
@@ -890,6 +920,11 @@ IFS_F64_TOL, IFS_F32_TOL = 1e-8, 1e-4
 # measured 4.5e-8 of max|snr| in float64 on an H100 80GB HBM3 at 700 W;
 # the resampled cube itself is held to IFS_F64_TOL
 PACO_F64_TOL = 1e-6
+# the 4-d contrast curve's throughput, float32 on the card against the CPU
+# float64 mode (chip_smoke.py's IFS_CC_TOL, kernels against the plain
+# route: ratios of aperture sums over frames that differ by float32
+# rounding)
+IFS_CC_TOL = 1e-3
 
 
 def _ifs_inputs():
@@ -1018,6 +1053,40 @@ def test_ifs_entry_points_on_the_card(cuda_device, case):
         assert e64 <= IFS_F64_TOL, name
     assert e32 <= IFS_F32_TOL, name
     assert counts == (n_h1, n_h2), name
+
+
+def test_ifs_contrast_curve_on_the_card(cuda_device):
+    """The 4-d contrast curve of the single ADI+mSDI pass, the small shape
+    of chip_smoke.py's phase 18 curve (cut to every 20th frame there):
+    its companions injected and reduced on the card in float32 through H1
+    and H2, its throughput within IFS_CC_TOL of the CPU float64 mode's."""
+    import vip_tpu_torch.psfsub as tps
+    from vip_tpu_torch.fm import normalize_psf
+    from vip_tpu_torch.metrics.contrcurve import _contrast_curve
+
+    cube, angles, scal = _ifs_inputs()
+    psf = np.stack([_gaussian_stamp(13, fwhm=4.0 / s) for s in scal])
+    psfn = normalize_psf(psf, fwhm=list(4.0 / scal), verbose=False)
+    kw = dict(nbranch=1, fc_rad_sep=3, plot=False, verbose=False,
+              scale_list=scal, ncomp=2, adimsdi="single")
+    ref = _contrast_curve(cube, angles, psfn, 4.0, 0.0075, 1e4, tps.pca,
+                          **kw)[0]
+    vip_tpu_torch.set_device(cuda_device)
+    try:
+        before = (median.launches, shear.launches)
+        got = _contrast_curve(cube.astype(np.float32), angles, psfn, 4.0,
+                              0.0075, 1e4, tps.pca, **kw)[0]
+        counts = (median.launches - before[0], shear.launches - before[1])
+    finally:
+        vip_tpu_torch.set_device("cpu")
+    thr, thr_ref = got["throughput"], ref["throughput"]
+    print(f"IFS contrast curve on the card: {len(thr)} radii, throughput "
+          f"{thr.min():.4f}..{thr.max():.4f}; against the CPU float64 mode "
+          f"{np.abs(thr - thr_ref).max():.3e}; H1 {counts[0]}, "
+          f"H2 {counts[1]}")
+    assert counts[0] > 0 and counts[1] > 0
+    assert np.all(np.isfinite(thr)) and 0 < thr.max() <= 1
+    assert np.abs(thr - thr_ref).max() <= IFS_CC_TOL
 
 
 def test_ifs_negfc_lnprob_on_the_card(cuda_device):
@@ -1458,6 +1527,11 @@ def test_slice8c_shift_and_resize_on_the_card(cuda_device):
                         for i in range(cube.shape[0])])
     assert got.is_cuda and _rel(got, loop) <= S8C_LOOP_TOL
     assert _rel(got, cube_shift(cube.double(), sy, sx, **kw)) <= S8C_F32_TOL
+    # 'ndimage-interp' (host scipy; chip_smoke.py shifts 50 frames of 512²)
+    kw = dict(imlib="ndimage-interp", interpolation="biquintic")
+    got = cube_shift(cube, sy, sx, **kw)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert _rel(got, cube_shift(cube.double(), sy, sx, **kw)) <= S8C_F32_TOL
     for scale in (0.5, 1.37):
         out = cube_px_resampling(cube, scale, imlib="opencv", verbose=False)
         ref = cube_px_resampling(cube.double(), scale, imlib="opencv",
@@ -1657,6 +1731,58 @@ def test_slice10_evalroc_on_the_card(on_the_card):
         assert len(m["detections"]) == 2
 
 
+def test_slice10_pp_classes_on_the_card(on_the_card, tmp_path):
+    """The PP classes whose full-width runs chip_smoke.py's phase 22 cuts
+    (annular PCA to 512 frames, annular NMF, LLSG and LOCI to phase 15's
+    frames, the save to 50 frames), on a small cube on the card: each
+    object's frame bit-equal to its function's; ``Dataset.save`` and
+    ``load`` round trip bit for bit, the cube back on the card."""
+    from vip_tpu_torch import psfsub
+    from vip_tpu_torch.objects import (Dataset, LLSGBuilder, LOCIBuilder,
+                                       NMFBuilder, PCABuilder)
+
+    cube, angles, psf = _s10_dataset(n=30)
+    ds = Dataset(cube=cube, angles=angles, psf=psf, fwhm=4, px_scale=0.027)
+    pos = Dataset(cube=ds.cube - ds.cube.min() + 1.0, angles=angles, fwhm=4,
+                  px_scale=0.027)
+    ann = dict(ncomp=3, asize=4, delta_rot=(0.1, 1), n_segments=1)
+    nmf_ann = dict(ncomp=3, radius_int=8, asize=4, handle_neg="subtr_min")
+    llsg = dict(rank=3, thresh=1, max_iter=5, random_seed=10, fwhm=4)
+    loci = dict(fwhm=4, asize=4, n_segments="auto", metric="correlation",
+                radius_int=8, dist_threshold=90, delta_rot=0.5,
+                optim_scale_fact=3, solver="lstsq", tol=0.01)
+    cases = [
+        (PCABuilder(dataset=ds, verbose=False, **ann),
+         dict(runmode="annular", verbose=False),
+         lambda: psfsub.pca_annular(ds.cube, angles, fwhm=4,
+                                    full_output=True, verbose=False,
+                                    **ann)[2]),
+        (NMFBuilder(dataset=pos, verbose=False, **nmf_ann),
+         dict(runmode="annular"),
+         lambda: psfsub.nmf_annular(pos.cube, angles, verbose=False,
+                                    **nmf_ann)),
+        (LLSGBuilder(dataset=ds, verbose=False, **llsg), {},
+         lambda: psfsub.llsg(ds.cube, angles, verbose=False, **llsg)),
+        (LOCIBuilder(dataset=ds, verbose=False, **loci), {},
+         lambda: psfsub.xloci(ds.cube, angles, verbose=False, **loci)),
+    ]
+    for builder, run_kw, direct in cases:
+        obj = builder.build()
+        obj.run(**run_kw)
+        ref = direct()
+        ref = ref[0] if isinstance(ref, tuple) else ref
+        assert obj.frame_final.is_cuda, type(obj).__name__
+        assert torch.equal(obj.frame_final, ref), type(obj).__name__
+    path = str(tmp_path / "dataset")
+    ds.normalize_psf(fit_fwhm=True, verbose=False)
+    ds.save(path)
+    back = Dataset.load(path)
+    for key in ("cube", "psf", "psfn"):
+        assert getattr(back, key).is_cuda
+        assert torch.equal(getattr(back, key), getattr(ds, key)), key
+    assert np.array_equal(back.angles, ds.angles)
+
+
 @pytest.fixture
 def nccl_mesh(on_the_card):
     """A one-rank NCCL group of this process on the card, and its mesh;
@@ -1714,3 +1840,48 @@ def test_slice11_dryrun_two_gloo_ranks_on_the_card(cuda_device):
     out = dryrun_multichip(2, backend="gloo", device="cuda:0")
     assert out["device"] == "cuda:0"
     assert out["pca_adi median"]["H1"] > 0 and out["pca_adi"]["H2"] > 0
+
+
+def test_slice12_get_pca_coeffs_float32_against_float64(cuda_device):
+    """``get_pca_coeffs`` of a small cube on the card in float32 against
+    the same call in float64 on the card, host numpy out."""
+    from vip_tpu_torch.ops.linalg import svd_top
+    from vip_tpu_torch.psfsub.pca_fullfr import get_pca_coeffs
+
+    cube = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (60, 64, 64)), dtype=torch.float32, device=cuda_device)
+    pcs = svd_top(cube.reshape(60, -1), 8, method="eigen")
+    for scaling, mask in ((None, None), ("temp-mean", 6),
+                          ("spat-standard", None)):
+        got = get_pca_coeffs(cube, pcs, 8, scaling, mask, verbose=False)
+        ref = get_pca_coeffs(cube.double(), pcs.double(), 8, scaling, mask,
+                             verbose=False)
+        assert isinstance(got, np.ndarray) and got.dtype == np.float32
+        assert got.shape == (8, 60)
+        scale = max(np.abs(ref).max(), 1.0)
+        assert np.abs(got - ref).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("size", [64, 63])
+def test_slice12_tensor_rotate_fft_float32_against_float64(cuda_device,
+                                                          size):
+    """VIP's torch rotation on the card: float32 within 1e-5 of
+    max(|ref|, 1) of float64, at the angles of chip_smoke.py's phase 24;
+    numpy input lands on the card in float32."""
+    from vip_tpu_torch.preproc.derotation import tensor_rotate_fft
+
+    frame = np.random.default_rng(size).standard_normal((1, size, size))
+    f32 = torch.as_tensor(frame, dtype=torch.float32, device=cuda_device)
+    for angle in (0.0, 30.0, 60.0, 135.0, 300.0):
+        got = tensor_rotate_fft(f32, angle)
+        ref = tensor_rotate_fft(f32.double(), angle)
+        assert got.is_cuda and got.dtype == torch.float32
+        assert got.shape == (1, size, size)
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got.double() - ref).abs().max()) <= 1e-5 * scale
+    vip_tpu_torch.set_device(cuda_device)
+    try:
+        out = tensor_rotate_fft(frame, 30.0)
+    finally:
+        vip_tpu_torch.set_device("cpu")
+    assert out.is_cuda and out.dtype == torch.float32

@@ -41,6 +41,7 @@ import socket
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_map
 
 from .device import as_tensor, get_device
 
@@ -287,3 +288,10 @@ def sharded_frame_map(fun, mesh, axis_name="frames", out_specs=None):
         return from_local(out, mesh, place.dim)
 
     return mapped
+
+
+def tree_to_numpy(tree):
+    """A nested list, tuple or dict with every tensor pulled back to host
+    numpy (vip_tpu parallel.py:102); other leaves stay as they are."""
+    return tree_map(lambda x: x.detach().cpu().numpy()
+                    if isinstance(x, torch.Tensor) else x, tree)

@@ -9,7 +9,8 @@ library into place, so that processes building at once (test workers)
 each load a whole library; a ``.srchash`` stamp over the source and the
 flags decides whether to build again. A failed build raises with g++'s
 output, and a failed decode raises with the meaning of its return code:
-nothing falls back to numpy.
+nothing falls back to numpy. :func:`available` only asks whether the
+library builds and loads.
 """
 
 import ctypes
@@ -21,7 +22,7 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["load", "decode", "encode"]
+__all__ = ["load", "available", "decode", "encode"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "fits_io.cpp")
@@ -92,6 +93,17 @@ def load():
             lib.fits_encode.restype = None
             _lib = lib
     return _lib
+
+
+def available():
+    """Whether the codec builds and loads (vip_tpu _native.py:94): True
+    when :func:`load` returns the library, False when it raises. Nothing
+    else changes: a decode or an encode still raises where it raised."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _wire(precision):

@@ -22,16 +22,17 @@ versions of the CUDA shear kernels H2 and H3 in
 
 ``fourier_shift_batch`` is VIP's 'vip-fft' sub-pixel shift (pad to a
 square even canvas, FFT phase ramp, crop) over a batch of frames, each
-with its own shift; ``fourier_shift`` is a batch of one. vip_tpu also had
-a host numpy twin, ``fourier_shift_np``, only so that its TPU would not
-compile one program per canvas size; PyTorch runs eagerly, so the port
-has none. ``cyclic_fourier_shift`` is scipy's 'ndimage-fourier' shift
+with its own shift; ``fourier_shift`` is a batch of one.
+``fourier_shift_np`` is vip_tpu's host numpy twin of it (float64 FFTs,
+the same geometry), kept under its name; no route of the port calls it.
+``cyclic_fourier_shift`` is scipy's 'ndimage-fourier' shift
 (``fourier_shift`` of the ``fftn``, no pad: the frame wraps around), the
 shift of NEGFC's PSF stamps, batched over any leading axes.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from ..config.device import as_tensor
@@ -40,7 +41,7 @@ __all__ = ["decompose_rotation", "quad_rot90", "fft_shear", "rotate_fft",
            "rotate_fft_batch", "rotate_fft_exact_pruned",
            "rotate_fft_small_plain",
            "rotate_fft_fast_batch", "fourier_shift", "fourier_shift_batch",
-           "cyclic_fourier_shift"]
+           "fourier_shift_np", "cyclic_fourier_shift"]
 
 # +1-pixel placement of a rot90'd even frame per quadrant k (the reference
 # rot90s the (N+1)-extended canvas about its center)
@@ -355,6 +356,34 @@ def _shift_geometry(ny, nx, npad):
     npix_f = npix + npix % 2
     return (npix_f, npix % 2 == 1, sq_y0 + int(cy - cy_ori),
             sq_x0 + int(cx - cx_ori), npad + sq_y0, npad + sq_x0)
+
+
+def fourier_shift_np(array, shift_y, shift_x, npad):
+    """Host numpy twin of :func:`fourier_shift` (vip_tpu fft.py:232): the
+    same padded square canvas, float64 FFTs as VIP's recentering.py:126-189.
+    A float array keeps its dtype; any other comes back float64."""
+    ny_ori, nx_ori = array.shape
+    N, odd, y0, x0, p_y0, p_x0 = _shift_geometry(ny_ori, nx_ori, int(npad))
+    off_y = (0 if shift_y > 0 else 1) if odd else 0
+    off_x = (0 if shift_x > 0 else 1) if odd else 0
+
+    canvas = np.zeros((N, N), dtype=np.float64)
+    canvas[y0 + off_y:y0 + off_y + ny_ori,
+           x0 + off_x:x0 + off_x + nx_ori] = array
+    p_y0 += off_y
+    p_x0 += off_x
+
+    ramp = np.arange(N, dtype=np.float64) - N / 2
+    rx = np.broadcast_to(ramp, (N, N))
+    tilt = (-2 * np.pi / N) * (shift_x * rx + shift_y * rx.T)
+    fact = np.fft.fftshift(np.cos(tilt) + 1j * np.sin(tilt))
+
+    shifted = np.fft.ifft2(np.fft.fft2(canvas) * fact).real
+    out = shifted[p_y0:p_y0 + ny_ori, p_x0:p_x0 + nx_ori]
+    in_dtype = np.asarray(array).dtype
+    if not np.issubdtype(in_dtype, np.floating):
+        return out
+    return out.astype(in_dtype, copy=False)
 
 
 def fourier_shift_batch(cube, shifts_y, shifts_x, npad):

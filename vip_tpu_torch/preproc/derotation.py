@@ -14,13 +14,17 @@ on the tensor's device by :mod:`vip_tpu_torch.ops.warp`; 'tpu-interp' is
 vip_tpu's own gather rotation (:mod:`vip_tpu_torch.ops.interp_rotation`).
 A cube is rotated in one batched call, never a loop over frames. The
 PA-threshold library selection helpers are host-side numpy, as in
-vip_tpu.
+vip_tpu. ``tensor_fft_shear`` and ``tensor_rotate_fft`` are VIP's own
+torch three-shear rotation of one (1, y, x) frame, kept with its quirks
+and its own geometry, in plain ``torch.fft``.
 """
+
+import math
 
 import numpy as np
 import torch
 
-from ..config.device import as_tensor
+from ..config.device import as_tensor, get_device
 from ..ops.fft import rotate_fft, rotate_fft_batch, rotate_fft_exact_pruned
 from ..ops.shear import rotate_exact
 from ..ops.warp import VIP_INTERPOLATIONS, rotation_matrix, warp_affine
@@ -510,3 +514,104 @@ def _define_annuli(angle_list, ann, n_annuli, fwhm, radius_int, annulus_width,
             print("Ann {}    Ann center: {:3.0f}    N segments: {} ".format(
                 ann + 1, ann_center, n_segments))
     return pa_threshold, inner_radius, ann_center
+
+
+def _vip_tensor(x):
+    """``x`` as a float or complex tensor: a float or complex tensor as it
+    is; any other on the default device (a tensor on its own), in
+    float32/complex64 on CUDA and float64/complex128 on the CPU."""
+    if isinstance(x, torch.Tensor) and (x.is_floating_point()
+                                        or x.is_complex()):
+        return x
+    dev = x.device if isinstance(x, torch.Tensor) else get_device()
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    wide = dev.type != "cuda"
+    if x.is_complex():
+        dtype = torch.complex128 if wide else torch.complex64
+    else:
+        dtype = torch.float64 if wide else torch.float32
+    return x.to(device=dev, dtype=dtype)
+
+
+def tensor_fft_shear(arr, arr_ori, c, ax):
+    """One FFT shear pass of VIP's torch three-shear rotation (vip_tpu
+    derotation.py:536; VIP derotation.py:709-724): the fftshift-sandwiched
+    DFT of the (1, y, x) ``arr`` (real or complex) along ``ax`` (1 or 2),
+    times exp(-2πi·c·u·arr_ori), ``u`` the centered frequencies along the
+    other axis and ``arr_ori`` the centered coordinate ramp. Runs on the
+    device of ``arr`` (numpy input goes to the default one); the phase is
+    evaluated in float64 and cast to the working complex dtype. Returns
+    the complex (1, y, x) tensor."""
+    arr = _vip_tensor(arr)
+    dev = arr.device
+    wide = arr.dtype in (torch.float64, torch.complex128)
+    cdtype = torch.complex128 if wide else torch.complex64
+    arr_ori = torch.as_tensor(arr_ori, dtype=torch.float64, device=dev)
+    ax2 = 1 - (ax - 1) % 2
+    freqs = torch.fft.fftfreq(arr_ori.shape[ax2], dtype=torch.float64,
+                              device=dev)
+    arr_u = torch.fft.fftshift(freqs).tile((arr_ori.shape[ax - 1], 1))
+    if ax == 2:
+        arr_u = arr_u.T
+    theta = (-2 * math.pi * c) * arr_u * arr_ori
+    phase = torch.polar(torch.ones_like(theta), theta).to(cdtype)
+    s_x = torch.fft.fftshift(arr)
+    s_x = torch.fft.fft(s_x, dim=ax)
+    s_x = torch.fft.fftshift(s_x)
+    s_x = phase * s_x
+    s_x = torch.fft.fftshift(s_x)
+    s_x = torch.fft.ifft(s_x, dim=ax)
+    return torch.fft.fftshift(s_x)
+
+
+def tensor_rotate_fft(tensor, angle):
+    """Rotate a (1, y, x) frame (or a 2-d one) by ``angle`` degrees with
+    VIP's torch three-shear FFT rotation (vip_tpu derotation.py:561; VIP
+    derotation.py:643-706): ``angle % 360`` split into a ``rot90`` and a
+    residual within ±45°; odd frames cropped to even for the shears, the
+    centre that of the original shape, and padded back with a zero last
+    row and column; the real part out, (1, y, x). Runs on the tensor's
+    device in its float dtype (numpy input: the default device, float32
+    on CUDA, float64 on the CPU). For batches of frames, each with its
+    angle, the port has ``ops.fft.rotate_fft_fast_batch``."""
+    tensor = _vip_tensor(tensor)
+    if tensor.is_complex():
+        tensor = tensor.real
+    if tensor.ndim == 2:
+        tensor = tensor[None]
+    y_ori, x_ori = tensor.shape[1:]
+
+    angle = float(angle) % 360.0
+    if angle > 45:
+        dangle = angle % 90
+        if dangle > 45:
+            dangle = -(90 - dangle)
+        nangle = int(np.rint(angle / 90))
+        tensor_in = torch.rot90(tensor, nangle, dims=(1, 2))
+    else:
+        dangle = angle
+        tensor_in = tensor
+
+    odd = bool(y_ori % 2 or x_ori % 2)
+    if odd:
+        # the shears' centre sits at (cy + 0.5, cx + 0.5): crop to even
+        tensor_in = tensor_in[:, :-1, :-1]
+
+    a = np.tan(np.deg2rad(dangle) / 2)
+    b = -np.sin(np.deg2rad(dangle))
+
+    y_new, x_new = tensor_in.shape[1:]
+    yy, xx = np.mgrid[0:y_new, 0:x_new]
+    cy, cx = frame_center((y_ori, x_ori))
+    arr_y = yy - cy
+    arr_x = xx - cx
+
+    s_x = tensor_fft_shear(tensor_in, arr_x, a, ax=2)
+    s_xy = tensor_fft_shear(s_x, arr_y, b, ax=1)
+    s_xyx = tensor_fft_shear(s_xy, arr_x, a, ax=2).real
+    if odd:
+        out = torch.zeros((1, y_new + 1, x_new + 1), dtype=s_xyx.dtype,
+                          device=s_xyx.device)
+        out[0, :-1, :-1] = s_xyx[0]
+        return out
+    return s_xyx.contiguous()

@@ -826,3 +826,18 @@ def _adimsdi_doublepca_ifs(array, fr, ncomp, scale_list, scaling,
     if mask_center_px:
         frames = mask_circle(frames, mask_center_px)
     return frames
+
+
+def get_pca_coeffs(cube, pcs, ncomp, scaling=None, mask_center_px=None,
+                   verbose=True):
+    """Weights of each PC for each frame (vip_tpu pca_fullfr.py:864; VIP
+    pca_fullfr.py:1740-1799): the (ncomp, n_frames) product of the PCs
+    with the frames' matrix, as ``prepare_matrix`` builds it in 'fullfr'
+    mode. The cube stays on its device (numpy input goes to the default
+    one), the PCs join it there; host numpy out, as vip_tpu."""
+    matrix = prepare_matrix(cube, scaling=scaling,
+                            mask_center_px=mask_center_px, mode="fullfr",
+                            verbose=verbose)
+    V = as_tensor(pcs, device=matrix.device,
+                  dtype=matrix.dtype).reshape(ncomp, -1)
+    return (V @ matrix.mT).cpu().numpy()
