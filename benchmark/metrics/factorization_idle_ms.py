@@ -1,0 +1,12 @@
+"""factorization_idle_ms: ms a traced request in which the card is idle while
+the innermost span the program keeps is of the factorization layer,
+``factorization.*``: ``project_subtract``, ``svd_top`` and each QR, SVD
+and eigh of ``ops.linalg``. From the program's spans
+(``benchmark/program_spans.py``); None unless every traced request holds
+one outermost ``api.pca`` span."""
+
+from program_spans import layer_idle_ms
+
+
+def read(ctx, metric):
+    return layer_idle_ms(ctx, metric["layer"])

@@ -8,15 +8,27 @@
   CUDA tensors; every SVD of the port goes through it.
 
 vip_tpu left these to XLA and has no Pallas code here; on the card they
-stay ``torch.matmul`` and ``torch.linalg`` (cuBLAS/cuSOLVER).
+stay ``torch.matmul`` and ``torch.linalg`` (cuBLAS/cuSOLVER). Every
+``torch.linalg`` factorization of the port's full-frame PCA runs here,
+each in a span (``factorization.qr``, ``.svd``, ``.eigh``) whose count is
+the number of matrices it factors (``config.timing``).
 """
 
 import torch
+
+from ..config.timing import traced
 
 __all__ = ["svd_top", "matrix_scaling_jax", "project_subtract",
            "randomized_svd", "svd"]
 
 
+def _matrices(A, *args, **kwargs):
+    """The count of a factorization's span: the matrices of its [..., m, n]
+    batch."""
+    return A.shape[:-2].numel()
+
+
+@traced("factorization.svd", _matrices)
 def svd(A, full_matrices=False):
     """``torch.linalg.svd(A, full_matrices)``; on a CUDA tensor with the
     QR-based cuSOLVER routine ``gesvd``.
@@ -34,6 +46,16 @@ def svd(A, full_matrices=False):
         return torch.linalg.svd(A, full_matrices=full_matrices,
                                 driver="gesvd")
     return torch.linalg.svd(A, full_matrices=full_matrices)
+
+
+@traced("factorization.qr", _matrices)
+def _qr(A):
+    return torch.linalg.qr(A)
+
+
+@traced("factorization.eigh", _matrices)
+def _eigh(A):
+    return torch.linalg.eigh(A)
 
 
 def matrix_scaling_jax(matrix, scaling):
@@ -83,9 +105,9 @@ def randomized_svd(matrix, ncomp, omega=None, n_oversamples=10, n_iter=2,
                          f"{tuple(omega.shape)}")
     Q = A @ omega.to(matrix.device, matrix.dtype)
     for _ in range(n_iter):
-        Q, _ = torch.linalg.qr(A.T @ Q)
-        Q, _ = torch.linalg.qr(A @ Q)
-    Q, _ = torch.linalg.qr(Q)
+        Q, _ = _qr(A.T @ Q)
+        Q, _ = _qr(A @ Q)
+    Q, _ = _qr(Q)
     B = Q.T @ A
     Ub, S, Vh = svd(B)
     U = Q @ Ub
@@ -95,6 +117,7 @@ def randomized_svd(matrix, ncomp, omega=None, n_oversamples=10, n_iter=2,
     return U, S, Vh
 
 
+@traced("factorization.svd_top")
 def svd_top(matrix, ncomp, method="lapack", omega=None, full_output=False,
             *, generator=None):
     """Top-``ncomp`` principal components (right singular vectors) of a
@@ -118,7 +141,7 @@ def svd_top(matrix, ncomp, method="lapack", omega=None, full_output=False,
     n = matrix.shape[-2]
     if method == "lapack":
         if matrix.shape[-1] > 4 * n:
-            Q, R = torch.linalg.qr(matrix.mT)
+            Q, R = _qr(matrix.mT)
             Ur, S2, V2 = svd(R)
             U2 = Q @ Ur
         else:
@@ -129,7 +152,7 @@ def svd_top(matrix, ncomp, method="lapack", omega=None, full_output=False,
         return V
     elif method == "eigen":
         C = matrix @ matrix.mT
-        e, EV = torch.linalg.eigh(C)
+        e, EV = _eigh(C)
         S = torch.sqrt(torch.abs(e)).flip(-1)
         V = ((EV.mT @ matrix).flip(-2) / S[..., :, None])[..., :ncomp, :]
         if full_output:
@@ -154,6 +177,7 @@ def svd_top(matrix, ncomp, method="lapack", omega=None, full_output=False,
     raise ValueError(f"SVD method {method!r} not recognized")
 
 
+@traced("factorization.project_subtract")
 def project_subtract(matrix, matrix_ref, ncomp, method="lapack", omega=None,
                      matrix_sig=None, full_output=False, *, generator=None):
     """PCA project-and-subtract on prepared [n, p] matrices (vip_tpu

@@ -59,6 +59,7 @@ import os
 import numpy as np
 import torch
 
+from ..config.timing import leading_frames, traced
 from .fft import (_shear_coefs, decompose_rotation, rotate_fft_exact_pruned,
                   rotate_fft_small_plain)
 
@@ -230,6 +231,7 @@ def _shear(lib, src, dst, coef, tables, lines, N, q0, in_strides, in_len,
     check(rc, what)
 
 
+@traced("derotation.shear_setup", leading_frames)
 def _exact_setup(frames, angles, pad_y, what):
     """Check (B, y, y) frames for the exact kernels (H2, H4) and prepare a
     launch: the library, the float64 shear coefficients (as the plain
@@ -253,6 +255,7 @@ def _exact_setup(frames, angles, pad_y, what):
     return load(), a, b, _line_tables(pad_y, dev), k
 
 
+@traced("derotation.shear_setup", leading_frames)
 def _small_setup(cube, angles, what):
     """Check (B, N, N) canvases for the small kernels (H3, H4) and prepare
     a launch: the library, the float64 shear coefficients, the line

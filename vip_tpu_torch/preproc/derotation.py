@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config.device import as_tensor, get_device
+from ..config.timing import leading_frames, traced
 from ..ops.fft import rotate_fft, rotate_fft_batch, rotate_fft_exact_pruned
 from ..ops.shear import rotate_exact
 from ..ops.warp import VIP_INTERPOLATIONS, rotation_matrix, warp_affine
@@ -377,6 +378,7 @@ def _blend_rotate(frames, angles, mask_val, mode, interp_zeros, ker, draws,
     return out
 
 
+@traced("derotation.cube_derotate", leading_frames)
 def cube_derotate(array, angle_list, imlib="vip-fft",
                   interpolation="lanczos4", cxy=None, nproc=1,
                   border_mode="constant", mask_val=np.nan, edge_blend=None,

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.device import as_tensor
+from ..config.timing import leading_frames, traced
 from ..preproc.subsampling import collapse_jax
 from ..var.coords import frame_center
 
@@ -365,6 +366,7 @@ def _square_bounds(size_init, size, y, x):
     return int(y - wing), int(y + wing + 1), int(x - wing), int(x + wing + 1)
 
 
+@traced("rescaling.scwave", leading_frames)
 def _scwave(cube, scal_list, full_output=True, inverse=False, y_in=None,
             x_in=None, imlib="vip-fft", interpolation="lanczos4",
             collapse="median", pad_mode="reflect", keep_cube=True):

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..config.device import as_tensor
+from ..config.timing import leading_frames, traced
 from ..ops.median import nanmedian_axis0, nanmedian_plain, nanmedian_supported
 
 __all__ = ["cube_collapse", "cube_subsample", "cube_subsample_trimmean"]
@@ -53,6 +54,7 @@ def collapse_jax(arr, mode="median", n=50, w=None, ax=0):
     raise TypeError("mode not recognized")
 
 
+@traced("collapse.cube_collapse", leading_frames)
 def cube_collapse(cube, mode="median", n=50, w=None):
     """Collapse a 3d cube to a frame (or a 4d cube to 3d along the
     temporal axis; vip_tpu subsampling.py:52). Returns a tensor on the

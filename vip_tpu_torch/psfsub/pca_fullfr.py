@@ -37,9 +37,11 @@ from typing import List, Tuple, Union
 import numpy as np
 import torch
 
-from ..config import (Adimsdi, Collapse, Imlib, Interpolation, SvdMode,
-                      check_array, check_enough_memory, time_ini, timing)
+from ..config import (ALGO_KEY, Adimsdi, Collapse, Imlib, Interpolation,
+                      SvdMode, check_array, check_enough_memory, time_ini,
+                      timing)
 from ..config.device import as_tensor
+from ..config.timing import leading_frames, traced
 from ..config.utils_param import resolve_algo_params, setup_parameters
 from ..ops.linalg import matrix_scaling_jax, project_subtract, svd_top
 from ..preproc.derotation import (_compute_pa_thresh, _find_indices_adi,
@@ -105,6 +107,15 @@ def _value(v):
     return v.value if isinstance(v, Enum) else v
 
 
+def _input_frames(*all_args, **all_kwargs):
+    """The count of ``pca``'s span: the frames of its input cube
+    (channels x frames for a 4-d cube)."""
+    cube = all_args[0] if all_args else all_kwargs.get(
+        "cube", getattr(all_kwargs.get(ALGO_KEY), "cube", None))
+    return leading_frames(cube)
+
+
+@traced("api.pca", _input_frames)
 def pca(*all_args: List, **all_kwargs: dict):
     """Full-frame PCA PSF subtraction of a 3-d ADI cube, with an optional
     RDI/ARDI reference cube, or of a 4-d IFS cube (vip_tpu
