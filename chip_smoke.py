@@ -224,6 +224,15 @@ Phases, one line each:
     PIPE_TOL of max(|ref|, 1) of the same call in float64 on the card;
     ``tree_to_numpy`` of a nested structure of card tensors; the FITS
     codec's ``available()``.
+25. K5, the batched one-sided Jacobi SVD of ``ops.linalg.svd``'s route
+    for CUDA float32 matrices of sides <= 64, on R factors of tall
+    matrices with a decaying spectrum at the double pass's shape (100 of
+    39 rows) and the NACO replica's (one of 61): one launch a call, every
+    matrix converged, singular values within 1e-6 of the largest and
+    top-5 projectors within 1e-4 of its plain version's on the card,
+    reconstruction beside gesvd's; the kernel (CUDA events, warm median
+    of 10) against its bound, its plain version and the per-matrix gesvd
+    loop it replaces, beside the card's name and power limit.
 
 Every phase ends with a line of its wall time (phase 14's timings run
 last); the cuts of an earlier path to a smaller depth are printed by
@@ -251,7 +260,7 @@ phase 20 alone, with torch.profiler tables of its two slowest steps;
 slowest warps; ``--slice10`` runs phase 22 alone (the PP classes'
 functions run there too); ``--slice11`` runs phase 23 alone (phase 12's
 contrast curve and phase 18's sequence made there too); ``--slice12``
-runs phase 24 alone.
+runs phase 24 alone; ``--jacobi`` runs phase 25 alone.
 ``--seed N`` (with any of the above) makes phase 18's sequence from seed
 N (default 0).
 ``python3 chip_smoke.py --digests ROOT`` instead prints a JSON line of
@@ -652,17 +661,18 @@ def _env(name, value):
 
 
 def _reset_counts():
-    from vip_tpu_torch.ops import median, shear
+    from vip_tpu_torch.ops import linalg, median, shear
 
     median.launches = shear.launches = shear.small_launches = 0
-    shear.fused3_launches = 0
+    shear.fused3_launches = linalg.jacobi_launches = 0
 
 
 def _counts():
-    from vip_tpu_torch.ops import median, shear
+    from vip_tpu_torch.ops import linalg, median, shear
 
     return {"H1": median.launches, "H2": shear.launches,
-            "H3": shear.small_launches, "H4": shear.fused3_launches}
+            "H3": shear.small_launches, "H4": shear.fused3_launches,
+            "K5": linalg.jacobi_launches}
 
 
 def _sync_times(fn, reps=3):
@@ -1421,7 +1431,8 @@ def phase_small_reference():
 def _plain_route():
     """Route the exact derotation (``VIP_EXACT_SHEAR=pruned``) and the
     median collapse through their plain PyTorch versions on the card, for
-    a block; the kernels' counts must not move inside it."""
+    a block; the counts of the rotation and median kernels must not move
+    inside it (K5, the route of the small SVDs, runs on both sides)."""
     from vip_tpu_torch.preproc import subsampling
 
     supported = subsampling.nanmedian_supported
@@ -1430,9 +1441,11 @@ def _plain_route():
         with _env("VIP_EXACT_SHEAR", "pruned"):
             before = _counts()
             yield
-            _require(_counts() == before,
+            after = _counts()
+            _require(all(after[k] == before[k]
+                         for k in ("H1", "H2", "H3", "H4")),
                      f"the plain route launched kernels: {before} -> "
-                     f"{_counts()}")
+                     f"{after}")
     finally:
         subsampling.nanmedian_supported = supported
 
@@ -1827,7 +1840,8 @@ def _ipca_float64(pcube, angles_np, frame, first, ref, ref_first):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _require(f64.dtype == torch.float64 and _counts() == dict.fromkeys(
-        ("H1", "H2", "H3", "H4"), 0), "ipca float64: launches or dtype")
+        ("H1", "H2", "H3", "H4", "K5"), 0),
+        "ipca float64: launches or dtype")
     errs = {k: _rel_err(a, b)[0] for k, (a, b) in {
         "kernels": (frame, f64), "plain": (ref, f64),
         "kernels vs plain": (frame, ref), "first kernels": (first, first64),
@@ -4558,7 +4572,7 @@ def phase_slice11(cube, angles_np, pcube, ifs, tmpdir, refs=None):
         err = _s11_err("(b)", name, ranks[0][name]["out"], one[name]["out"])
         held("(b)", name, err, tols_b.get(name, PIPE_TOL))
         h = {k: sum(r[name]["counts"][k] for r in ranks)
-             for k in ("H1", "H2", "H3", "H4")}
+             for k in ("H1", "H2", "H3", "H4", "K5")}
         slow = max(r[name]["s"] for r in ranks)
         print(f"slice 11 (b) {name}: {slow:.4f} s on the slowest of "
               f"{S11_RANKS} ranks (world size 1: {one[name]['s']:.4f} s), "
@@ -4568,7 +4582,7 @@ def phase_slice11(cube, angles_np, pcube, ifs, tmpdir, refs=None):
         times[f"(b) {name}"] = slow
     _require(not fails, "slice 11: " + "; ".join(fails))
     total = {k: sum(c[k] for c in counts.values())
-             for k in ("H1", "H2", "H3", "H4")}
+             for k in ("H1", "H2", "H3", "H4", "K5")}
     print(f"slice 11: (a) {t_a:.1f} s, with (b)'s {S11_RANKS} ranks "
           f"starting beside it; (b) from the spawn to the last rank's result "
           f"{t_b:.1f} s; the phase took "
@@ -4689,6 +4703,108 @@ def slice12_only():
         rng.standard_normal((N_FRAMES, SIZE, SIZE)).astype(np.float32),
         device=DEVICE)
     _phase(24, "slice 12", phase_slice12, cube)
+
+
+# K5: (batch, rows) of its R factors, the double pass's and the NACO
+# replica's
+JACOBI_SHAPES = ((100, 39), (1, 61))
+
+
+def _jacobi_bound(batch, n, sweeps):
+    """K5's (bound_ms, bound_by) on ``batch`` n x n float32 matrices that
+    took ``sweeps`` sweeps (a list), by :func:`_bound`: the float32
+    operations at the float32 peak and the bytes (the matrix in, U, S and
+    Vh out). Each sweep visits the n (n - 1) / 2 pairs; every visit forms
+    three dot products of n (6 n); every visit of a sweep but the last,
+    which rotates nothing, also rotates two columns of n and two of the
+    rotations (12 n). Late sweeps rotate fewer pairs, so this overcounts
+    the rotations, and the bound errs high."""
+    pairs = n * (n - 1) // 2
+    flop = pairs * n * (6 * sum(sweeps) + 12 * (sum(sweeps) - batch))
+    return _bound(batch * 4 * (3 * n * n + n), flop)
+
+
+def phase_jacobi():
+    """Phase 25 (see the module docstring): K5 at each of JACOBI_SHAPES.
+    Returns {(batch, n): (kernel ms, (bound ms, bound by), plain ms,
+    gesvd ms, largest absolute error of the singular values against the
+    plain version's)}."""
+    from vip_tpu_torch.ops import linalg
+
+    head = f"K5 (card: {_card()})"
+    out = {}
+
+    def ms(fn, reps):
+        times = []
+        for _ in range(reps + 1):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return float(np.median(times[1:]))
+
+    for batch, n in JACOBI_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(n)
+        M = torch.randn((batch, 50 * n, n), generator=g, device=DEVICE)
+        M = M * torch.logspace(2, -2, n, device=DEVICE)
+        R = torch.linalg.qr(M)[1]
+        del M
+        linalg.jacobi_launches = 0
+        U, S, Vh, info = linalg.svd_jacobi(R, with_info=True)
+        _require(linalg.jacobi_launches == 1,
+                 f"K5 ({batch}, {n}, {n}): {linalg.jacobi_launches} "
+                 f"launches, want 1")
+        Up, Sp, Vhp, infop = linalg.svd_jacobi_plain(R, with_info=True)
+        Ug, Sg, Vhg = torch.linalg.svd(R, full_matrices=False,
+                                       driver="gesvd")
+        sweeps = info.tolist()
+        _require(min(sweeps) > 0 and int(infop.min()) > 0,
+                 f"K5 ({batch}, {n}, {n}): a matrix did not converge "
+                 f"(kernel {min(sweeps)}, plain {int(infop.min())})")
+        s_err = float(((S - Sp).abs() / S[:, :1]).max())
+        p_err = max(float((X @ X.mT - Y @ Y.mT).abs().max())
+                    for X, Y in ((U[..., :5], Up[..., :5]),
+                                 (Vh[:, :5].mT, Vhp[:, :5].mT)))
+        R64 = R.double()
+
+        def rec(U, S, Vh):
+            return float(((U.double() * S.double()[:, None]) @ Vh.double()
+                          - R64).abs().max() / R64.abs().max())
+
+        s64 = torch.linalg.svd(R64).S
+        print(f"{head} ({batch}, {n}, {n}): sweeps {min(sweeps)}-"
+              f"{max(sweeps)}; singular values vs plain {s_err:.3e}, top-5 "
+              f"projectors vs plain {p_err:.3e}; reconstruction "
+              f"{rec(U, S, Vh):.3e} (gesvd {rec(Ug, Sg, Vhg):.3e}); "
+              f"singular values vs float64 "
+              f"{float(((S - s64).abs() / s64[:, :1]).max()):.3e} (gesvd "
+              f"{float(((Sg - s64).abs() / s64[:, :1]).max()):.3e})",
+              flush=True)
+        _require(s_err <= 1e-6 and p_err <= 1e-4,
+                 f"K5 ({batch}, {n}, {n}): kernel and plain version differ")
+        t_k = ms(lambda: linalg.svd_jacobi(R), 10)
+        t_p = ms(lambda: linalg.svd_jacobi_plain(R), 3)
+        t_g = ms(lambda: torch.linalg.svd(R, full_matrices=False,
+                                          driver="gesvd"), 3)
+        bound = _jacobi_bound(batch, n, sweeps)
+        print(f"timing {head} ({batch}, {n}, {n}): kernel {t_k:.3f} ms "
+              f"(bound {bound[0]:.4f} ms by {bound[1]}, {t_k / bound[0]:.0f}"
+              f"x; {sum(sweeps) / batch:.1f} sweeps of {n + n % 2 - 1} "
+              f"steps a matrix), plain {t_p:.3f} ms, gesvd loop "
+              f"{t_g:.3f} ms", flush=True)
+        out[(batch, n)] = (t_k, bound, t_p, t_g,
+                           float((S - Sp).abs().max()))
+    return out
+
+
+def jacobi_only():
+    """Phase 25 alone (``--jacobi``): the build and K5."""
+    phase_device()
+    phase_build()
+    _phase(25, "K5", phase_jacobi)
 
 
 def _phase(number, name, fn, *args, **kwargs):
@@ -5290,6 +5406,7 @@ def main():
             pp_refs["ifs"], tmpdir, {"contrast": cc_cols})
     del pp_refs
     s12_times = _phase(24, "slice 12", phase_slice12, cube)
+    jacobi = _phase(25, "K5", phase_jacobi)
     t14 = time.perf_counter()
     new_paths = {"incremental": inc_counts, "contrast": cc_counts,
                  "completeness": compl_counts, "stim": stim_counts}
@@ -5302,7 +5419,7 @@ def main():
     new_paths.update({f"8c/9 {k}": v for k, v in s89_counts.items()})
     new_paths.update({f"10 {k}": v for k, v in s10_counts.items()})
     new_paths["slice11"] = {k: sum(c[k] for c in s11_counts.values())
-                            for k in ("H1", "H2", "H3", "H4")}
+                            for k in ("H1", "H2", "H3", "H4", "K5")}
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -5551,6 +5668,19 @@ def main():
               "vip_tpu/ops/pallas_shear.py:890", h4s_counts["H4"], h4s_err,
               t_h4s * 1e3, t_h3p * 1e3, small_bound),
     ]
+    # K5 replaces no TPU kernel; its path is the double pass of phase 18,
+    # its times phase 25's at the first of JACOBI_SHAPES, the rest beside
+    k5_ms, k5_bound, k5_plain, k5_gesvd, k5_err = jacobi[JACOBI_SHAPES[0]]
+    kernels.append(dict(
+        entry("svd_jacobi", "vip_tpu_torch/csrc/svd_jacobi.cu", None,
+              ifs_counts["pca double pass"]["K5"], k5_err, k5_ms, k5_plain,
+              k5_bound, k5_gesvd),
+        shapes={f"{b}x{n}x{n}": {"ms": v[0], "bound_ms": v[1][0],
+                                 "bound_by": v[1][1], "plain_ms": v[2],
+                                 "library_ms": v[3], "max_abs_err": v[4]}
+                for (b, n), v in jacobi.items()},
+        launches_new_paths={k: v["K5"] for k, v in new_paths.items()
+                            if v["K5"]}))
     print(f"phase 14 (timings) wall time: {time.perf_counter() - t14:.1f} s",
           flush=True)
     print(f"wall time of chip_smoke.py: {time.perf_counter() - t_start:.1f} s",
@@ -5765,6 +5895,10 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--slice11":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         slice11_only()
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--jacobi":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        jacobi_only()
         sys.exit(0)
     if len(sys.argv) == 2 and sys.argv[1] == "--slice12":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

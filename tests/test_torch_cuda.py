@@ -1885,3 +1885,119 @@ def test_slice12_tensor_rotate_fft_float32_against_float64(cuda_device,
     finally:
         vip_tpu_torch.set_device("cpu")
     assert out.is_cuda and out.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# K5: the batched one-sided Jacobi SVD of small matrices (ops.linalg.svd's
+# route for CUDA float32 matrices of sides <= 64)
+# ---------------------------------------------------------------------------
+def _r_factors(batch, n, seed, device):
+    """R factors of (batch, 8n, n) tall matrices with a decaying spectrum,
+    as the double pass's spectral QR makes them (upper triangular)."""
+    g = torch.Generator().manual_seed(seed)
+    M = torch.randn((batch, 8 * n, n), generator=g, dtype=torch.float64)
+    M = M * torch.logspace(2, -2, n, dtype=torch.float64)
+    return torch.linalg.qr(M)[1].to(device=device, dtype=torch.float32)
+
+
+def _reconstruction(U, S, Vh, A):
+    """max |U S Vh - A| / max |A|, in float64."""
+    A64 = A.double()
+    rec = (U.double() * S.double()[..., None, :]) @ Vh.double()
+    return float((rec - A64).abs().max() / A64.abs().max())
+
+
+def _projector(X):
+    return X @ X.mT
+
+
+@pytest.mark.parametrize("batch,n", [(100, 39), (1, 61)])
+def test_jacobi_kernel_against_plain_and_gesvd(cuda_device, batch, n):
+    """K5 on the double pass's shape (100 R factors of 39 rows) and on the
+    NACO replica's (one of 61): singular values within 1e-6 of the
+    largest and the top-5 projectors within 1e-4 of its plain version's,
+    every matrix converged, orthonormal factors, and a reconstruction as
+    close as gesvd's (twice it, or 1e-6)."""
+    from vip_tpu_torch.ops.linalg import svd_jacobi, svd_jacobi_plain
+
+    A = _r_factors(batch, n, n, cuda_device)
+    U, S, Vh, info = svd_jacobi(A, with_info=True)
+    Up, Sp, Vhp, infop = svd_jacobi_plain(A, with_info=True)
+    Ug, Sg, Vhg = torch.linalg.svd(A, full_matrices=False, driver="gesvd")
+    assert bool((info > 0).all()) and bool((infop > 0).all())
+    scale = S[..., :1]
+    assert float(((S - Sp).abs() / scale).max()) <= 1e-6
+    for X, Xp in ((U[..., :5], Up[..., :5]), (Vh[..., :5, :].mT,
+                                              Vhp[..., :5, :].mT)):
+        assert float((_projector(X) - _projector(Xp)).abs().max()) <= 1e-4
+    eye = torch.eye(n, device=cuda_device)
+    assert float((U.mT @ U - eye).abs().max()) <= 1e-5
+    assert float((Vh @ Vh.mT - eye).abs().max()) <= 1e-5
+    rec, rec_g = _reconstruction(U, S, Vh, A), _reconstruction(Ug, Sg, Vhg,
+                                                               A)
+    s64 = torch.linalg.svd(A.double()).S
+    print(f"K5 ({batch}, {n}, {n}): sweeps {int(info.min())}-"
+          f"{int(info.max())}; reconstruction {rec:.3e} (gesvd {rec_g:.3e});"
+          f" singular values from float64 "
+          f"{float(((S - s64).abs() / s64[..., :1]).max()):.3e} (gesvd "
+          f"{float(((Sg - s64).abs() / s64[..., :1]).max()):.3e})")
+    assert rec <= max(2 * rec_g, 1e-6)
+
+
+def test_jacobi_launches_once_per_batched_call(cuda_device):
+    """``ops.linalg.svd`` of a CUDA float32 batch of small matrices is one
+    K5 launch, whatever the batch's shape; ``svd_top``'s lapack route
+    through the QR is one more."""
+    from vip_tpu_torch.ops import linalg
+
+    linalg.jacobi_launches = 0
+    A = _r_factors(100, 39, 1, cuda_device)
+    linalg.svd(A)
+    assert linalg.jacobi_launches == 1
+    linalg.svd(A.reshape(4, 25, 39, 39))
+    assert linalg.jacobi_launches == 2
+    linalg.svd(A[0, :17])                       # one wide matrix
+    assert linalg.jacobi_launches == 3
+    M = torch.randn((10, 39, 2000), device=cuda_device)
+    linalg.svd_top(M, 3, method="lapack")
+    assert linalg.jacobi_launches == 4
+
+
+@pytest.mark.parametrize("shape,dtype,full", [
+    ((65, 65), torch.float32, False), ((3, 39, 65), torch.float32, False),
+    ((10, 39, 39), torch.float64, False), ((10, 39, 39), torch.float32,
+                                           True)],
+    ids=["65x65", "39x65", "float64", "full_matrices"])
+def test_jacobi_no_launch_outside_its_route(cuda_device, shape, dtype, full):
+    """A side over 64, float64 or the full factors stay on gesvd: no K5
+    launch, and the kernel's wrapper refuses them rather than fall back."""
+    from vip_tpu_torch.ops import linalg
+
+    A = torch.randn(shape, dtype=dtype, device=cuda_device)
+    linalg.jacobi_launches = 0
+    U, S, Vh = linalg.svd(A, full_matrices=full)
+    ref = torch.linalg.svd(A, full_matrices=full, driver="gesvd")
+    assert linalg.jacobi_launches == 0
+    assert torch.equal(S, ref.S)
+    if not full:
+        with pytest.raises(ValueError):
+            linalg.svd_jacobi(A)
+    assert linalg.jacobi_launches == 0
+
+
+@pytest.mark.parametrize("shape", [(40, 17), (17, 40), (2, 3, 39, 39),
+                                   (1, 1), (5, 1, 64), (64, 64)])
+def test_jacobi_output_layout(cuda_device, shape):
+    """K5's factors have ``torch.linalg.svd(full_matrices=False)``'s
+    shapes, dtype, device and contiguity, singular values in descending
+    order, and rebuild the matrix, tall, wide and batched."""
+    from vip_tpu_torch.ops import linalg
+
+    A = torch.randn(shape, device=cuda_device)
+    U, S, Vh = linalg.svd(A)
+    ref = torch.linalg.svd(A, full_matrices=False, driver="gesvd")
+    for got, want in zip((U, S, Vh), ref):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert got.device == A.device and got.is_contiguous()
+    assert bool((S[..., :-1] >= S[..., 1:]).all())
+    assert _reconstruction(U, S, Vh, A) <= 1e-5

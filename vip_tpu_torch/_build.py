@@ -42,6 +42,7 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "vip_shear3_info": [_I, _I, _P],
     "vip_nanmedian_info": [_LL, _P],
+    "vip_svd_jacobi": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
 }
 
 

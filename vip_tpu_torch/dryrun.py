@@ -306,10 +306,10 @@ def entry_points(specs):
     tensors on the port's device) on meshes over every rank of the
     default group, in order. Returns {"device": the device of a shard's
     tensor, name: {"out": host result, "s": seconds, "counts": H1-H4
-    launches}}."""
+    and K5 launches}}."""
     from .config.device import get_device
     from .config.parallel import frame_mesh, shard_cube
-    from .ops import median, shear
+    from .ops import linalg, median, shear
 
     dev, mesh = get_device(), frame_mesh()
     out = {"device": str(shard_cube(np.zeros(mesh.size()),
@@ -320,7 +320,7 @@ def entry_points(specs):
         wide = _float64 if spec.pop("float64", False) else (lambda v: v)
         inputs = {k: wide(_loaded(v)) for k, v in spec.items()}
         median.launches = shear.launches = shear.small_launches = 0
-        shear.fused3_launches = 0
+        shear.fused3_launches = linalg.jacobi_launches = 0
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -330,7 +330,8 @@ def entry_points(specs):
         out[name] = {"out": res, "s": time.perf_counter() - t0,
                      "counts": {"H1": median.launches, "H2": shear.launches,
                                 "H3": shear.small_launches,
-                                "H4": shear.fused3_launches}}
+                                "H4": shear.fused3_launches,
+                                "K5": linalg.jacobi_launches}}
     return out
 
 
