@@ -17,16 +17,24 @@ Two formulations:
   wherever the PCs themselves are needed).
 - :func:`batched_pca_patch_residuals_gram`: the same residuals from one
   segment Gram matrix G = M Mᵀ and per-frame (L, L) sub-Grams, L the padded
-  library size, by eigh or by subspace iteration
-  (:func:`_subspace_topk`); :func:`resident_annulus_update` wraps it with
-  the segment gather and the residual scatter of the device-resident path.
+  library size, by eigh or by a subspace iteration run to convergence in
+  float64 (:func:`_subspace_topk`); :func:`resident_annulus_update` does
+  the same for many segments at once, with the segment gathers and the
+  residual scatters of the device-resident path.
 
 All of it is ``torch.matmul`` and ``torch.linalg`` on the tensors' device
-(vip_tpu has no Pallas kernel here).
+(vip_tpu has no Pallas kernel here). Each factorization of the frames'
+libraries is a span (``config.timing``) that counts the libraries it
+factors: ``annular.eigh`` or ``annular.svd`` in :func:`_masked_top_v`,
+``annular.eigh`` or ``annular.subspace`` in :func:`_library_topk` (both
+Gram-space paths).
 """
+
+import math
 
 import torch
 
+from ..config.timing import annotate_trace
 from .linalg import svd
 
 __all__ = ["batched_pca_patch_residuals",
@@ -38,15 +46,18 @@ def _masked_top_v(lib, ncomp, method):
     """Top-``ncomp`` right singular vectors of a batch of (possibly
     zero-row-padded) libraries (..., rows, p), guarded against division by
     zero singular values (vip_tpu annular.py:30)."""
+    libraries = lib.shape[:-2].numel()
     if method == "eigen":
         C = lib @ lib.transpose(-1, -2)
-        e, EV = torch.linalg.eigh(C)
+        with annotate_trace("annular.eigh", libraries):
+            e, EV = torch.linalg.eigh(C)
         V = (EV.transpose(-1, -2) @ lib).flip(-2)
         S = torch.sqrt(torch.abs(e)).flip(-1)
         S = torch.where(S == 0, 1.0, S)
         return (V / S[..., None])[..., :ncomp, :]
     # 'lapack' and the fallback of every other method
-    U2 = svd(lib.transpose(-1, -2))[0]
+    with annotate_trace("annular.svd", libraries):
+        U2 = svd(lib.transpose(-1, -2))[0]
     return U2[..., :ncomp].transpose(-1, -2)
 
 
@@ -89,57 +100,131 @@ def _default_sketch(L, m, dtype, device):
     return torch.randn((L, m), generator=gen, dtype=dtype, device=device)
 
 
-def _orth(B):
-    """Q of the thin Householder QR of a batch of tall (..., L, m) blocks:
-    ``torch.geqrf``, then the m reflectors applied to the first m columns
-    of the identity, as LAPACK's orgqr does. ``torch.linalg.qr`` forms Q
-    with one cuSOLVER orgqr call per matrix on CUDA (49.4 ms for
-    (1000, 200, 18) on an H100, against 1.39 ms here; PERF.md); geqrf is one
-    batched call."""
-    a, tau = torch.geqrf(B)
-    L, m = B.shape[-2:]
-    eye = torch.eye(L, m, dtype=B.dtype, device=B.device)
-    V = a.tril(-1) + eye                      # unit lower trapezoidal
-    Q = eye.expand_as(B).clone()
-    for j in reversed(range(m)):
-        v = V[..., :, j:j + 1]
-        Q = Q - (tau[..., j, None, None] * v) @ (v.transpose(-1, -2) @ Q)
+# The subspace iteration stops once each of the top ``ncomp`` Ritz pairs
+# (θ, u) of every matrix has ‖A u − θ u‖ ≤ SUBSPACE_TOL·θ₁, or after
+# SUBSPACE_MAX_STEPS steps; the first test comes after _SUBSPACE_CHECK.
+SUBSPACE_TOL = 1e-7
+SUBSPACE_MAX_STEPS = 500
+_SUBSPACE_CHECK = 5
+
+# Bytes of library Grams that resident_annulus_update factors as one
+# batch. The subspace iteration's peak is ~4-5 times the batch's Grams
+# (26.2 GB for 5.2 GB of them at 512 frames, 32 annuli, on an H100).
+RESIDENT_BATCH_BYTES = 8 << 30
+
+
+def _orth(B, passes=3):
+    """An orthonormal basis of the columns of a batch of tall (..., L, m)
+    blocks by Cholesky QR: with ``passes`` 3, shifted CholeskyQR3 (Fukaya
+    et al. 2020, SIAM J. Sci. Comput. 42, A477), orthonormal to float64's
+    rounding for blocks of condition up to ~1e15; with 1, the first pass
+    alone, whose columns span the block's dominant directions but are
+    orthonormal only to ~1e-16 of the squared condition. Each pass is a
+    handful of batched calls whatever m (Householder's Q takes a loop of
+    m reflector updates): the (m, m) Gram, its Cholesky factor C, the
+    inverse of C and one product. The first pass shifts the Gram by ~1e-11
+    of its trace, which keeps C defined on rank-deficient blocks; the
+    others by ~1e-15. Columns that are exactly zero stay zero."""
+    m = B.shape[-1]
+    eye = torch.eye(m, dtype=B.dtype, device=B.device)
+    tiny = torch.finfo(B.dtype).tiny
+    Q = B
+    for p in range(passes):
+        T = Q.transpose(-1, -2) @ Q
+        shift = (1e-11 if p == 0 else 1e-15) \
+            * T.diagonal(dim1=-2, dim2=-1).sum(-1, keepdim=True) + tiny
+        T.diagonal(dim1=-2, dim2=-1).add_(shift)
+        C = torch.linalg.cholesky_ex(T)[0]                  # T = C Cᵀ
+        Q = Q @ torch.linalg.solve_triangular(C, eye, upper=False) \
+            .transpose(-1, -2)
     return Q
 
 
-def _subspace_topk(Gm, ncomp, n_iter=30, oversample=8, sketch=None):
-    """Top-``ncomp`` eigenpairs of a batch of symmetric PSD Grams
-    (..., L, L) by blocked subspace iteration with a QR every step, then
-    Rayleigh-Ritz (vip_tpu annular.py:89), the Gram-space analogue of
-    VIP's randomized SVD with 30 power steps. The QR is :func:`_orth`.
+def _rayleigh_ritz(Q, AQ, ncomp):
+    """The top ``ncomp`` Ritz pairs of A on the orthonormal block Q, given
+    AQ = A @ Q: (θ (..., ncomp) descending, U = Q W, A U = AQ W)."""
+    T = Q.transpose(-1, -2) @ AQ
+    e, W = torch.linalg.eigh(0.5 * (T + T.transpose(-1, -2)))
+    W = W.flip(-1)[..., :ncomp]
+    return e.flip(-1)[..., :ncomp], Q @ W, AQ @ W
 
-    ``sketch`` is the (L, min(L, ncomp + oversample)) starting block,
-    shared by every matrix of the batch; None draws it with
-    :func:`_default_sketch`. Returns (e_top (..., ncomp), U_top
-    (..., L, ncomp)), descending.
+
+def _next_test(step, resid, last, tol):
+    """The step of the next residual test: from the rate at which the
+    residual fell since the ``last`` test (step, residual), the step where
+    it should reach ``tol``, 2 to 40 steps on; _SUBSPACE_CHECK steps on
+    where there is no rate yet."""
+    if last is None or not 0 < resid < last[1]:
+        return step + _SUBSPACE_CHECK
+    rate = math.log(resid / last[1]) / (step - last[0])
+    ahead = math.ceil(math.log(tol / resid) / rate)
+    return step + min(max(ahead, 2), 40)
+
+
+def _subspace_topk(Gm, ncomp, oversample=8, sketch=None):
+    """Top-``ncomp`` eigenpairs of a batch of symmetric PSD Grams
+    (..., L, L) by blocked subspace iteration, run to convergence: a
+    block of m = min(L, ncomp + oversample) columns, multiplied by the
+    Gram every step and orthonormalized by :func:`_orth` (one pass, three
+    before a test), and at each test a Rayleigh-Ritz step. A matrix whose
+    top ``ncomp`` pairs all have residuals under the tolerance (module
+    constants) leaves the batch with them; :func:`_next_test` places the
+    tests from the rate at which the worst residual left falls. It works
+    in float64 whatever ``Gm``'s dtype: the residuals it stops on lie far
+    below float32's resolution. vip_tpu (annular.py:89) runs a fixed 30
+    steps in the input's precision, which leaves the top components
+    unconverged where the spectrum is flat past ncomp (the outer annuli
+    at ncomp ~10).
+
+    ``sketch`` is the (L, m) starting block, shared by every matrix of
+    the batch; None draws it with :func:`_default_sketch`. Each test reads
+    a few numbers back to the host. Returns (e_top (..., ncomp), U_top
+    (..., L, ncomp)), descending, in ``Gm``'s dtype.
     """
     L = Gm.shape[-1]
     m = min(L, ncomp + oversample)
     if sketch is None:
-        sketch = _default_sketch(L, m, Gm.dtype, Gm.device)
+        sketch = _default_sketch(L, m, torch.float64, Gm.device)
     elif tuple(sketch.shape) != (L, m):
         raise ValueError(f"sketch must have shape {(L, m)}, got "
                          f"{tuple(sketch.shape)}")
-    R = sketch.to(Gm.device, Gm.dtype)
-    # normalize to keep powers of the spectral radius in range
-    scale = torch.clamp(Gm.abs().amax(dim=(-2, -1), keepdim=True), min=1e-30)
-    A = Gm / scale
-    # a QR every step: under raw powering the subdominant columns decay
-    # like (lam_j/lam_1)^q and a Gram-based orthonormalization collapses
-    B = _orth(A @ R)
-    for _ in range(n_iter):
-        B = _orth(A @ B)
-    T = B.transpose(-1, -2) @ (A @ B)
-    T = 0.5 * (T + T.transpose(-1, -2))
-    e, W = torch.linalg.eigh(T)
-    e_top = e.flip(-1)[..., :ncomp] * scale[..., 0]
-    U_top = (B @ W).flip(-1)[..., :ncomp]
-    return e_top, U_top
+    lead = Gm.shape[:-2]
+    G64 = Gm.reshape(-1, L, L).to(torch.float64)
+    # normalize to keep the spectral radius near 1
+    scale = torch.clamp(G64.abs().amax(dim=(-2, -1)), min=1e-300)
+    A = G64 / scale[:, None, None]
+    k = min(ncomp, m)
+    e_out = G64.new_zeros((A.shape[0], k))
+    U_out = G64.new_zeros((A.shape[0], L, k))
+    live = torch.arange(A.shape[0], device=Gm.device)
+    Q = _orth(A @ sketch.to(Gm.device, torch.float64))
+    tol, max_steps = SUBSPACE_TOL, SUBSPACE_MAX_STEPS
+    step, test, last = 0, _SUBSPACE_CHECK, None
+    while live.numel():
+        AQ = A @ Q
+        step += 1
+        if step >= min(test, max_steps):
+            e, U, AU = _rayleigh_ritz(Q, AQ, ncomp)
+            top = torch.clamp(e[:, :1], min=1e-300)
+            resid = ((AU - U * e[:, None, :]).norm(dim=-2) / top).amax(-1)
+            done = resid <= tol if step < max_steps \
+                else torch.ones_like(resid, dtype=torch.bool)
+            left = torch.where(done, 0.0, resid)
+            n_done, worst = torch.stack([done.sum().to(left.dtype),
+                                         left.amax()]).tolist()
+            if n_done:
+                fin = done.nonzero()[:, 0]
+                e_out[live[fin]] = e[fin]
+                U_out[live[fin]] = U[fin]
+                if n_done == live.numel():
+                    break
+                keep = (~done).nonzero()[:, 0]
+                live, A, AQ = live[keep], A[keep], AQ[keep]
+            test, last = _next_test(step, worst, last, tol), (step, worst)
+        Q = _orth(AQ, passes=3 if step + 1 >= test else 1)
+    e_out = e_out * scale[:, None]
+    return (e_out.reshape(*lead, k).to(Gm.dtype),
+            U_out.reshape(*lead, L, k).to(Gm.dtype))
 
 
 def _gather_lib_grams(G, lib_idx):
@@ -165,25 +250,52 @@ def batched_pca_patch_residuals_gram(matrix, matrix_emp, lib_idx, lib_w,
 
     matrix, matrix_emp : (n, p). lib_idx : (n, L) int, padded arbitrarily.
     lib_w : (n, L), 1 for library rows and 0 for padding. ncomp : max PCs.
-    k_eff : (n,) int or None. method : 'eigh' (exact per-frame eigh) or
-    'subspace' (:func:`_subspace_topk`, started from ``sketch``).
-    Returns the residuals (n, p).
+    k_eff : (n,) int or None. method : 'eigh' (exact per-frame eigh, in
+    the matrices' dtype) or 'subspace' (:func:`_subspace_topk`, started
+    from ``sketch``; the Gram, the projection and
+    the reconstruction then run in float64 too, since the coefficients C
+    of nearly collinear library frames cancel, and float32 would lose
+    the accuracy the converged components bring). Returns the residuals
+    (n, p) in ``matrix``'s dtype.
     """
     n = matrix.shape[0]
     dev = matrix.device
+    work = _work_dtype(method, matrix.dtype)
+    emp = matrix_emp.to(work)
     lib_idx = torch.as_tensor(lib_idx, device=dev).long()
-    w = torch.as_tensor(lib_w, device=dev, dtype=matrix.dtype)
+    w = torch.as_tensor(lib_w, device=dev, dtype=work)
     k = torch.full((n,), ncomp, device=dev) if k_eff is None \
         else torch.as_tensor(k_eff, device=dev)
-
-    G = matrix_emp @ matrix_emp.T                                # (n, n)
+    G = emp @ emp.T                                              # (n, n)
     Gm = _gather_lib_grams(G, lib_idx) * (w[:, :, None] * w[:, None, :])
+    e_top, U_top = _library_topk(Gm, ncomp, method, sketch, 8)
+    return _gram_residuals(matrix, emp, G, lib_idx, w, e_top, U_top, k)
+
+
+def _work_dtype(method, dtype):
+    return torch.float64 if method == "subspace" else dtype
+
+
+def _library_topk(Gm, ncomp, method, sketch, oversample):
+    """The top ``ncomp`` eigenpairs (descending) of a batch of library
+    Grams (..., L, L), inside the span that counts them."""
+    count = Gm.shape[:-2].numel()
     if method == "subspace":
-        e_top, U_top = _subspace_topk(Gm, ncomp, sketch=sketch)
-    else:
+        with annotate_trace("annular.subspace", count):
+            return _subspace_topk(Gm, ncomp, oversample=oversample,
+                                  sketch=sketch)
+    with annotate_trace("annular.eigh", count):
         e, EV = torch.linalg.eigh(Gm)                            # ascending
-        e_top = e.flip(-1)[:, :ncomp]
-        U_top = EV.flip(-1)[:, :, :ncomp]
+    return e.flip(-1)[..., :ncomp], EV.flip(-1)[..., :ncomp]
+
+
+def _gram_residuals(matrix, emp, G, lib_idx, w, e_top, U_top, k):
+    """``matrix - C @ emp`` of :func:`batched_pca_patch_residuals_gram`,
+    from the segment Gram G, the padded libraries (lib_idx, w), their top
+    eigenpairs and the per-frame number of components k; in ``matrix``'s
+    dtype."""
+    n = matrix.shape[0]
+    dev = matrix.device
     U_top = U_top * w[:, :, None]                                # (n, L, K)
     s = torch.sqrt(torch.abs(e_top))
     s = torch.where(s == 0, 1.0, s)
@@ -194,35 +306,71 @@ def batched_pca_patch_residuals_gram(matrix, matrix_emp, lib_idx, lib_w,
     t = torch.where(torch.arange(t.shape[1], device=dev)[None] < k[:, None],
                     t, 0.0)
     c_all = torch.einsum("nlk,nk->nl", Us, t)                    # (n, L)
-    C = torch.zeros((n, n), dtype=matrix.dtype, device=dev)
+    C = torch.zeros((n, n), dtype=G.dtype, device=dev)
     C.index_put_((torch.arange(n, device=dev)[:, None].expand_as(lib_idx),
                   lib_idx), c_all, accumulate=True)
-    return matrix - C @ matrix_emp
+    return (matrix.to(G.dtype) - C @ emp).to(matrix.dtype)
 
 
 def resident_annulus_update(cube, cube_out, flat_idx, colmask, lib_idx,
-                            lib_w, k_eff, ncomp, method="eigh", sketch=None):
-    """One annulus segment of the device-resident annular PCA (vip_tpu
-    annular.py:236): gather the segment's pixels, run the Gram-path PCA,
+                            lib_w, k_eff, ncomp, method="eigh", sketch=None,
+                            oversample=8):
+    """Annulus segments of the device-resident annular PCA (vip_tpu
+    annular.py:236): gather each segment's pixels, run the Gram-path PCA,
     write the residuals into ``cube_out`` (in place; also returned).
+
+    One segment: ``flat_idx`` and ``colmask`` (p,), lib_idx and lib_w
+    (n, L), k_eff (n,). Several: ``flat_idx`` and ``colmask`` sequences of
+    S segments, lib_idx and lib_w (S, n, L), k_eff (S, n); the libraries of
+    the segments are then factored as one batch (one subspace iteration
+    for all: few launches and few reads back, whatever S), in groups of
+    at most ``RESIDENT_BATCH_BYTES`` of Grams, and each segment's
+    residuals are written in turn.
 
     ``flat_idx`` holds flattened pixel indices (yy * x + xx); entries
     ≥ y*x are padding, and ``colmask`` zeroes their columns. vip_tpu
     clamped such entries on the gather and dropped them on the scatter;
     torch raises on an out-of-range index, so they are clamped here and
-    sliced off before the scatter. The assignment lets the later annulus
-    win where the last annulus overlaps the one before it, as the host
-    path does.
+    sliced off before the scatter. The residuals are computed from
+    ``cube`` and written segment after segment, so the later annulus wins
+    where the last annulus overlaps the one before it, as the host path
+    does.
     """
     n, y, x = cube.shape
     dev = cube.device
-    flat_idx = torch.as_tensor(flat_idx, device=dev).long()
-    colmask = torch.as_tensor(colmask, device=dev, dtype=cube.dtype)
-    seg = cube.reshape(n, y * x)[:, flat_idx.clamp(max=y * x - 1)] \
-        * colmask[None, :]
-    res = batched_pca_patch_residuals_gram(seg, seg, lib_idx, lib_w, ncomp,
-                                           k_eff=k_eff, method=method,
-                                           sketch=sketch)
-    valid = flat_idx < y * x
-    cube_out.view(n, y * x)[:, flat_idx[valid]] = res[:, valid]
+    lib_idx = torch.as_tensor(lib_idx, device=dev).long()
+    if not isinstance(flat_idx, (list, tuple)):
+        flat_idx, colmask = [flat_idx], [colmask]
+        lib_idx, lib_w, k_eff = lib_idx[None], [lib_w], [k_eff]
+    work = _work_dtype(method, cube.dtype)
+    w = torch.stack([torch.as_tensor(v, device=dev, dtype=work)
+                     for v in lib_w])                            # (S, n, L)
+    flat_idx = [torch.as_tensor(f, device=dev).long() for f in flat_idx]
+    L = lib_idx.shape[-1]
+    per_seg = n * L * L * torch.finfo(work).bits // 8
+    group = max(1, RESIDENT_BATCH_BYTES // per_seg)
+    for g0 in range(0, len(flat_idx), group):
+        span = range(g0, min(g0 + group, len(flat_idx)))
+        libs = torch.empty((len(span), n, L, L), dtype=work, device=dev)
+        segs = []
+        for i, s in enumerate(span):
+            cmask = torch.as_tensor(colmask[s], device=dev, dtype=cube.dtype)
+            pix = flat_idx[s].clamp(max=y * x - 1)
+            seg = cube.reshape(n, y * x)[:, pix] * cmask[None, :]
+            emp = seg.to(work)
+            G = emp @ emp.T                                      # (n, n)
+            torch.mul(_gather_lib_grams(G, lib_idx[s]),
+                      w[s, :, :, None] * w[s, :, None, :], out=libs[i])
+            segs.append((seg, emp, G))
+        e_top, U_top = _library_topk(libs, ncomp, method, sketch,
+                                     oversample)
+        del libs
+        for i, s in enumerate(span):
+            seg, emp, G = segs[i]
+            k = torch.full((n,), ncomp, device=dev) if k_eff[s] is None \
+                else torch.as_tensor(k_eff[s], device=dev)
+            res = _gram_residuals(seg, emp, G, lib_idx[s], w[s], e_top[i],
+                                  U_top[i], k)
+            valid = flat_idx[s] < y * x
+            cube_out.view(n, y * x)[:, flat_idx[s][valid]] = res[:, valid]
     return cube_out

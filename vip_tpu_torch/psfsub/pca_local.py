@@ -28,6 +28,16 @@ channel-collapsed frames go through the 3-d annular ADI stage (skipped
 when its ``ncomp`` is None).
 
 Results are tensors on the cube's device.
+
+Spans (``config.timing``, recorded while torch's profiler is on):
+``api.pca_annular`` around the call (its input frames, channels x frames
+for a 4-d cube); ``annular.libraries`` around the library masks and
+padded index arrays (the libraries built: on the resident branch every
+annulus's at once, on the device, frames x annuli; on the host branch
+each annulus's, frames); ``annular.segment`` around each resident
+segment update (its pixels); the library factorizations of
+``ops.annular`` (``annular.eigh``, ``.svd``, ``.subspace``: libraries
+factored); ``derotation.frames`` around the resident derotation (frames).
 """
 
 import os
@@ -40,6 +50,7 @@ import torch
 
 from ..config import Collapse, Imlib, Interpolation, SvdMode, time_ini, timing
 from ..config.device import as_tensor
+from ..config.timing import annotate_trace, traced
 from ..config.utils_param import resolve_algo_params, setup_parameters
 from ..ops.annular import (batched_pca_patch_residuals,
                            batched_pca_patch_residuals_gram,
@@ -50,7 +61,7 @@ from ..preproc.parangles import check_pa_vector
 from ..preproc.subsampling import cube_collapse
 from ..var.shapes import (get_annulus_segments, matrix_scaling,
                           resolve_n_segments)
-from .pca_fullfr import _value
+from .pca_fullfr import _input_frames, _value
 from .svd import MODE_TO_METHOD, get_eigenvectors
 
 __all__ = ["pca_annular", "PCA_ANNULAR_Params"]
@@ -64,6 +75,12 @@ _GRAM_PATH_MIN_FRAMES = 128
 # VIP_TPU_ANNULAR_METHOD=eigh|subspace forces either; the choice changes
 # the outputs at float resolution, so the default stays vip_tpu's.
 _SUBSPACE_MIN_FRAMES = 512
+
+# The subspace iteration's least oversampling on the resident path. Its
+# block is widened to 32 columns where ncomp leaves room: a wider block
+# converges in fewer steps, and 32 is the widest whose Rayleigh-Ritz eigh
+# torch does in one batched cuSOLVER call (syevjBatched).
+_SUBSPACE_OVERSAMPLE = 8
 
 
 def _resident_method(n, svd_val):
@@ -82,46 +99,91 @@ def _gram_path_enabled(n):
     return n >= _GRAM_PATH_MIN_FRAMES
 
 
+def _library_masks(angles, thresholds, max_frames):
+    """(A, n, n) bool tensor on ``angles``' device: [a, f] marks the frames
+    of ``_find_indices_adi(angles, f, thresholds[a], truncate=True,
+    max_frames=max_frames)``, for every threshold and frame at once, in
+    the angles' dtype as the per-frame call computes them. Where a
+    truncation's cut falls among equal |ΔPA|, numpy's argsort decides
+    which of them the per-frame call keeps, so those rows take the
+    per-frame call (one read back to the host finds them)."""
+    angles = torch.as_tensor(angles)
+    n, dev = angles.shape[0], angles.device
+    thr = torch.as_tensor(np.asarray(thresholds, dtype=np.float64),
+                          device=dev).to(angles.dtype)[:, None, None]
+    dpa = (angles[None, :] - angles[:, None]).abs()     # [f, j] = |a_j - a_f|
+    j = torch.arange(n, device=dev)
+    before = j[None, :] < j[:, None]
+    near = (dpa < thr) & before
+    prev = torch.where(near.any(-1), near.to(torch.uint8).argmax(-1), j)
+    far = (dpa > thr) & ~before
+    foll = torch.where(far.any(-1), far.to(torch.uint8).argmax(-1), n)
+    mask = (j < prev[..., None]) | (j >= foll[..., None])
+    keep = min(n - 1, max_frames)
+    if keep < 1:
+        return mask & (keep > 0)
+    over = mask.sum(-1) > keep
+    d = torch.where(mask, dpa, torch.inf)
+    cut = d.kthvalue(keep, dim=-1, keepdim=True).values
+    below, ties = d < cut, d == cut
+    exact = below.sum(-1) + ties.sum(-1) == keep
+    mask = torch.where(over[..., None], below | (ties & exact[..., None]),
+                       mask)
+    host = angles.cpu().numpy()
+    for a, f in (over & ~exact).nonzero().tolist():
+        row = torch.zeros(n, dtype=torch.bool)
+        row[_find_indices_adi(host, f, float(thresholds[a]), truncate=True,
+                              max_frames=max_frames)] = True
+        mask[a, f] = row.to(dev)
+    return mask
+
+
 def _build_lib_masks(angle_list, pa_thr, n, min_frames_lib, max_frames_lib,
                      have_ref):
     """Per-frame library masks (n, n) and sizes for one annulus: the PA
     threshold and the ΔPA-sorted truncation (vip_tpu pca_local.py:71)."""
     if pa_thr != 0:
-        lib_mask = np.zeros((n, n), dtype=bool)
-        lib_sizes = np.zeros(n, dtype=int)
-        for fr in range(n):
-            idx = _find_indices_adi(angle_list, fr, pa_thr, truncate=True,
-                                    max_frames=max_frames_lib)
-            lib_mask[fr, idx] = True
-            lib_sizes[fr] = len(idx)
-        if not have_ref and lib_sizes.min() < min_frames_lib:
-            raise RuntimeError(
-                "Too few frames left in the PCA library. Accepted "
-                f"indices length ({lib_sizes.min():.0f}) less than "
-                f"{min_frames_lib:.0f}. Try decreasing either delta_rot "
-                "or min_frames_lib.")
+        lib_mask = _library_masks(angle_list, [pa_thr],
+                                  max_frames_lib)[0].numpy()
+        lib_sizes = lib_mask.sum(1)
+        _check_lib_sizes(lib_sizes.min(), min_frames_lib, have_ref)
         return lib_mask, lib_sizes
     return np.ones((n, n), dtype=bool), np.full(n, n)
 
 
-def _pad_lib_arrays(lib_mask, lib_sizes, n, npc_max, max_frames_lib, dtype):
-    """(lib_idx, lib_w) host arrays padded to a shared library size L_pad:
-    the next multiple of 64, or ``max_frames_lib`` when that caps the
-    libraries, at least ``npc_max`` and at most n (vip_tpu
-    pca_local.py:93). L_pad is also the row count of the subspace
-    iteration's starting block."""
-    L = int(lib_sizes.max())
-    L_pad = 64 * ((L + 63) // 64)
-    if L <= max_frames_lib < L_pad:
+def _check_lib_sizes(smallest, min_frames_lib, have_ref):
+    if not have_ref and smallest < min_frames_lib:
+        raise RuntimeError(
+            "Too few frames left in the PCA library. Accepted "
+            f"indices length ({smallest:.0f}) less than "
+            f"{min_frames_lib:.0f}. Try decreasing either delta_rot "
+            "or min_frames_lib.")
+
+
+def _lib_pad(largest, n, npc_max, max_frames_lib):
+    """The shared library size L_pad of an annulus whose largest library
+    has ``largest`` frames: the next multiple of 64, or ``max_frames_lib``
+    when that caps the libraries, at least ``npc_max`` and at most n
+    (vip_tpu pca_local.py:93). L_pad is also the row count of the
+    subspace iteration's starting block."""
+    L_pad = 64 * ((largest + 63) // 64)
+    if largest <= max_frames_lib < L_pad:
         L_pad = int(max_frames_lib)
-    L_pad = min(n, max(npc_max, L_pad))
-    lib_idx = np.zeros((n, L_pad), dtype=np.int64)
-    lib_w = np.zeros((n, L_pad), dtype=dtype)
-    for fr in range(n):
-        idx = np.flatnonzero(lib_mask[fr])
-        lib_idx[fr, :idx.size] = idx
-        lib_w[fr, :idx.size] = 1.0
-    return lib_idx, lib_w
+    return min(n, max(npc_max, L_pad))
+
+
+def _pad_lib_arrays(lib_mask, L_pad, dtype):
+    """(lib_idx, lib_w) of library masks (..., n, n) (tensors or arrays):
+    row f of lib_idx holds f's library frames in increasing order, then
+    zeros, to L_pad columns; lib_w is 1 on the frames and 0 on the
+    padding. Tensors on the masks' device."""
+    lib_mask = torch.as_tensor(lib_mask)
+    # a stable sort of ~mask puts each row's library frames first, in order
+    order = torch.sort((~lib_mask).to(torch.uint8), dim=-1,
+                       stable=True).indices[..., :L_pad]
+    used = torch.arange(L_pad, device=lib_mask.device) \
+        < lib_mask.sum(-1, keepdim=True)
+    return torch.where(used, order, 0), used.to(dtype)
 
 
 def _resident_chunk(n, y, rot_mode):
@@ -137,8 +199,10 @@ def _pca_adi_resident(array, angle_list, radius_int, fwhm, asize,
                       n_segments, delta_rot, ncomp, min_frames_lib,
                       max_frames_lib, collapse, rot_mode, theta_init,
                       full_output, verbose, start_time, method="eigh"):
-    """Device-resident annular ADI PCA (vip_tpu pca_local.py:110): segment
-    gather, Gram-path PCA and residual scatter per annulus segment
+    """Device-resident annular ADI PCA (vip_tpu pca_local.py:110): every
+    annulus's libraries at once (:func:`_library_masks`,
+    :func:`_pad_lib_arrays`), then segment gather, Gram-path PCA and
+    residual scatter per annulus segment
     (``ops.annular.resident_annulus_update``), then one derotation and
     collapse, all on the cube's device. Returns (cube_out, cube_der,
     frame), the cubes None unless ``full_output``."""
@@ -149,46 +213,67 @@ def _pca_adi_resident(array, angle_list, radius_int, fwhm, asize,
     dev = array.device
     n_annuli = len(n_segments)
     cube_out = torch.zeros_like(array)
-    np_dtype = np.float32 if array.dtype == torch.float32 else np.float64
 
     if verbose:
         print(f"N annuli = {n_annuli}, FWHM = {fwhm:.3f}")
         print("PCA per annulus (or annular sectors) [device-resident]:")
 
-    for ann in range(n_annuli):
-        ncompann = int(ncomp)
-        n_segments_ann = n_segments[ann]
-        pa_thr, inner_radius, _ = _define_annuli(
-            angle_list, ann, n_annuli, fwhm, radius_int, asize,
-            delta_rot[ann], n_segments_ann, verbose, True)
-        indices = get_annulus_segments((y, x), inner_radius, asize,
-                                       n_segments_ann, theta_init)
-        lib_mask, lib_sizes = _build_lib_masks(
-            angle_list, pa_thr, n, min_frames_lib, max_frames_lib, False)
-        lib_idx, lib_w = _pad_lib_arrays(lib_mask, lib_sizes, n, ncompann,
-                                         max_frames_lib, np_dtype)
-        k_eff = np.minimum(ncompann, lib_sizes)
-        lib_idx_d = torch.as_tensor(lib_idx, device=dev)
-        lib_w_d = torch.as_tensor(lib_w, device=dev)
+    ncompann = int(ncomp)
+    geometry = [_define_annuli(angle_list, ann, n_annuli, fwhm, radius_int,
+                               asize, delta_rot[ann], n_segments[ann],
+                               verbose, True)[:2] for ann in range(n_annuli)]
+    with annotate_trace("annular.libraries", n * n_annuli):
+        # every annulus's libraries at once, on the device; one read back
+        # gives each annulus's smallest and largest library
+        thresholds = [thr for thr, _ in geometry]
+        masks = _library_masks(torch.as_tensor(angle_list, device=dev),
+                               thresholds, max_frames_lib)
+        masks[torch.as_tensor(np.asarray(thresholds) == 0,
+                              device=dev)] = True
+        lib_sizes = masks.sum(-1)
+        smallest, largest = torch.stack(
+            [lib_sizes.amin(-1), lib_sizes.amax(-1)]).tolist()
+        thresholded = [lo for lo, thr in zip(smallest, thresholds) if thr]
+        if thresholded:
+            _check_lib_sizes(min(thresholded), min_frames_lib, False)
+        L_pad = max(_lib_pad(big, n, ncompann, max_frames_lib)
+                    for big in largest)
+        lib_idx, lib_w = _pad_lib_arrays(masks, L_pad, array.dtype)
+        k_eff = torch.clamp(lib_sizes, max=ncompann)
+        del masks
 
-        for j in range(n_segments_ann):
-            yy, xx = indices[j]
-            flat = np.asarray(yy, np.int64) * x + np.asarray(xx, np.int64)
-            resident_annulus_update(
-                array, cube_out, torch.as_tensor(flat, device=dev),
-                torch.ones(flat.size, dtype=array.dtype, device=dev),
-                lib_idx_d, lib_w_d,
-                torch.as_tensor(np.minimum(k_eff, flat.size), device=dev),
-                ncompann, method=method)
-
-        if verbose == 1:
-            print("Done PCA with lapack for current annulus")
-            timing(start_time)
+    # every segment of every annulus, in the order the host path writes
+    # them; their libraries are factored as one batch
+    flats, owner = [], []
+    for ann, (_, inner_radius) in enumerate(geometry):
+        for yy, xx in get_annulus_segments((y, x), inner_radius, asize,
+                                           n_segments[ann], theta_init):
+            flats.append(torch.as_tensor(
+                np.asarray(yy, np.int64) * x + np.asarray(xx, np.int64),
+                device=dev))
+            owner.append(ann)
+    own = torch.as_tensor(owner, device=dev)
+    pixels = [f.numel() for f in flats]
+    with annotate_trace("annular.segment", sum(pixels)):
+        resident_annulus_update(
+            array, cube_out, flats,
+            [torch.ones(f.numel(), dtype=array.dtype, device=dev)
+             for f in flats],
+            lib_idx[own], lib_w[own],
+            torch.minimum(k_eff[own],
+                          torch.as_tensor(pixels, device=dev)[:, None]),
+            ncompann,
+            method=method,
+            oversample=max(_SUBSPACE_OVERSAMPLE, 32 - ncompann))
+    if verbose == 1:
+        print("Done PCA with lapack for every annulus")
+        timing(start_time)
 
     ang = torch.as_tensor(angle_list, dtype=array.dtype, device=dev)
-    cube_der = _derotate_frames(cube_out, ang,
-                                chunk=_resident_chunk(n, y, rot_mode),
-                                rot_mode=rot_mode)
+    with annotate_trace("derotation.frames", n):
+        cube_der = _derotate_frames(cube_out, ang,
+                                    chunk=_resident_chunk(n, y, rot_mode),
+                                    rot_mode=rot_mode)
     frame = collapse_jax(cube_der, mode=collapse)
 
     if verbose:
@@ -234,6 +319,7 @@ class PCA_ANNULAR_Params:
     left_eigv: bool = False
 
 
+@traced("api.pca_annular", _input_frames)
 def pca_annular(*all_args: List, **all_kwargs: dict):
     """PCA on concentric annuli (or annular sectors) of a 3-d ADI/RDI cube
     with a parallactic-angle rejection threshold (vip_tpu
@@ -566,9 +652,10 @@ def _pca_adi_rdi(cube, angle_list, radius_int=0, fwhm=4, asize=2,
             indices_out = get_annulus_segments((y, x), inner_radius, asize,
                                                n_segments_ann, theta_init,
                                                out=True)
-        lib_mask, lib_sizes = _build_lib_masks(
-            angle_list, pa_thr, n, min_frames_lib, max_frames_lib,
-            cube_ref is not None)
+        with annotate_trace("annular.libraries", n):
+            lib_mask, lib_sizes = _build_lib_masks(
+                angle_list, pa_thr, n, min_frames_lib, max_frames_lib,
+                cube_ref is not None)
 
         for j in range(n_segments_ann):
             yy, xx = (torch.as_tensor(i, device=dev) for i in indices[j])
@@ -628,9 +715,10 @@ def _pca_adi_rdi(cube, angle_list, radius_int=0, fwhm=4, asize=2,
                         and not isinstance(ncompann, list)
                         and _gram_path_enabled(n))
             if use_gram:
-                lib_idx, lib_w = _pad_lib_arrays(
-                    lib_mask, lib_sizes, n, npc_max, max_frames_lib,
-                    np.float32 if dtype == torch.float32 else np.float64)
+                with annotate_trace("annular.libraries", n):
+                    lib_idx, lib_w = _pad_lib_arrays(
+                        lib_mask, _lib_pad(int(lib_sizes.max()), n, npc_max,
+                                           max_frames_lib), dtype)
                 res = batched_pca_patch_residuals_gram(
                     matrix_segm, matrix_emp, lib_idx, lib_w, npc_max,
                     k_eff=k_eff)

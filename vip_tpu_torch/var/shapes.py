@@ -9,6 +9,8 @@ in place of vip_tpu's ``matplotlib.path.Path.contains_points``: the
 card's machine has no matplotlib.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -134,6 +136,17 @@ def get_circle(array, radius, cy=None, cx=None, mode="mask"):
     raise ValueError(f"mode '{mode}' unknown!")
 
 
+@functools.lru_cache(maxsize=8)
+def _polar_grid(shape, cy, cx):
+    """(radius, azimuth in [0, 2π)) of every pixel of a frame of ``shape``
+    about (cy, cx), read-only: annular callers ask for one per annulus."""
+    yy, xx = np.mgrid[: shape[0], : shape[1]]
+    rad = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2)
+    phirot = np.arctan2(yy - cy, xx - cx) % (2 * np.pi)
+    rad.flags.writeable = phirot.flags.writeable = False
+    return rad, phirot
+
+
 def get_annulus_segments(data, inner_radius, width, nsegm=1, theta_init=0,
                          optim_scale_fact=1, mode="ind", out=False):
     """Indices, values or masks of the segments of a centered annulus
@@ -159,10 +172,7 @@ def get_annulus_segments(data, inner_radius, width, nsegm=1, theta_init=0,
     azimuth_coverage = np.deg2rad(int(np.ceil(360 / nsegm)))
     twopi = 2 * np.pi
 
-    yy, xx = np.mgrid[: shape[0], : shape[1]]
-    rad = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2)
-    phi = np.arctan2(yy - cy, xx - cx)
-    phirot = phi % twopi
+    rad, phirot = _polar_grid(shape, cy, cx)
     outer_radius = inner_radius + (width * optim_scale_fact)
     ring = (rad >= inner_radius) & (rad < outer_radius)
     masks = []
