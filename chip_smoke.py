@@ -665,6 +665,7 @@ def _reset_counts():
 
     median.launches = shear.launches = shear.small_launches = 0
     shear.fused3_launches = linalg.jacobi_launches = 0
+    linalg.subspace_matrices = 0
 
 
 def _counts():
@@ -672,7 +673,8 @@ def _counts():
 
     return {"H1": median.launches, "H2": shear.launches,
             "H3": shear.small_launches, "H4": shear.fused3_launches,
-            "K5": linalg.jacobi_launches}
+            "K5": linalg.jacobi_launches,
+            "subspace": linalg.subspace_matrices}
 
 
 def _sync_times(fn, reps=3):
@@ -1840,7 +1842,7 @@ def _ipca_float64(pcube, angles_np, frame, first, ref, ref_first):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _require(f64.dtype == torch.float64 and _counts() == dict.fromkeys(
-        ("H1", "H2", "H3", "H4", "K5"), 0),
+        ("H1", "H2", "H3", "H4", "K5", "subspace"), 0),
         "ipca float64: launches or dtype")
     errs = {k: _rel_err(a, b)[0] for k, (a, b) in {
         "kernels": (frame, f64), "plain": (ref, f64),
@@ -4572,7 +4574,7 @@ def phase_slice11(cube, angles_np, pcube, ifs, tmpdir, refs=None):
         err = _s11_err("(b)", name, ranks[0][name]["out"], one[name]["out"])
         held("(b)", name, err, tols_b.get(name, PIPE_TOL))
         h = {k: sum(r[name]["counts"][k] for r in ranks)
-             for k in ("H1", "H2", "H3", "H4", "K5")}
+             for k in ("H1", "H2", "H3", "H4", "K5", "subspace")}
         slow = max(r[name]["s"] for r in ranks)
         print(f"slice 11 (b) {name}: {slow:.4f} s on the slowest of "
               f"{S11_RANKS} ranks (world size 1: {one[name]['s']:.4f} s), "
@@ -4582,7 +4584,7 @@ def phase_slice11(cube, angles_np, pcube, ifs, tmpdir, refs=None):
         times[f"(b) {name}"] = slow
     _require(not fails, "slice 11: " + "; ".join(fails))
     total = {k: sum(c[k] for c in counts.values())
-             for k in ("H1", "H2", "H3", "H4", "K5")}
+             for k in ("H1", "H2", "H3", "H4", "K5", "subspace")}
     print(f"slice 11: (a) {t_a:.1f} s, with (b)'s {S11_RANKS} ranks "
           f"starting beside it; (b) from the spawn to the last rank's result "
           f"{t_b:.1f} s; the phase took "
@@ -5418,8 +5420,9 @@ def main():
     new_paths.update({f"8b {k}": v for k, v in s8b_counts.items()})
     new_paths.update({f"8c/9 {k}": v for k, v in s89_counts.items()})
     new_paths.update({f"10 {k}": v for k, v in s10_counts.items()})
-    new_paths["slice11"] = {k: sum(c[k] for c in s11_counts.values())
-                            for k in ("H1", "H2", "H3", "H4", "K5")}
+    new_paths["slice11"] = {
+        k: sum(c[k] for c in s11_counts.values())
+        for k in ("H1", "H2", "H3", "H4", "K5", "subspace")}
 
     from vip_tpu_torch.metrics import snrmap, snrmap_fast
     from vip_tpu_torch.ops.fft import (rotate_fft_exact_pruned,
@@ -5681,6 +5684,10 @@ def main():
                 for (b, n), v in jacobi.items()},
         launches_new_paths={k: v["K5"] for k, v in new_paths.items()
                             if v["K5"]}))
+    # the top-ncomp SVD route is no kernel: the counted paths it took, with
+    # the matrices it returned converged
+    print(json.dumps({"subspace_svd_paths": {
+        k: v["subspace"] for k, v in new_paths.items() if v["subspace"]}}))
     print(f"phase 14 (timings) wall time: {time.perf_counter() - t14:.1f} s",
           flush=True)
     print(f"wall time of chip_smoke.py: {time.perf_counter() - t_start:.1f} s",

@@ -250,8 +250,8 @@ def test_batched_patch_residuals_gram_vs_vip_tpu(method):
 def test_subspace_default_sketch_is_seeded():
     G = torch.from_numpy(_matrix(12, 30, seed=9))
     G = G @ G.T
-    e1, U1 = annular._subspace_topk(G[None], 3)
-    e2, U2 = annular._subspace_topk(G[None], 3)
+    e1, U1, _ = annular._subspace_topk(G[None], 3)
+    e2, U2, _ = annular._subspace_topk(G[None], 3)
     assert torch.equal(e1, e2) and torch.equal(U1, U2)
     e, _ = torch.linalg.eigh(G)
     assert _err(e1[0], e.flip(0)[:3]) <= 1e-12

@@ -5,7 +5,7 @@ their definitions:
   once) equals ``_find_indices_adi`` frame by frame, ties at the
   truncation's cut and non-monotonic angles included, and
   ``_pad_lib_arrays`` lays each library out in frame order;
-- ``ops.annular._orth`` gives orthonormal columns that span the block,
+- ``ops.linalg._orth`` gives orthonormal columns that span the block,
   on ill-conditioned, rank-deficient and zero blocks;
 - ``ops.annular._subspace_topk`` runs to its tolerance: on a spectrum
   flat past ncomp, where vip_tpu's fixed 30 steps leave the components
@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from vip_tpu_torch.ops import annular
+from vip_tpu_torch.ops import annular, linalg
 from vip_tpu_torch.preproc.derotation import _find_indices_adi
 from vip_tpu_torch.psfsub import pca_local
 
@@ -81,7 +81,7 @@ def _block(cond, rank=None, L=80, m=12):
                                        (1e3, 5)])
 def test_orth_gives_an_orthonormal_basis_of_the_block(cond, rank):
     B = _block(cond, rank)
-    Q = annular._orth(B[None])[0]
+    Q = linalg._orth(B[None])[0]
     Ub = torch.linalg.svd(B)[0][:, :rank or 5]
     # the block's span is kept (its dominant part, where ill-conditioned)
     assert (Ub - Q @ (Q.T @ Ub)).abs().max() <= 1e-10
@@ -95,12 +95,12 @@ def test_orth_gives_an_orthonormal_basis_of_the_block(cond, rank):
                             dtype=Q.dtype)
         assert (inside - want).abs().max() <= 1e-10
     # one pass spans the dominant directions too
-    Q1 = torch.linalg.qr(annular._orth(B[None], passes=1)[0])[0]
+    Q1 = torch.linalg.qr(linalg._orth(B[None], passes=1)[0])[0]
     assert (Ub[:, :3] - Q1 @ (Q1.T @ Ub[:, :3])).abs().max() <= 1e-8
 
 
 def test_orth_keeps_a_zero_block_zero():
-    Q = annular._orth(torch.zeros((2, 30, 6), dtype=torch.float64))
+    Q = linalg._orth(torch.zeros((2, 30, 6), dtype=torch.float64))
     assert torch.equal(Q, torch.zeros_like(Q))
 
 
@@ -122,20 +122,21 @@ def _residual(G, e, U):
 def test_subspace_topk_runs_to_its_tolerance(dtype, monkeypatch):
     G = _flat_gram()
     e = torch.linalg.eigvalsh(G).flip(0)[:10]
-    e_top, U_top = annular._subspace_topk(G[None].to(dtype), 10)
-    assert e_top.dtype == U_top.dtype == dtype
+    e_top, U_top, met = annular._subspace_topk(G[None].to(dtype), 10)
+    assert e_top.dtype == U_top.dtype == dtype and bool(met.all())
     e64, U64 = e_top[0].double(), U_top[0].double()
     if dtype == torch.float64:
         # the stop's own test, on the pairs it returns
-        assert _residual(G, e64, U64) <= annular.SUBSPACE_TOL
+        assert _residual(G, e64, U64) <= linalg.SUBSPACE_TOL
     assert float((U64.T @ U64 - torch.eye(10, dtype=U64.dtype)).abs().max()) \
         <= (1e-12 if dtype == torch.float64 else 1e-6)
     assert float(((e64 - e) / e[0]).abs().max()) <= \
-        (annular.SUBSPACE_TOL if dtype == torch.float64 else 1e-6)
+        (linalg.SUBSPACE_TOL if dtype == torch.float64 else 1e-6)
     # vip_tpu's fixed 30 steps stop far short of it here
-    monkeypatch.setattr(annular, "SUBSPACE_MAX_STEPS", 30)
-    e_cap, U_cap = annular._subspace_topk(G[None], 10)
-    assert _residual(G, e_cap[0], U_cap[0]) > 10 * annular.SUBSPACE_TOL
+    monkeypatch.setattr(linalg, "SUBSPACE_MAX_STEPS", 30)
+    e_cap, U_cap, met = annular._subspace_topk(G[None], 10)
+    assert not bool(met.any())
+    assert _residual(G, e_cap[0], U_cap[0]) > 10 * linalg.SUBSPACE_TOL
 
 
 def test_subspace_route_on_float32_lands_near_the_exact_residuals():

@@ -10,6 +10,7 @@ only the port's dependencies are installed:
 jax for the vip_tpu tests.)
 """
 
+import math
 import os
 
 import numpy as np
@@ -2001,3 +2002,57 @@ def test_jacobi_output_layout(cuda_device, shape):
         assert got.device == A.device and got.is_contiguous()
     assert bool((S[..., :-1] >= S[..., 1:]).all())
     assert _reconstruction(U, S, Vh, A) <= 1e-5
+
+
+def _ifs_like(n, p, device, seed):
+    """A (n, p) float32 matrix with an IFS sequence's spectrum: 60 real
+    components falling from 4e6 to 3e4 (as the single pass's 3900 rows
+    do) over white noise of 1 (singular values ~sqrt(p))."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    k0 = 60
+    U = torch.linalg.qr(torch.randn((n, k0), generator=g, device=device,
+                                    dtype=torch.float64))[0]
+    V = torch.linalg.qr(torch.randn((p, k0), generator=g, device=device,
+                                    dtype=torch.float64))[0]
+    s = torch.logspace(math.log10(4e6), math.log10(3e4), k0,
+                       dtype=torch.float64, device=device)
+    M = ((U * s) @ V.mT).float()
+    return M.add_(torch.randn((n, p), generator=g, device=device))
+
+
+@pytest.mark.parametrize("ncomp", [5, 20])
+def test_svd_top_subspace_route_at_the_single_pass(cuda_device, ncomp):
+    """``svd_top(lapack)`` of a 3900 x 84100 float32 matrix, the single
+    pass's shape, takes the top-ncomp route (one matrix converged, no
+    gesvd) and its principal components' projector lies as close to
+    float64's (QR and gesvd in float64) as the gesvd route's does: within
+    twice its distance, or 1e-6."""
+    from vip_tpu_torch.ops import linalg
+
+    M = _ifs_like(3900, 84100, cuda_device, 22)
+    Q64, R64 = torch.linalg.qr(M.double().mT)
+    Ur64 = torch.linalg.svd(R64, driver="gesvd")[0]
+    ref = (Q64 @ Ur64[:, :ncomp]).mT
+    del Q64, R64
+
+    def dist(V):
+        # largest principal angle's sine between span(V) and span(ref)
+        V = V.double()
+        return float(torch.linalg.matrix_norm(
+            V.mT - ref.mT @ (ref @ V.mT), ord=2))
+
+    linalg.subspace_matrices = 0
+    V = linalg.svd_top(M, ncomp)
+    assert linalg.subspace_matrices == 1
+    keep = linalg.SUBSPACE_SVD_MIN_SIDE
+    linalg.SUBSPACE_SVD_MIN_SIDE = 10 ** 9
+    try:
+        V_gesvd = linalg.svd_top(M, ncomp)
+    finally:
+        linalg.SUBSPACE_SVD_MIN_SIDE = keep
+    assert linalg.subspace_matrices == 1
+    d, d_gesvd = dist(V), dist(V_gesvd)
+    print(f"svd_top lapack 3900x84100 ncomp {ncomp}: subspace route "
+          f"{d:.3e} from float64, gesvd route {d_gesvd:.3e}")
+    assert V.shape == (ncomp, 84100) and V.dtype == torch.float32
+    assert d <= max(2 * d_gesvd, 1e-6)

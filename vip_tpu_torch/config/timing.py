@@ -100,6 +100,12 @@ class _Span:
             self._stack.pop()
         return False
 
+    def set_count(self, count):
+        """Set the span's count, where it is known only inside the
+        span."""
+        if self._rec is not None:
+            self._rec[5] = count
+
 
 # every span while the profiler is off
 _OFF = contextlib.nullcontext()
@@ -109,7 +115,9 @@ def annotate_trace(name, count=None):
     """A span named ``name`` (``<layer>.<what>``) around a ``with`` block,
     recorded while torch's profiler is enabled, with ``count``, the work
     done at that boundary (vip_tpu's ``jax.profiler.TraceAnnotation``).
-    Outside the profiler it returns a shared no-op context."""
+    Outside the profiler it returns a shared no-op context. ``with ... as
+    span`` gives the span, whose ``set_count`` sets a count known only
+    inside the block, or None outside the profiler."""
     if _profiler._is_profiler_enabled:
         return _Span(name, count)
     return _OFF

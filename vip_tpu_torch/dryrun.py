@@ -306,7 +306,7 @@ def entry_points(specs):
     tensors on the port's device) on meshes over every rank of the
     default group, in order. Returns {"device": the device of a shard's
     tensor, name: {"out": host result, "s": seconds, "counts": H1-H4
-    and K5 launches}}."""
+    and K5 launches, and the matrices of the top-ncomp SVD route}}."""
     from .config.device import get_device
     from .config.parallel import frame_mesh, shard_cube
     from .ops import linalg, median, shear
@@ -321,6 +321,7 @@ def entry_points(specs):
         inputs = {k: wide(_loaded(v)) for k, v in spec.items()}
         median.launches = shear.launches = shear.small_launches = 0
         shear.fused3_launches = linalg.jacobi_launches = 0
+        linalg.subspace_matrices = 0
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -331,7 +332,8 @@ def entry_points(specs):
                      "counts": {"H1": median.launches, "H2": shear.launches,
                                 "H3": shear.small_launches,
                                 "H4": shear.fused3_launches,
-                                "K5": linalg.jacobi_launches}}
+                                "K5": linalg.jacobi_launches,
+                                "subspace": linalg.subspace_matrices}}
     return out
 
 

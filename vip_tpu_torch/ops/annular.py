@@ -18,9 +18,9 @@ Two formulations:
 - :func:`batched_pca_patch_residuals_gram`: the same residuals from one
   segment Gram matrix G = M Mᵀ and per-frame (L, L) sub-Grams, L the padded
   library size, by eigh or by a subspace iteration run to convergence in
-  float64 (:func:`_subspace_topk`); :func:`resident_annulus_update` does
-  the same for many segments at once, with the segment gathers and the
-  residual scatters of the device-resident path.
+  float64 (``ops.linalg._subspace_topk``); :func:`resident_annulus_update`
+  does the same for many segments at once, with the segment gathers and
+  the residual scatters of the device-resident path.
 
 All of it is ``torch.matmul`` and ``torch.linalg`` on the tensors' device
 (vip_tpu has no Pallas kernel here). Each factorization of the frames'
@@ -30,12 +30,10 @@ factors: ``annular.eigh`` or ``annular.svd`` in :func:`_masked_top_v`,
 Gram-space paths).
 """
 
-import math
-
 import torch
 
 from ..config.timing import annotate_trace
-from .linalg import svd
+from .linalg import _subspace_topk, svd
 
 __all__ = ["batched_pca_patch_residuals",
            "batched_pca_patch_residuals_gram",
@@ -92,139 +90,10 @@ def batched_pca_patch_residuals(matrix, matrix_emp, lib_masks, ncomp,
     return matrix - reconstructed, V
 
 
-def _default_sketch(L, m, dtype, device):
-    """The subspace iteration's start when none is given: a Gaussian (L, m)
-    draw from a ``torch.Generator`` seeded with 7 (vip_tpu draws from
-    ``jax.random.PRNGKey(7)``; the two generators give other numbers)."""
-    gen = torch.Generator(device=device).manual_seed(7)
-    return torch.randn((L, m), generator=gen, dtype=dtype, device=device)
-
-
-# The subspace iteration stops once each of the top ``ncomp`` Ritz pairs
-# (θ, u) of every matrix has ‖A u − θ u‖ ≤ SUBSPACE_TOL·θ₁, or after
-# SUBSPACE_MAX_STEPS steps; the first test comes after _SUBSPACE_CHECK.
-SUBSPACE_TOL = 1e-7
-SUBSPACE_MAX_STEPS = 500
-_SUBSPACE_CHECK = 5
-
 # Bytes of library Grams that resident_annulus_update factors as one
 # batch. The subspace iteration's peak is ~4-5 times the batch's Grams
 # (26.2 GB for 5.2 GB of them at 512 frames, 32 annuli, on an H100).
 RESIDENT_BATCH_BYTES = 8 << 30
-
-
-def _orth(B, passes=3):
-    """An orthonormal basis of the columns of a batch of tall (..., L, m)
-    blocks by Cholesky QR: with ``passes`` 3, shifted CholeskyQR3 (Fukaya
-    et al. 2020, SIAM J. Sci. Comput. 42, A477), orthonormal to float64's
-    rounding for blocks of condition up to ~1e15; with 1, the first pass
-    alone, whose columns span the block's dominant directions but are
-    orthonormal only to ~1e-16 of the squared condition. Each pass is a
-    handful of batched calls whatever m (Householder's Q takes a loop of
-    m reflector updates): the (m, m) Gram, its Cholesky factor C, the
-    inverse of C and one product. The first pass shifts the Gram by ~1e-11
-    of its trace, which keeps C defined on rank-deficient blocks; the
-    others by ~1e-15. Columns that are exactly zero stay zero."""
-    m = B.shape[-1]
-    eye = torch.eye(m, dtype=B.dtype, device=B.device)
-    tiny = torch.finfo(B.dtype).tiny
-    Q = B
-    for p in range(passes):
-        T = Q.transpose(-1, -2) @ Q
-        shift = (1e-11 if p == 0 else 1e-15) \
-            * T.diagonal(dim1=-2, dim2=-1).sum(-1, keepdim=True) + tiny
-        T.diagonal(dim1=-2, dim2=-1).add_(shift)
-        C = torch.linalg.cholesky_ex(T)[0]                  # T = C Cᵀ
-        Q = Q @ torch.linalg.solve_triangular(C, eye, upper=False) \
-            .transpose(-1, -2)
-    return Q
-
-
-def _rayleigh_ritz(Q, AQ, ncomp):
-    """The top ``ncomp`` Ritz pairs of A on the orthonormal block Q, given
-    AQ = A @ Q: (θ (..., ncomp) descending, U = Q W, A U = AQ W)."""
-    T = Q.transpose(-1, -2) @ AQ
-    e, W = torch.linalg.eigh(0.5 * (T + T.transpose(-1, -2)))
-    W = W.flip(-1)[..., :ncomp]
-    return e.flip(-1)[..., :ncomp], Q @ W, AQ @ W
-
-
-def _next_test(step, resid, last, tol):
-    """The step of the next residual test: from the rate at which the
-    residual fell since the ``last`` test (step, residual), the step where
-    it should reach ``tol``, 2 to 40 steps on; _SUBSPACE_CHECK steps on
-    where there is no rate yet."""
-    if last is None or not 0 < resid < last[1]:
-        return step + _SUBSPACE_CHECK
-    rate = math.log(resid / last[1]) / (step - last[0])
-    ahead = math.ceil(math.log(tol / resid) / rate)
-    return step + min(max(ahead, 2), 40)
-
-
-def _subspace_topk(Gm, ncomp, oversample=8, sketch=None):
-    """Top-``ncomp`` eigenpairs of a batch of symmetric PSD Grams
-    (..., L, L) by blocked subspace iteration, run to convergence: a
-    block of m = min(L, ncomp + oversample) columns, multiplied by the
-    Gram every step and orthonormalized by :func:`_orth` (one pass, three
-    before a test), and at each test a Rayleigh-Ritz step. A matrix whose
-    top ``ncomp`` pairs all have residuals under the tolerance (module
-    constants) leaves the batch with them; :func:`_next_test` places the
-    tests from the rate at which the worst residual left falls. It works
-    in float64 whatever ``Gm``'s dtype: the residuals it stops on lie far
-    below float32's resolution. vip_tpu (annular.py:89) runs a fixed 30
-    steps in the input's precision, which leaves the top components
-    unconverged where the spectrum is flat past ncomp (the outer annuli
-    at ncomp ~10).
-
-    ``sketch`` is the (L, m) starting block, shared by every matrix of
-    the batch; None draws it with :func:`_default_sketch`. Each test reads
-    a few numbers back to the host. Returns (e_top (..., ncomp), U_top
-    (..., L, ncomp)), descending, in ``Gm``'s dtype.
-    """
-    L = Gm.shape[-1]
-    m = min(L, ncomp + oversample)
-    if sketch is None:
-        sketch = _default_sketch(L, m, torch.float64, Gm.device)
-    elif tuple(sketch.shape) != (L, m):
-        raise ValueError(f"sketch must have shape {(L, m)}, got "
-                         f"{tuple(sketch.shape)}")
-    lead = Gm.shape[:-2]
-    G64 = Gm.reshape(-1, L, L).to(torch.float64)
-    # normalize to keep the spectral radius near 1
-    scale = torch.clamp(G64.abs().amax(dim=(-2, -1)), min=1e-300)
-    A = G64 / scale[:, None, None]
-    k = min(ncomp, m)
-    e_out = G64.new_zeros((A.shape[0], k))
-    U_out = G64.new_zeros((A.shape[0], L, k))
-    live = torch.arange(A.shape[0], device=Gm.device)
-    Q = _orth(A @ sketch.to(Gm.device, torch.float64))
-    tol, max_steps = SUBSPACE_TOL, SUBSPACE_MAX_STEPS
-    step, test, last = 0, _SUBSPACE_CHECK, None
-    while live.numel():
-        AQ = A @ Q
-        step += 1
-        if step >= min(test, max_steps):
-            e, U, AU = _rayleigh_ritz(Q, AQ, ncomp)
-            top = torch.clamp(e[:, :1], min=1e-300)
-            resid = ((AU - U * e[:, None, :]).norm(dim=-2) / top).amax(-1)
-            done = resid <= tol if step < max_steps \
-                else torch.ones_like(resid, dtype=torch.bool)
-            left = torch.where(done, 0.0, resid)
-            n_done, worst = torch.stack([done.sum().to(left.dtype),
-                                         left.amax()]).tolist()
-            if n_done:
-                fin = done.nonzero()[:, 0]
-                e_out[live[fin]] = e[fin]
-                U_out[live[fin]] = U[fin]
-                if n_done == live.numel():
-                    break
-                keep = (~done).nonzero()[:, 0]
-                live, A, AQ = live[keep], A[keep], AQ[keep]
-            test, last = _next_test(step, worst, last, tol), (step, worst)
-        Q = _orth(AQ, passes=3 if step + 1 >= test else 1)
-    e_out = e_out * scale[:, None]
-    return (e_out.reshape(*lead, k).to(Gm.dtype),
-            U_out.reshape(*lead, L, k).to(Gm.dtype))
 
 
 def _gather_lib_grams(G, lib_idx):
@@ -251,7 +120,7 @@ def batched_pca_patch_residuals_gram(matrix, matrix_emp, lib_idx, lib_w,
     matrix, matrix_emp : (n, p). lib_idx : (n, L) int, padded arbitrarily.
     lib_w : (n, L), 1 for library rows and 0 for padding. ncomp : max PCs.
     k_eff : (n,) int or None. method : 'eigh' (exact per-frame eigh, in
-    the matrices' dtype) or 'subspace' (:func:`_subspace_topk`, started
+    the matrices' dtype) or 'subspace' (``linalg._subspace_topk``, started
     from ``sketch``; the Gram, the projection and
     the reconstruction then run in float64 too, since the coefficients C
     of nearly collinear library frames cancel, and float32 would lose
@@ -283,7 +152,7 @@ def _library_topk(Gm, ncomp, method, sketch, oversample):
     if method == "subspace":
         with annotate_trace("annular.subspace", count):
             return _subspace_topk(Gm, ncomp, oversample=oversample,
-                                  sketch=sketch)
+                                  sketch=sketch)[:2]
     with annotate_trace("annular.eigh", count):
         e, EV = torch.linalg.eigh(Gm)                            # ascending
     return e.flip(-1)[..., :ncomp], EV.flip(-1)[..., :ncomp]
